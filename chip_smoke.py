@@ -5,23 +5,33 @@
 
 Run from the root of a checkout on a machine with a CUDA card.  It
 
-1. builds the port's CUDA kernels from ``src/repro_torch/csrc`` and
-   prints the build time and ptxas' register and spill lines;
+1. builds the port's five CUDA kernels from ``src/repro_torch/csrc`` (one
+   ``nvcc`` per source, in parallel) and prints the build time and
+   ptxas' register, stack and spill lines;
 2. drives the port's main path through ``Q ... .engine("torch")`` on the
    paper's synthetic chain C1 at ``--n`` rows per relation (Table IV
    scale by default) with an integer measure on R3: COUNT, SUM, AVG, MIN
    and MAX grouped by R1.g1 and R4.g2.  It prints prepare, cold and warm
    execute times, result rows, peak device memory, the stream tile, each
-   kernel's launch count (every one must be > 0) and the device's idle
-   share in a warm execute under ``torch.profiler``;
-3. holds each kernel against its plain PyTorch version on the card, at
-   the largest shape the main path launched it with and on edge cases,
-   with tolerance 0 (integer-valued float32 below 2**24: every sum is
-   exact), and times kernel, plain version, one PyTorch library call as
-   a yardstick, and the bound from bytes and operations;
-4. checks the result: Σ COUNT and Σ SUM against an independent numpy
-   count of the chain join, and, at ``--check-n`` rows, the whole result
-   on the card bit-identical to the same plan on the CPU.
+   kernel's launch count (``segment_sum``, ``coo_spmm`` and
+   ``segment_reduce`` must be > 0, ``fused_hop`` 0) and the device's
+   idle share in a warm execute under ``torch.profiler``;
+3. drives the fused path, the same bundle on the same data with
+   ``.fused(True)``, and prints the same numbers; there only
+   ``fused_hop`` may launch, once per hop, per pass, per stream tile;
+4. checks the results: Σ COUNT and Σ SUM against an independent numpy
+   count of the chain join, every fused column bit-identical to the
+   unfused one, and, at ``--check-n`` rows, each path's result on the
+   card bit-identical to the same plan on the CPU;
+5. holds each kernel against its plain PyTorch version on the card, at
+   the largest shape the paths launched it with (``fused_hop``: per kind
+   and child count) and on edge cases, with tolerance 0 (integer-valued
+   float32 below 2**24: every sum is exact), and times kernel, plain
+   version, one PyTorch library call as a yardstick where one computes
+   the same function, ``fused_hop``'s three-dispatch counterpart on the
+   same hop, and the bound from bytes and operations.  No engine calls
+   ``semiring_matmul``: it is held and timed at (2048, 2048) x (2048,
+   2048) and on ragged shapes.
 
 The last three lines of standard output are the card's name and power
 limit, one JSON object of per-kernel numbers, and
@@ -49,7 +59,10 @@ KERNEL_SOURCES = {
     "segment_sum": ("src/repro_torch/csrc/segment_sum.cu", "src/repro/kernels/segment_sum.py:27"),
     "coo_spmm": ("src/repro_torch/csrc/coo_spmm.cu", "src/repro/kernels/coo_spmm.py:35"),
     "segment_reduce": ("src/repro_torch/csrc/segment_reduce.cu", "src/repro/kernels/segment_reduce.py:36"),
+    "fused_hop": ("src/repro_torch/csrc/fused_hop.cu", "src/repro/kernels/fused_hop.py:92"),
+    "semiring_matmul": ("src/repro_torch/csrc/semiring_matmul.cu", "src/repro/kernels/semiring_matmul.py:29"),
 }
+UNFUSED_KERNELS = ("segment_sum", "coo_spmm", "segment_reduce")
 
 
 class CheckFailed(RuntimeError):
@@ -202,27 +215,31 @@ def idle_share(torch, run) -> tuple[float, float, list[tuple[str, float, int]]]:
     return wall, busy_us / 1e6, top
 
 
-def capture_launches(run):
+def _numel(x) -> int:
+    if isinstance(x, (list, tuple)):
+        return sum(_numel(v) for v in x)
+    return x.numel() if hasattr(x, "numel") else 0
+
+
+def capture_launches(run, key_of):
     """Run ``run()`` with the engine's kernel wrappers wrapped, keeping
-    the arguments of each kernel's largest launch (by elements read and
-    written).  This run is outside any counted or timed one."""
+    the arguments of the largest launch (by elements read and written)
+    for each key ``key_of(name, args, kwargs)`` (None: not kept).  This
+    run is outside any counted or timed one."""
     from repro_torch.core import torch_engine
 
-    largest: dict[str, tuple[int, tuple, dict]] = {}
-    originals = {
-        name: getattr(torch_engine, name)
-        for name in ("segment_sum", "coo_spmm", "segment_reduce")
-    }
+    largest: dict = {}
+    names = UNFUSED_KERNELS + ("fused_hop",)
+    originals = {name: getattr(torch_engine, name) for name in names}
 
     def wrap(name, fn):
         def capturing(*args, **kwargs):
             out = fn(*args, **kwargs)
-            size = out.numel() + sum(
-                a.numel() for a in args if hasattr(a, "numel")
-            )
-            if name not in largest or size > largest[name][0]:
+            key = key_of(name, args, kwargs)
+            size = out.numel() + _numel(args)
+            if key is not None and (key not in largest or size > largest[key][0]):
                 kw = {k: v for k, v in kwargs.items() if k != "out"}
-                largest[name] = (size, args, kw)
+                largest[key] = (size, args, kw)
             return out
 
         return capturing
@@ -234,12 +251,41 @@ def capture_launches(run):
     finally:
         for name, fn in originals.items():
             setattr(torch_engine, name, fn)
-    return {name: (args, kw) for name, (_, args, kw) in largest.items()}
+    return {key: (args, kw) for key, (_, args, kw) in largest.items()}
+
+
+def hop_class(name, args, kwargs):
+    """A fused_hop launch's class: (kind, children, channel-uniform
+    weights); the other kernels are not kept."""
+    if name != "fused_hop":
+        return None
+    keys, w, msgs, idxs, num_segments, k, kind = args
+    return kind, len(msgs), bool((w == w[:, :1]).all())
 
 
 # ----------------------------------------------------------------------
 # kernels vs plain versions
 # ----------------------------------------------------------------------
+
+
+def compare(torch, tag, name, label, kernel, plain, args, kw=None):
+    """Run ``kernel`` and ``plain`` on the same inputs; fail unless they
+    agree exactly.  Returns max |kernel - plain|."""
+    kw = kw or {}
+    got = kernel(*args, **kw)
+    want = plain(*args, **kw)
+    torch.cuda.synchronize()
+    err = max_abs_err(torch, got, want)
+
+    def shape(a):
+        if isinstance(a, (list, tuple)):
+            return [shape(v) for v in a] if len(a) <= 4 else f"{len(a)} x {shape(a[0])}"
+        return tuple(a.shape) if hasattr(a, "shape") else a
+
+    say(tag, f"kernels: {name} [{label}] args {[shape(a) for a in args]} {kw}: "
+             f"max |kernel - plain| = {err} (tolerance 0)")
+    check(err == 0.0, f"{name} [{label}] disagrees with its plain version: {err}")
+    return err
 
 
 def kernel_cases(torch, dev):
@@ -282,6 +328,8 @@ def kernel_cases(torch, dev):
 
 
 def kernel_phase(torch, tag, captured):
+    """The three kernels of the unfused main path at its largest launch
+    of each and on edge cases."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.coo_spmm import coo_spmm
     from repro_torch.kernels.segment_reduce import segment_reduce
@@ -291,25 +339,14 @@ def kernel_phase(torch, tag, captured):
     seg_cases, spmm_cases = kernel_cases(torch, dev)
     results = {}
 
-    def compare(name, label, kernel, plain, args, kw):
-        got = kernel(*args, **kw)
-        want = plain(*args, **kw)
-        torch.cuda.synchronize()
-        err = max_abs_err(torch, got, want)
-        shapes = {
-            i: tuple(a.shape) if hasattr(a, "shape") else a for i, a in enumerate(args)
-        }
-        say(tag, f"kernels: {name} [{label}] args {shapes} {kw}: "
-                 f"max |kernel - plain| = {err} (tolerance 0)")
-        check(err == 0.0, f"{name} [{label}] disagrees with its plain version: {err}")
-        return err
-
     # --- segment_sum ---------------------------------------------------
     args, kw = captured["segment_sum"]
     data, ids, s = args
-    errs = [compare("segment_sum", "main path", segment_sum, ref.segment_sum, args, kw)]
+    errs = [compare(torch, tag, "segment_sum", "main path", segment_sum,
+                    ref.segment_sum, args, kw)]
     for a, k in seg_cases:
-        errs.append(compare("segment_sum", "edge", segment_sum, ref.segment_sum, a, k))
+        errs.append(compare(torch, tag, "segment_sum", "edge", segment_sum,
+                            ref.segment_sum, a, k))
     n, d = data.shape
     b, by = bound(n * d * 4 + n * 8 + s * d * 4, n * d)
     results["segment_sum"] = dict(
@@ -326,12 +363,12 @@ def kernel_phase(torch, tag, captured):
     # --- segment_reduce ------------------------------------------------
     args, kw = captured["segment_reduce"]
     (data, ids, s), kind = args, kw["kind"]
-    errs = [compare("segment_reduce", "main path", segment_reduce,
-                    ref.segment_reduce, (data, ids, s, kind), {})]
+    errs = [compare(torch, tag, "segment_reduce", "main path", segment_reduce,
+                    ref.segment_reduce, (data, ids, s, kind))]
     for a, _ in seg_cases:
         for kd in ("min", "max"):
-            errs.append(compare("segment_reduce", f"edge {kd}", segment_reduce,
-                                ref.segment_reduce, (*a, kd), {}))
+            errs.append(compare(torch, tag, "segment_reduce", f"edge {kd}",
+                                segment_reduce, ref.segment_reduce, (*a, kd)))
     n, d = data.shape
     b, by = bound(n * d * 4 + n * 8 + s * d * 4, n * d)
     red = "amin" if kind == "min" else "amax"
@@ -354,33 +391,299 @@ def kernel_phase(torch, tag, captured):
     # --- coo_spmm ------------------------------------------------------
     args, kw = captured["coo_spmm"]
     rows, cols, vals, dense, s = args
-    errs = [compare("coo_spmm", "main path", coo_spmm, ref.coo_spmm, args, kw)]
+    errs = [compare(torch, tag, "coo_spmm", "main path", coo_spmm, ref.coo_spmm,
+                    args, kw)]
     for a, k in spmm_cases:
-        errs.append(compare("coo_spmm", "edge", coo_spmm, ref.coo_spmm, a, k))
+        errs.append(compare(torch, tag, "coo_spmm", "edge", coo_spmm, ref.coo_spmm,
+                            a, k))
     nnz = rows.shape[0]
     kdense, w = dense.shape
     used = int(torch.unique(cols).numel())
     b, by = bound(nnz * 20 + used * w * 4 + s * w * 4, 2 * nnz * w)
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore")
-        mat = torch.sparse_coo_tensor(
-            torch.stack([rows, cols]), vals, (s, kdense)
-        ).coalesce().to_sparse_csr()
-        library_ms = time_ms(torch, lambda: torch.sparse.mm(mat, dense))
     results["coo_spmm"] = dict(
         shapes={"rows": [nnz], "dense": [kdense, w], "num_rows": s,
                 "dense_rows_used": used},
         max_abs_err=max(errs),
         ms=time_ms(torch, lambda: coo_spmm(rows, cols, vals, dense, s)),
         plain_ms=time_ms(torch, lambda: ref.coo_spmm(rows, cols, vals, dense, s), reps=3),
-        library_ms=library_ms,
+        library_ms=csr_spmm_ms(torch, rows, cols, vals, dense, s),
         bound_ms=b, bound_by=by,
     )
-    for name, r in results.items():
-        say(tag, f"kernels: {name} at {r['shapes']}: {r['ms']:.4f} ms, bound "
-                 f"{r['bound_ms']:.4f} ms by {r['bound_by']}, plain "
-                 f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms")
     return results
+
+
+def csr_spmm_ms(torch, rows, cols, vals, dense, num_rows) -> float:
+    """Time of ``torch.sparse.mm`` with the (rows, cols, vals) matrix in
+    CSR form, built outside the timed calls."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        mat = torch.sparse_coo_tensor(
+            torch.stack([rows, cols]), vals, (num_rows, dense.shape[0])
+        ).coalesce().to_sparse_csr()
+        return time_ms(torch, lambda: torch.sparse.mm(mat, dense))
+
+
+def fused_hop_cases(torch, dev):
+    """Edge cases of ``fused_hop`` as (label, args): zero edges, one
+    segment, leaf hops, two, three, five and 64 children, ±inf child rows
+    for min/max, an output row wider than one 4096-float tile, a key run
+    of 5000 edges, keys and child indices out of range.  Integer-valued
+    float32 whose products and sums stay below 2**24."""
+    g = torch.Generator(device="cpu").manual_seed(11)
+
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=g).to(dev)
+
+    def hop(n, s, k, kind, widths, rows=9, lo=-3, hi=4, inf_rows=0, key_lo=0,
+            key_hi=None, idx_hi=None):
+        keys = torch.sort(ints(key_lo, s if key_hi is None else key_hi, (n,))).values
+        w = ints(0, 4 if kind == "sum" else 50, (n, k)).float()
+        msgs, idxs = [], []
+        for wc in widths:
+            msg = ints(lo, hi, (rows, wc * k)).float()
+            if inf_rows:
+                msg[ints(0, rows, (inf_rows,))] = float("inf" if kind == "min" else "-inf")
+            msgs.append(msg.contiguous())
+            idxs.append(ints(0, rows if idx_hi is None else idx_hi, (n,)))
+        return (keys.contiguous(), w, msgs, idxs, s, k, kind)
+
+    cases = []
+    for kind, k in (("sum", 2), ("min", 1), ("max", 1)):
+        cases += [
+            (f"{kind} zero edges", hop(0, 5, k, kind, (2, 3))),
+            (f"{kind} one segment", hop(400, 1, k, kind, (4,))),
+            (f"{kind} leaf", hop(1000, 37, k, kind, ())),
+            (f"{kind} two children", hop(1000, 37, k, kind, (3, 5))),
+            (f"{kind} three children", hop(1000, 37, k, kind, (2, 3, 4))),
+            (f"{kind} five children", hop(500, 13, k, kind, (2, 1, 3, 2, 2), lo=-1, hi=2)),
+            (f"{kind} 64 children", hop(300, 7, k, kind, (1,) * 64, lo=-1, hi=2)),
+            (f"{kind} row of 5600 floats", hop(600, 5, k, kind, (70, 80 // k))),
+            (f"{kind} one run of 5000 edges", hop(5000, 1, k, kind, (33,), lo=-1, hi=2)),
+            (f"{kind} keys and indices out of range",
+             hop(800, 19, k, kind, (3, 2), key_lo=-3, key_hi=23, idx_hi=11)),
+        ]
+    for kind in ("min", "max"):
+        cases.append((f"{kind} ±inf child rows", hop(1000, 37, 1, kind, (3, 4), inf_rows=4)))
+    return cases
+
+
+def fused_phase(torch, tag, captured):
+    """``fused_hop`` against its plain version at the largest launch of
+    each hop class of the fused path and on edge cases; each class timed
+    beside its three-dispatch counterpart.  The JSON row is the
+    single-child channel-uniform sum hop, the hop ``coo_spmm`` runs on
+    the unfused path, where ``torch.sparse.mm`` computes the same."""
+    from repro_torch.core import torch_engine
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.fused_hop import fused_hop
+
+    dev = torch.device("cuda")
+    errs = []
+    for label, args in fused_hop_cases(torch, dev):
+        errs.append(compare(torch, tag, "fused_hop", label, fused_hop, ref.fused_hop, args))
+    hops = []
+    for (kind, nchild, uniform), (args, _) in sorted(captured.items()):
+        keys, w, msgs, idxs, s, k, _ = args
+        label = f"main path {kind}, {nchild} children, uniform={uniform}"
+        errs.append(compare(torch, tag, "fused_hop", label, fused_hop, ref.fused_hop, args))
+        n = keys.shape[0]
+        width = 1
+        nbytes = n * 8 + n * k * 4
+        for msg, idx in zip(msgs, idxs):
+            width *= msg.shape[1] // k
+            used = int(torch.unique(idx).numel())
+            nbytes += n * 8 + used * msg.shape[1] * 4
+        nbytes += s * width * k * 4
+        b, by = bound(nbytes, n * width * k * (nchild + 1))
+        keys_host = keys.cpu().numpy()
+        gathers = [(m.view(m.shape[0], -1, k), i) for m, i in zip(msgs, idxs)]
+        library, library_ms = None, None
+        if nchild == 0 and kind == "sum":
+            library = "index_add_"
+            library_ms = time_ms(
+                torch, lambda: torch.zeros((s, k), device=dev).index_add_(0, keys, w)
+            )
+        elif nchild == 0:
+            ident = float("inf") if kind == "min" else float("-inf")
+            library = f"scatter_reduce_ a{kind}"
+            library_ms = time_ms(
+                torch,
+                lambda: torch.full((s, 1), ident, device=dev).scatter_reduce_(
+                    0, keys[:, None], w, f"a{kind}", include_self=True
+                ),
+            )
+        elif nchild == 1 and kind == "sum" and uniform:
+            library = "torch.sparse.mm, CSR"
+            library_ms = csr_spmm_ms(torch, keys, idxs[0], w[:, 0].contiguous(), msgs[0], s)
+        hop = dict(
+            kind=kind, children=nchild, uniform=uniform,
+            shapes={"edges": n, "k": k, "num_segments": s,
+                    "messages": [list(m.shape) for m in msgs]},
+            ms=time_ms(torch, lambda: fused_hop(*args)),
+            three_dispatch_ms=time_ms(
+                torch,
+                lambda: torch_engine.contract_hop(
+                    keys, keys_host, w, gathers, s, kind, False, uniform
+                ),
+                reps=3,
+            ),
+            plain_ms=time_ms(torch, lambda: ref.fused_hop(*args), reps=3),
+            library=library, library_ms=library_ms, bound_ms=b, bound_by=by,
+        )
+        hops.append(hop)
+        say(tag, f"kernels: fused_hop [{label}] at {hop['shapes']}: {hop['ms']:.4f} ms, "
+                 f"three-dispatch {hop['three_dispatch_ms']:.4f} ms, bound "
+                 f"{b:.4f} ms by {by}, plain {hop['plain_ms']:.4f} ms, library "
+                 f"{library} {library_ms if library_ms is None else f'{library_ms:.4f}'} ms")
+    check(hops, "no fused_hop launch captured")
+    for kind in ("sum", "min", "max"):
+        check(any(h["kind"] == kind for h in hops), f"fused path ran no {kind} hop")
+    check(any(h["kind"] == "sum" and h["shapes"]["k"] > 1 for h in hops),
+          "fused path ran no sum hop with k > 1")
+    row = max(
+        (h for h in hops if h["kind"] == "sum"),
+        key=lambda h: (h["children"] == 1 and h["uniform"], h["ms"]),
+    )
+    return dict(row, max_abs_err=max(errs), hops=hops)
+
+
+def semiring_phase(torch, tag, size: int = 2048):
+    """``semiring_matmul`` against its plain version for every semiring
+    at (size, size) x (size, size) and on ragged shapes, small integers
+    (``add_mul`` stays exact) and ±inf entries; timed beside
+    ``torch.matmul`` in full float32 (TF32 off) for ``add_mul``."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.semiring_matmul import SEMIRINGS, semiring_matmul
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    g = torch.Generator(device="cpu").manual_seed(13)
+
+    def ints(shape, infs=0.0):
+        x = torch.randint(-3, 4, shape, generator=g).float()
+        if infs:
+            pick = torch.rand(shape, generator=g)
+            x[pick < infs / 2] = float("inf")
+            x[(pick >= infs / 2) & (pick < infs)] = float("-inf")
+        return x.to(dev)
+
+    errs = []
+    a, b = ints((size, size)), ints((size, size))
+    for semiring in SEMIRINGS:
+        errs.append(compare(torch, tag, "semiring_matmul", f"{semiring} main shape",
+                            semiring_matmul, ref.semiring_matmul, (a, b, semiring)))
+        for m, kd, n, infs in [(65, 33, 129, 0.0), (1, 1, 1, 0.0), (100, 0, 7, 0.0),
+                               (3, 1000, 5, 0.0), (130, 70, 66, 0.1)]:
+            errs.append(compare(
+                torch, tag, "semiring_matmul", f"{semiring} ragged, inf share {infs}",
+                semiring_matmul, ref.semiring_matmul,
+                (ints((m, kd), infs), ints((kd, n), infs), semiring),
+            ))
+    b_ms, by = bound(3 * size * size * 4, 2 * size**3)
+    times = {
+        semiring: dict(
+            ms=time_ms(torch, lambda: semiring_matmul(a, b, semiring)),
+            plain_ms=time_ms(torch, lambda: ref.semiring_matmul(a, b, semiring), reps=2),
+        )
+        for semiring in SEMIRINGS
+    }
+    library_ms = time_ms(torch, lambda: torch.matmul(a, b))
+    for semiring, t in times.items():
+        say(tag, f"kernels: semiring_matmul {semiring} at ({size}, {size}) x ({size}, "
+                 f"{size}): {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
+                 f"{b_ms:.4f} ms by {by}")
+    say(tag, f"kernels: semiring_matmul library torch.matmul (float32, TF32 off) "
+             f"{library_ms:.4f} ms")
+    return dict(
+        shapes={"a": [size, size], "b": [size, size], "semiring": "add_mul"},
+        max_abs_err=max(errs), ms=times["add_mul"]["ms"],
+        plain_ms=times["add_mul"]["plain_ms"], library_ms=library_ms,
+        bound_ms=b_ms, bound_by=by, semirings=times,
+    )
+
+
+# ----------------------------------------------------------------------
+# the two paths
+# ----------------------------------------------------------------------
+
+
+def drive(torch, tag, label, make_plan):
+    """Plan, then execute cold and warm with the launch counts set to 0
+    just before the cold execute and read just after; print the times,
+    peak device memory, warm split, host profile and device idle share."""
+    from repro_torch.api import plan as plan_mod
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    plan = make_plan()
+    torch.cuda.synchronize()
+    prepare_s = time.perf_counter() - t0
+    stream = plan.resolved_stream()
+    say(tag, f"{label}: {plan}; fused={plan.fused}; prepare {prepare_s:.3f} s; est "
+             f"peak message {plan.message_peak} B; stream tile {stream}")
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = plan.execute()
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    say(tag, f"{label}: cold execute {cold_s:.3f} s, launches {launches}")
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = plan.execute()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    say(tag, f"{label}: warm execute {warm_s:.3f} s, result rows "
+             f"{res.num_rows}, peak device memory {peak} B")
+
+    t0 = time.perf_counter()
+    outputs = plan.engine.run(plan.prep, plan.channels, plan.minmax, stream, plan.fused)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plan_mod._assemble(plan, outputs)
+    assemble_s = time.perf_counter() - t0
+    say(tag, f"{label}: warm split: engine.run {run_s:.3f} s, assemble "
+             f"{assemble_s:.3f} s")
+
+    host = cProfile.Profile()
+    host.enable()
+    plan.execute()
+    torch.cuda.synchronize()
+    host.disable()
+    stats = pstats.Stats(host)
+    say(tag, f"host profile: {label}, warm execute, {stats.total_tt:.3f} s of Python "
+             "profile time; top functions by own time:")
+    rows = sorted(stats.stats.items(), key=lambda kv: -kv[1][2])[:12]
+    for (file, line, fn), (_, calls, tottime, cumtime, _) in rows:
+        say(tag, f"host profile: {tottime * 1e3:9.1f} ms own {cumtime * 1e3:9.1f} ms "
+                 f"cum x{calls:<6d} {fn} ({Path(file).name}:{line})")
+
+    wall, busy, top = idle_share(torch, plan.execute)
+    say(tag, f"profile: {label}, warm execute {wall:.3f} s wall, device busy "
+             f"{busy:.3f} s, idle share {1 - busy / wall:.3f}")
+    for name, ms, cnt in top:
+        say(tag, f"profile: {ms:10.3f} ms x{cnt:<6d} {name[:90]}")
+    summary = {
+        "prepare_s": prepare_s, "cold_execute_s": cold_s, "warm_execute_s": warm_s,
+        "engine_run_s": run_s, "assemble_s": assemble_s, "rows": res.num_rows,
+        "peak_bytes": peak, "stream": stream, "device_busy_s": busy,
+        "idle_share": 1 - busy / wall, "launches": launches,
+    }
+    return plan, res, summary
+
+
+def same_result(a, b) -> bool:
+    import numpy as np
+
+    return list(a.relation.columns) == list(b.relation.columns) and all(
+        a.column(c).dtype == b.column(c).dtype and np.array_equal(a.column(c), b.column(c))
+        for c in a.relation.columns
+    )
 
 
 # ----------------------------------------------------------------------
@@ -407,7 +710,6 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(SRC))
     from repro_torch.api import TorchChannelEngine
-    from repro_torch.api import plan as plan_mod
     from repro_torch.kernels import ops
 
     tag = card_line()
@@ -422,113 +724,102 @@ def main() -> int:
              + ", ".join(f"{k} {v.seconds:.2f} s" for k, v in built.items()) + ")")
     for name, b in built.items():
         for line in b.log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "stack frame" in line:
                 say(tag, f"build: {name}: {line.strip()}")
 
-    # 2. main path -------------------------------------------------------
-    t0 = time.perf_counter()
+    # 2. main path (unfused) ---------------------------------------------
     db, cols = chain_db(args.n, args.seed)
-    plan = bundle_query("torch").plan(db)
-    torch.cuda.synchronize()
-    prepare_s = time.perf_counter() - t0
-    stream = plan.resolved_stream()
-    say(tag, f"main path: C1 n={args.n} seed={args.seed}; {plan}; prepare "
-             f"{prepare_s:.3f} s; est peak message {plan.message_peak} B; "
-             f"stream tile {stream}")
-
-    ops.reset_launch_counts()
-    t0 = time.perf_counter()
-    res = plan.execute()
-    torch.cuda.synchronize()
-    cold_s = time.perf_counter() - t0
-    launches = ops.launch_counts()
-    say(tag, f"main path: cold execute {cold_s:.3f} s, launches {launches}")
-    for name in ops.KERNELS:
+    say(tag, f"data: C1 n={args.n} seed={args.seed}")
+    plan, res, main = drive(torch, tag, "main path", lambda: bundle_query("torch").plan(db))
+    launches = main["launches"]
+    for name in UNFUSED_KERNELS:
         check(launches[name] > 0, f"main path never launched {name}")
+    check(launches["fused_hop"] == 0, "the unfused main path launched fused_hop")
+    check(launches["semiring_matmul"] == 0, "the main path launched semiring_matmul")
 
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    res = plan.execute()
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated()
-    say(tag, f"main path: warm execute {warm_s:.3f} s, result rows "
-             f"{res.num_rows}, peak device memory {peak} B")
+    # 3. fused path -------------------------------------------------------
+    fplan, fres, fused = drive(
+        torch, tag, "fused path", lambda: bundle_query("torch").fused(True).plan(db)
+    )
+    flaunches = fused["launches"]
+    hops = len(fplan.prep.decomposition.nodes)
+    passes = 1 + len(fplan.minmax)
+    fstream = fplan.resolved_stream()
+    tiles = 1 if fstream is None else -(-fplan.prep.dicts[fstream[0]].size // fstream[1])
+    say(tag, f"fused path: launches reckoned as {hops} hops x {passes} passes (1 "
+             f"channel pass + {len(fplan.minmax)} MIN/MAX) x {tiles} stream tiles = "
+             f"{hops * passes * tiles}; counted {flaunches['fused_hop']}")
+    check(flaunches["fused_hop"] > 0, "fused path never launched fused_hop")
+    check(flaunches["fused_hop"] == hops * passes * tiles,
+          "fused_hop launches differ from hops x passes x stream tiles")
+    for name in UNFUSED_KERNELS + ("semiring_matmul",):
+        check(flaunches[name] == 0, f"fused path launched {name}")
 
-    t0 = time.perf_counter()
-    outputs = plan.engine.run(plan.prep, plan.channels, plan.minmax, stream)
-    torch.cuda.synchronize()
-    run_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    plan_mod._assemble(plan, outputs)
-    assemble_s = time.perf_counter() - t0
-    say(tag, f"main path: warm split: engine.run {run_s:.3f} s, assemble "
-             f"{assemble_s:.3f} s")
-
-    host = cProfile.Profile()
-    host.enable()
-    plan.execute()
-    torch.cuda.synchronize()
-    host.disable()
-    stats = pstats.Stats(host)
-    say(tag, f"host profile: warm execute, {stats.total_tt:.3f} s of Python "
-             "profile time; top functions by own time:")
-    rows = sorted(stats.stats.items(), key=lambda kv: -kv[1][2])[:12]
-    for (file, line, fn), (_, calls, tottime, cumtime, _) in rows:
-        say(tag, f"host profile: {tottime * 1e3:9.1f} ms own {cumtime * 1e3:9.1f} ms "
-                 f"cum x{calls:<6d} {fn} ({Path(file).name}:{line})")
-
-    wall, busy, top = idle_share(torch, plan.execute)
-    say(tag, f"profile: warm execute {wall:.3f} s wall, device busy {busy:.3f} s, "
-             f"idle share {1 - busy / wall:.3f}")
-    for name, ms, cnt in top:
-        say(tag, f"profile: {ms:10.3f} ms x{cnt:<6d} {name[:90]}")
-
-    # 3. correctness -----------------------------------------------------
+    # 4. correctness -----------------------------------------------------
     want_n, want_s = chain_totals(cols)
-    got_n, got_s = res.column("n").sum(), res.column("s").sum()
-    say(tag, f"check: Σ count {got_n:.0f} vs numpy {want_n}; Σ sum {got_s:.0f} "
-             f"vs numpy {want_s}")
-    check(got_n == want_n and got_s == want_s, "Σ count / Σ sum disagree with numpy")
-    check(res.num_rows > 0, "empty result")
-    for name in res.agg_names:
-        check(bool(np.isfinite(res.column(name)).all()), f"non-finite values in {name}")
+    for label, r in (("main path", res), ("fused path", fres)):
+        got_n, got_s = r.column("n").sum(), r.column("s").sum()
+        say(tag, f"check: {label}: Σ count {got_n:.0f} vs numpy {want_n}; Σ sum "
+                 f"{got_s:.0f} vs numpy {want_s}")
+        check(got_n == want_n and got_s == want_s,
+              f"{label}: Σ count / Σ sum disagree with numpy")
+        check(r.num_rows > 0, f"{label}: empty result")
+        for name in r.agg_names:
+            check(bool(np.isfinite(r.column(name)).all()),
+                  f"{label}: non-finite values in {name}")
+    same = same_result(res, fres)
+    say(tag, f"check: fused path: {fres.num_rows} rows, every column bit-identical "
+             f"to the unfused main path: {same}")
+    check(same, "fused result differs from the unfused result")
 
     small, _ = chain_db(args.check_n, args.seed)
-    gpu = bundle_query("torch").plan(small).execute()
-    cpu = bundle_query(TorchChannelEngine(device="cpu")).plan(small).execute()
-    same = all(
-        gpu.column(c).dtype == cpu.column(c).dtype
-        and np.array_equal(gpu.column(c), cpu.column(c))
-        for c in cpu.relation.columns
-    )
-    say(tag, f"check: C1 n={args.check_n}: {cpu.num_rows} rows, "
-             f"{len(cpu.relation.columns)} columns bit-identical to device='cpu': {same}")
-    check(same and gpu.num_rows == cpu.num_rows, "cuda result differs from cpu result")
+    for label, fuse in (("main path", None), ("fused path", True)):
+        gq = bundle_query("torch")
+        cq = bundle_query(TorchChannelEngine(device="cpu"))
+        if fuse:
+            gq, cq = gq.fused(True), cq.fused(True)
+        gpu, cpu = gq.plan(small).execute(), cq.plan(small).execute()
+        same = same_result(gpu, cpu)
+        say(tag, f"check: {label}: C1 n={args.check_n}: {cpu.num_rows} rows, "
+                 f"{len(cpu.relation.columns)} columns bit-identical to device='cpu': "
+                 f"{same}")
+        check(same and gpu.num_rows == cpu.num_rows,
+              f"{label}: cuda result differs from cpu result")
 
-    # 4. kernels vs plain, at the main path's shapes ---------------------
-    captured = capture_launches(plan.execute)
-    for name in ops.KERNELS:
+    # 5. kernels vs plain, at the paths' shapes --------------------------
+    captured = capture_launches(plan.execute, lambda name, a, kw: (
+        name if name in UNFUSED_KERNELS else None
+    ))
+    for name in UNFUSED_KERNELS:
         check(name in captured, f"no {name} launch captured")
     results = kernel_phase(torch, tag, captured)
+    results["fused_hop"] = fused_phase(torch, tag, capture_launches(fplan.execute, hop_class))
+    results["semiring_matmul"] = semiring_phase(torch, tag)
 
-    summary = {
-        "prepare_s": prepare_s, "cold_execute_s": cold_s, "warm_execute_s": warm_s,
-        "engine_run_s": run_s, "assemble_s": assemble_s, "rows": res.num_rows,
-        "peak_bytes": peak, "stream": stream, "idle_share": 1 - busy / wall,
-    }
-    say(tag, f"main path summary: {json.dumps(summary)}")
+    for label, summary in (("main path", main), ("fused path", fused)):
+        say(tag, f"{label} summary: {json.dumps(summary)}")
+    paths = {name: "main" for name in UNFUSED_KERNELS}
+    paths.update(fused_hop="fused", semiring_matmul=None)
+    counts = {name: launches[name] for name in UNFUSED_KERNELS}
+    counts.update(fused_hop=flaunches["fused_hop"], semiring_matmul=0)
     kernels = []
     for name in ops.KERNELS:
         r = results[name]
         src, replaces = KERNEL_SOURCES[name]
-        kernels.append({
+        entry = {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": r["max_abs_err"],
+            "launches": counts[name], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "shapes": r["shapes"],
-        })
+            "shapes": r["shapes"], "path": paths[name],
+        }
+        if name == "fused_hop":
+            entry.update(three_dispatch_ms=r["three_dispatch_ms"], library=r["library"],
+                         hops=r["hops"])
+        if name == "semiring_matmul":
+            entry.update(note="no path launches it; held and timed on its own",
+                         semirings=r["semirings"])
+        kernels.append(entry)
     print(tag, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

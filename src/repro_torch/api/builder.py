@@ -14,8 +14,9 @@ Every method returns a new immutable ``Q``; ``plan(db)`` compiles to a
 :class:`~repro_torch.api.plan.Plan`.  Self-joins: pass ``("alias",
 "Source")`` tuples (or repeat a bare name — occurrences auto-alias as
 ``name__2``, ``name__3``, ...) and rename the alias's columns with
-``.rename``.  Port of the JAX package's ``api/builder.py``; ``.mesh``,
-``.fused`` and ``.maintain`` raise :class:`UnsupportedPlanOption`.
+``.rename``.  Port of the JAX package's ``api/builder.py``; ``.mesh``
+and ``.maintain`` raise :class:`UnsupportedPlanOption`.  The port has
+no dense path, so ``.fused(True)`` already runs on the sparse one.
 """
 from __future__ import annotations
 
@@ -78,6 +79,9 @@ class Q:
     engine_name: str | TorchChannelEngine = "torch"
     budget: int | None = None
     stream_opt: tuple[str, int] | None = None
+    # fused hop kernels (DESIGN.md §13): True/False pins the choice,
+    # None defers to the REPRO_FUSED environment switch
+    fused_opt: bool | None = None
 
     # ------------------------------------------------------------------
     @staticmethod
@@ -199,9 +203,12 @@ class Q:
         )
 
     def fused(self, enabled: bool = True) -> "Q":
-        raise UnsupportedPlanOption(
-            "fused hop kernels are not ported to repro_torch"
-        )
+        """Run every decomposition-tree hop as one ``fused_hop`` kernel
+        launch (gather → product → segment reduction, DESIGN.md §13);
+        ``False`` pins the three-dispatch kernels even when
+        ``REPRO_FUSED`` is set.  Only fused-capable engines accept the
+        option."""
+        return replace(self, fused_opt=bool(enabled))
 
     def maintain(self, db):
         raise UnsupportedPlanOption(

@@ -110,7 +110,8 @@ def sparsify(
 class TorchChannelEngine:
     """Sparse torch backend: :class:`~repro_torch.core.torch_engine.
     SparseProgram` hops on the hand-written kernels over grouped-CSR
-    relations, group-axis stream tiles, MIN/MAX on the semiring kernel.
+    relations, group-axis stream tiles, MIN/MAX on the semiring kernel;
+    with ``fused`` every hop is one ``fused_hop`` launch.
 
     ``device`` defaults to ``"cuda"``; a plan fails at compile time when
     no card is present.  ``TorchChannelEngine(device="cpu")`` runs the
@@ -120,6 +121,7 @@ class TorchChannelEngine:
 
     name = "torch"
     supports_streaming = True
+    supports_fused = True
 
     def __init__(self, device: str | torch.device = "cuda"):
         self._device = torch.device(device)
@@ -134,11 +136,13 @@ class TorchChannelEngine:
             )
         return self._device
 
-    def run(self, prep, channels, minmax, stream=None):
+    def run(self, prep, channels, minmax, stream=None, fused=None):
         """Contract all channels in one pass; one output per stream tile
-        (``stream`` = ``(group attr, tile)``, as the planner resolved it)."""
+        (``stream`` = ``(group attr, tile)``, as the planner resolved it).
+        ``fused`` True/False pins the fused hops, None follows
+        ``REPRO_FUSED``."""
         cm = tuple(ch.measure[0] if ch.kind == "sum" else None for ch in channels)
-        prog = build_sparse_program(prep, cm, self.device)
+        prog = build_sparse_program(prep, cm, self.device, fused)
         tiles = [(None, None, None)] if stream is None else prog.run_stream(*stream)
         outs = []
         for enc, domains, offsets in tiles:

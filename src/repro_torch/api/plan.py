@@ -15,9 +15,9 @@ single :class:`Plan` through three stages:
    derived at assembly), and MIN/MAX requests; all distributive channels
    run in a *single* contraction pass.
 
-Port of the acyclic subset of the JAX package's ``api/plan.py``: cyclic
-queries (its GHD compiler), meshes, fused hops and incremental
-maintenance raise :class:`UnsupportedPlanOption`.
+Port of the acyclic subset of the JAX package's ``api/plan.py``, fused
+hops included (``Q.fused``); cyclic queries (its GHD compiler), meshes
+and incremental maintenance raise :class:`UnsupportedPlanOption`.
 """
 from __future__ import annotations
 
@@ -97,6 +97,9 @@ class Plan:
     rewrite_notes: tuple[str, ...]
     memory_budget: int | None
     stream: tuple[str, int] | None
+    # fused hop kernels (DESIGN.md §13): True/False pins the choice,
+    # None defers to the REPRO_FUSED environment switch at run time
+    fused: bool | None = None
 
     @property
     def message_peak(self) -> int:
@@ -124,8 +127,11 @@ class Plan:
 
     def execute(self) -> AggResult:
         """Run every named aggregate in a single contraction pass."""
+        kwargs = {}
+        if getattr(self.engine, "supports_fused", False):
+            kwargs["fused"] = self.fused
         outputs = self.engine.run(
-            self.prep, self.channels, self.minmax, self.resolved_stream()
+            self.prep, self.channels, self.minmax, self.resolved_stream(), **kwargs
         )
         return _assemble(self, outputs)
 
@@ -166,6 +172,11 @@ def compile_plan(spec, db: Database) -> Plan:
 
     engine = resolve_engine(spec.engine_name)
     engine.device  # raises here, before encoding, when the card is absent
+    if spec.fused_opt is not None and not getattr(engine, "supports_fused", False):
+        raise UnsupportedPlanOption(
+            f"engine {engine.name!r} has no fused hop kernels; drop "
+            ".fused(...) or use the 'torch' engine"
+        )
 
     notes: list[str] = []
     edb = _apply_aliases(spec, db, notes)
@@ -214,6 +225,7 @@ def compile_plan(spec, db: Database) -> Plan:
         rewrite_notes=tuple(notes),
         memory_budget=spec.budget,
         stream=spec.stream_opt,
+        fused=spec.fused_opt,
     )
 
 

@@ -102,7 +102,9 @@ class TensorEngine:
 
     def _contract_block(self, weights, gathers, view, knum: int) -> torch.Tensor:
         """``out[keys[i]] ⊕= w[i] ⊗ Π_c m2_c[idx_c[i]]`` (outer product
-        over the children's group axes) into ``(knum, width, *chan)``."""
+        over the children's group axes) into ``(knum, width, *chan)``,
+        or the same elements in that order with the trailing axes
+        flattened."""
         raise NotImplementedError
 
     def contract_rows(self, rel: str, parent: str | None, view, weights, child_msgs):

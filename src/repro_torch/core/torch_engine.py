@@ -12,7 +12,10 @@ hand-written kernels, with the same routing as the JAX engine:
   channel-diagonal product of gathered child message rows (plain tensor
   code), reduced with ``segment_sum``;
 * MIN/MAX → ``(min, +)`` / ``(max, +)`` semiring hops on
-  ``segment_reduce``.
+  ``segment_reduce``;
+* fused (``Q.fused(True)`` or ``REPRO_FUSED``) → every hop, sum or
+  MIN/MAX, is one ``fused_hop`` launch: no edge chunks, no edge-sized
+  product (DESIGN.md §13).
 
 What lives on the device: each grouped-CSR view (sorted keys, permuted
 codes and weights), moved once per ``Prepared`` or stream tile, and every
@@ -35,6 +38,8 @@ import torch
 from repro_torch.core.prepare import CSRView, Prepared, csr_restrict, grouped_csr
 from repro_torch.core.tensor_engine import ChannelTensorEngine, TensorEngine
 from repro_torch.kernels.coo_spmm import coo_spmm
+from repro_torch.kernels.fused_hop import fused_hop
+from repro_torch.kernels.ops import fused_enabled
 from repro_torch.kernels.segment_reduce import segment_reduce
 from repro_torch.kernels.segment_sum import segment_sum
 
@@ -152,31 +157,87 @@ def _gathered_products(vals, gathers, sl, combine, chan: tuple[int, ...]):
 
 
 def _reduce_in_chunks(
-    view: DeviceView, out: torch.Tensor, chunk: int, edge_values, reduce, combine
+    keys: torch.Tensor, keys_host: np.ndarray, out: torch.Tensor, chunk: int,
+    edge_values, reduce, combine,
 ) -> torch.Tensor:
     """Fill ``out`` (one row per key) chunk by chunk: for each key range
     of :func:`key_chunks`, form the chunk's per-edge values
     (``edge_values(edge slice)``) and let the kernel (``reduce(values,
     ids, num_keys, out=rows)``) write the range's rows; a run split
     across two chunks combines its two partials with ``combine``."""
-    chunks = key_chunks(view.keys_host, out.shape[0], chunk)
-    for e_lo, e_hi, k_lo, k_hi, shared in chunks:
+    for e_lo, e_hi, k_lo, k_hi, shared in key_chunks(keys_host, out.shape[0], chunk):
         sl = slice(e_lo, e_hi)
         dst = out[k_lo:k_hi]
         carry = dst[0].clone() if shared else None
-        reduce(edge_values(sl), view.keys[sl] - k_lo, k_hi - k_lo, out=dst)
+        reduce(edge_values(sl), keys[sl] - k_lo, k_hi - k_lo, out=dst)
         if carry is not None:
             dst[0] = combine(dst[0], carry)
     return out
 
 
+def contract_hop(
+    keys: torch.Tensor,
+    keys_host: np.ndarray,
+    w: torch.Tensor,
+    gathers,
+    knum: int,
+    kind: str,
+    fused: bool,
+    uniform: bool = False,
+) -> torch.Tensor:
+    """One hop into ``(knum, width·k)``: ``out[keys[e]] ⊕= w[e] ⊗ Π_c
+    m2_c[idx_c[e]]`` (outer product over the children's widths,
+    channel-diagonal) for edges in grouped-CSR order — ``keys`` ascending
+    on the device, ``keys_host`` the same keys on the host —, ``w (n,
+    k)``, ``gathers`` of ``(m2 (rows, width_c[, k]), idx (n,))`` pairs and
+    ``kind`` ``"sum"`` (×, +) or ``"min"``/``"max"`` (+, min/max; k = 1).
+
+    ``fused`` → one ``fused_hop`` launch.  Otherwise the JAX engine's
+    three-dispatch routing: a single-child sum hop with channel-
+    ``uniform`` weights on ``coo_spmm``; every other hop as the per-edge
+    product of gathered child rows, in edge chunks bounded by
+    ``_REF_GATHER_BYTES``, reduced by ``segment_sum`` or
+    ``segment_reduce``."""
+    k = w.shape[1]
+    gathers = [(m2.reshape(m2.shape[0], m2.shape[1], k), idx) for m2, idx in gathers]
+    if fused:
+        return fused_hop(
+            keys, w, [m2.reshape(m2.shape[0], -1) for m2, _ in gathers],
+            [idx for _, idx in gathers], knum, k, kind,
+        )
+    if kind == "sum" and len(gathers) == 1 and uniform:
+        m2, idx = gathers[0]
+        return coo_spmm(
+            keys, idx, w[:, 0].contiguous(), m2.reshape(m2.shape[0], -1), knum
+        )
+    width = math.prod(m2.shape[1] for m2, _ in gathers)
+    out = torch.empty((knum, width * k), dtype=torch.float32, device=w.device)
+    if kind == "sum":
+        combine, reduce, merge = torch.mul, segment_sum, torch.add
+    else:
+        combine = torch.add
+        reduce = functools.partial(segment_reduce, kind=kind)
+        merge = torch.minimum if kind == "min" else torch.maximum
+    return _reduce_in_chunks(
+        keys, keys_host, out, max(1024, _REF_GATHER_BYTES // max(4 * width * k, 1)),
+        lambda sl: _gathered_products(
+            w[sl].reshape(-1, 1, k), gathers, sl, combine, (k,)
+        ).reshape(sl.stop - sl.start, width * k),
+        reduce, merge,
+    )
+
+
 class _KernelChannelEngine(_CsrHopMixin, ChannelTensorEngine):
     """k-channel contraction whose hops run on ``coo_spmm`` (single child,
-    channel-uniform weights) or ``segment_sum`` (everything else)."""
+    channel-uniform weights) or ``segment_sum`` (everything else), or each
+    on one ``fused_hop`` launch when ``fused``."""
 
-    def __init__(self, *args, view_cache: dict | None = None, **kwargs):
+    def __init__(
+        self, *args, view_cache: dict | None = None, fused: bool = False, **kwargs
+    ):
         super().__init__(*args, **kwargs)
         self.view_cache = {} if view_cache is None else view_cache
+        self.fused = fused
 
     def _weights(self, rel: str, view: DeviceView):
         """``((n, k) weights, uniform)``; ``uniform`` (every channel
@@ -190,43 +251,30 @@ class _KernelChannelEngine(_CsrHopMixin, ChannelTensorEngine):
 
     def _contract_block(self, weights, gathers, view, knum):
         w, uniform = weights
-        k = self.k
-        if len(gathers) == 1 and uniform:
-            m2, idx = gathers[0]  # m2 (rows, width, k)
-            rows, width = m2.shape[0], m2.shape[1]
-            out = coo_spmm(
-                view.keys, idx, w[:, 0].contiguous(),
-                m2.reshape(rows, width * k), knum,
-            )
-            return out.view(knum, width, k)
-        width = math.prod(m2.shape[1] for m2, _ in gathers)
-        out = torch.empty((knum, width * k), dtype=torch.float32, device=self.device)
-        _reduce_in_chunks(
-            view, out, max(1024, _REF_GATHER_BYTES // max(4 * width * k, 1)),
-            lambda sl: _gathered_products(
-                w[sl].reshape(-1, 1, k), gathers, sl, torch.mul, (k,)
-            ).reshape(sl.stop - sl.start, width * k),
-            segment_sum, torch.add,
+        return contract_hop(
+            view.keys, view.keys_host, w, gathers, knum, "sum", self.fused, uniform
         )
-        return out.view(knum, width, k)
 
 
 class _MinMaxKernelEngine(_CsrHopMixin, TensorEngine):
     """(min, +) / (max, +) semiring message passing over the tree: the
     measure relation contributes its per-edge payload, every other
     relation contributes 0, and each hop reduces the per-edge candidate
-    sums into their row keys with ``segment_reduce``.  Unreached entries
-    hold the identity (±inf) until :meth:`SparseProgram.run_minmax`
-    masks them."""
+    sums into their row keys with ``segment_reduce`` (or forms and
+    reduces them in one ``fused_hop`` launch when ``fused``).  Unreached
+    entries hold the identity (±inf) until
+    :meth:`SparseProgram.run_minmax` masks them."""
 
     def __init__(
         self, prep, kind: str, rel_m: str, device, *,
         domains=None, encoded=None, view_cache: dict | None = None,
+        fused: bool = False,
     ):
         super().__init__(prep, device, domains=domains, encoded=encoded)
         self.kind = kind
         self.rel_m = rel_m
         self.view_cache = {} if view_cache is None else view_cache
+        self.fused = fused
 
     def _weights(self, rel: str, view: DeviceView) -> torch.Tensor:
         er = self.encoded[rel]
@@ -238,15 +286,9 @@ class _MinMaxKernelEngine(_CsrHopMixin, TensorEngine):
         return view.memo[key]
 
     def _contract_block(self, weights, gathers, view, knum):
-        width = math.prod(m2.shape[1] for m2, _ in gathers)
-        out = torch.empty((knum, width), dtype=torch.float32, device=self.device)
-        return _reduce_in_chunks(
-            view, out, max(1024, _REF_GATHER_BYTES // max(4 * width, 1)),
-            lambda sl: _gathered_products(
-                weights[sl].reshape(-1, 1), gathers, sl, torch.add, ()
-            ),
-            functools.partial(segment_reduce, kind=self.kind),
-            torch.minimum if self.kind == "min" else torch.maximum,
+        return contract_hop(
+            view.keys, view.keys_host, weights.reshape(-1, 1), gathers, knum,
+            self.kind, self.fused,
         )
 
 
@@ -257,12 +299,15 @@ class SparseProgram:
     ``channel_measures`` entry ``c`` names the relation whose ``sum``
     payload rides channel ``c`` (None = COUNT).  Grouped-CSR views are
     memoized on the ``Prepared`` (host and device), so repeated runs and
-    stream tiles reuse the sorted, uploaded edge blocks.
+    stream tiles reuse the sorted, uploaded edge blocks.  ``fused``
+    (True/False pins it, None follows ``REPRO_FUSED``, read once per
+    pass) runs every hop on ``fused_hop``.
     """
 
     prep: Prepared
     channel_measures: tuple[str | None, ...]
     device: torch.device
+    fused: bool | None = None
 
     @property
     def k(self) -> int:
@@ -276,6 +321,7 @@ class SparseProgram:
         eng = _KernelChannelEngine(
             self.prep, self.channel_measures, self.device,
             domains=domains, encoded=encoded, view_cache=view_cache,
+            fused=fused_enabled(self.fused),
         )
         return eng.run()
 
@@ -288,6 +334,7 @@ class SparseProgram:
         eng = _MinMaxKernelEngine(
             self.prep, kind, rel_m, self.device,
             domains=domains, encoded=encoded, view_cache=view_cache,
+            fused=fused_enabled(self.fused),
         )
         arr = eng.run()
         return torch.where(torch.isfinite(arr), arr, torch.zeros_like(arr))
@@ -306,7 +353,11 @@ class SparseProgram:
 
 
 def build_sparse_program(
-    prep: Prepared, channel_measures: tuple[str | None, ...], device
+    prep: Prepared,
+    channel_measures: tuple[str | None, ...],
+    device,
+    fused: bool | None = None,
 ) -> SparseProgram:
-    """Bind ``Prepared`` + channel spec + device into a :class:`SparseProgram`."""
-    return SparseProgram(prep, tuple(channel_measures), torch.device(device))
+    """Bind ``Prepared`` + channel spec + device (+ the fused-hop option)
+    into a :class:`SparseProgram`."""
+    return SparseProgram(prep, tuple(channel_measures), torch.device(device), fused)

@@ -23,6 +23,7 @@ struct SpmmRows {
   int64_t num_dense_rows;
   int64_t width;
 
+  __device__ uint32_t column(uint32_t c) const { return c; }
   __device__ static float identity() { return 0.0f; }
 
   __device__ __forceinline__ float operator()(float acc, int64_t e, uint32_t c) const {

@@ -15,6 +15,7 @@ struct MinRows {
   const float* data;
   int64_t d;
 
+  __device__ uint32_t column(uint32_t c) const { return c; }
   __device__ static float identity() { return repro_torch::positive_inf(); }
 
   __device__ __forceinline__ float operator()(float acc, int64_t e, uint32_t c) const {
@@ -26,6 +27,7 @@ struct MaxRows {
   const float* data;
   int64_t d;
 
+  __device__ uint32_t column(uint32_t c) const { return c; }
   __device__ static float identity() { return repro_torch::negative_inf(); }
 
   __device__ __forceinline__ float operator()(float acc, int64_t e, uint32_t c) const {

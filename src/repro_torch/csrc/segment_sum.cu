@@ -14,6 +14,7 @@ struct SumRows {
   const float* data;
   int64_t d;
 
+  __device__ uint32_t column(uint32_t c) const { return c; }
   __device__ static float identity() { return 0.0f; }
 
   __device__ __forceinline__ float operator()(float acc, int64_t e, uint32_t c) const {

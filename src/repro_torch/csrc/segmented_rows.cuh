@@ -1,9 +1,10 @@
-// Shared tile walk of the three JOIN-AGG kernels: write every row of a
+// Shared tile walk of the JOIN-AGG hop kernels: write every row of a
 // (num_rows, d) float32 output once, each row reducing the run of edges
 // whose sorted key equals the row index.
 //
 // The TPU kernels (repro/kernels/segment_sum.py, coo_spmm.py,
-// segment_reduce.py) turn this scatter into one-hot matmuls because a
+// segment_reduce.py, fused_hop.py) turn this scatter into one-hot matmuls
+// because a
 // TPU has no cheap scatter.  On Hopper the keys arrive sorted (grouped-CSR
 // order, DESIGN.md §7), so each output row's edges are one contiguous run
 // that a binary search finds: no atomics, no zero fill, and a fixed
@@ -57,12 +58,16 @@ __device__ __forceinline__ int64_t lower_bound(const int64_t* __restrict__ keys,
 __device__ __forceinline__ float positive_inf() { return __int_as_float(0x7f800000); }
 __device__ __forceinline__ float negative_inf() { return __int_as_float(0xff800000); }
 
-// Op supplies `static float identity()` and
-// `float operator()(float acc, int64_t edge, uint32_t column) const`.
+// Op supplies `static float identity()`, `Column column(uint32_t c) const`
+// (what an output column needs across the edge loop, worked out once per
+// output element) and `float operator()(float acc, int64_t edge,
+// const Column& col) const`.  The op is a __grid_constant__ parameter: its
+// fields are read from the parameter bank and never copied per thread.
 template <class Op>
 __global__ void __launch_bounds__(kThreads)
 segmented_rows(const int64_t* __restrict__ keys, int64_t n, int64_t num_rows,
-               int64_t d, int64_t rows_per_tile, Op op, float* __restrict__ out) {
+               int64_t d, int64_t rows_per_tile, const __grid_constant__ Op op,
+               float* __restrict__ out) {
   extern __shared__ int64_t starts[];  // rows_per_tile + 1 run starts
   __shared__ int64_t range[2];
   const int64_t num_tiles = (num_rows + rows_per_tile - 1) / rows_per_tile;
@@ -85,11 +90,11 @@ segmented_rows(const int64_t* __restrict__ keys, int64_t n, int64_t num_rows,
     float* __restrict__ dst = out + s0 * d;
     for (uint32_t f = threadIdx.x; f < elems; f += blockDim.x) {
       const uint32_t r = f / width;
-      const uint32_t c = f - r * width;
+      const auto col = op.column(f - r * width);
       const int64_t end = starts[r + 1];
       float acc = Op::identity();
       for (int64_t e = starts[r]; e < end; ++e) {
-        acc = op(acc, e, c);
+        acc = op(acc, e, col);
       }
       dst[f] = acc;
     }

@@ -16,6 +16,9 @@
   right after a successful launch and nowhere else, so a run can show
   which kernels its main path went through.  They are the module's only
   mutable state besides the per-process memo of built, loaded libraries.
+* **Fused-path switch.**  :func:`fused_enabled` resolves ``Q.fused`` and
+  the ``REPRO_FUSED`` environment variable, as the JAX package's
+  ``kernels/ops.py:fused_enabled`` does.
 """
 from __future__ import annotations
 
@@ -32,7 +35,7 @@ from pathlib import Path
 
 import torch
 
-KERNELS = ("segment_sum", "coo_spmm", "segment_reduce")
+KERNELS = ("segment_sum", "coo_spmm", "segment_reduce", "fused_hop", "semiring_matmul")
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -60,6 +63,21 @@ def reset_launch_counts() -> None:
     with _launches_lock:
         for name in _launches:
             _launches[name] = 0
+
+
+# ----------------------------------------------------------------------
+# fused-path switch
+# ----------------------------------------------------------------------
+
+_TRUTHY = frozenset({"1", "true", "on", "yes"})
+
+
+def fused_enabled(option: bool | None = None) -> bool:
+    """Resolve the fused-hop switch: an explicit plan option wins,
+    otherwise the ``REPRO_FUSED`` environment variable decides."""
+    if option is not None:
+        return bool(option)
+    return os.environ.get("REPRO_FUSED", "").strip().lower() in _TRUTHY
 
 
 # ----------------------------------------------------------------------

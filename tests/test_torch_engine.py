@@ -4,10 +4,16 @@ The same numpy inputs go through ``repro.api.Q ... .engine("jax")``
 (CPU auto mode, which runs the jnp reference kernels, with
 ``.stats(False)`` so both planners choose the root by the same byte
 heuristic), ``.engine("tensor")`` and the port's
-``.engine(TorchChannelEngine(device="cpu"))``.  Every result column must
-be bit-identical: measures are integer-valued, so every float32 sum is
-exact.
+``.engine(TorchChannelEngine(device="cpu"))``, unfused and with
+``.fused(True)``.  The JAX side always runs unfused: its fused path
+cannot run on the installed JAX, and its own contract (DESIGN.md §13) is
+that fused hops equal the three-dispatch path bit for bit.  Every result
+column must be bit-identical: measures are integer-valued, so every
+float32 sum is exact.
 """
+import dataclasses
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -32,6 +38,7 @@ from repro_torch.api import (
 )
 from repro_torch.core import torch_engine
 from repro_torch.data import synth as port_synth
+from repro_torch.kernels import ops
 from repro_torch.relational.relation import Database
 
 CPU = TorchChannelEngine(device="cpu")
@@ -58,15 +65,19 @@ def _build(q, relations, groups, aggs, where=(), stream=None, renames=()):
     return q
 
 
-def _run_all(cols, relations, groups, measure, where=(), stream=None, renames=()):
-    """Plan and execute on jax, tensor and the port; return the three
-    results and the port's plan."""
+def _run_all(
+    cols, relations, groups, measure, where=(), stream=None, renames=(), fused=None
+):
+    """Plan and execute on jax, tensor and the port (with ``.fused(fused)``
+    unless None); return the three results and the port's plan."""
     jdb = JDatabase.from_mapping(cols)
     out = {}
     for name in ("jax", "tensor"):
         jq = _build(JQ, relations, groups, _bundle(measure, JAX), where, stream, renames)
         out[name] = jq.engine(name).stats(False).plan(jdb)
     q = _build(Q, relations, groups, _bundle(measure, PORT), where, stream, renames)
+    if fused is not None:
+        q = q.fused(fused)
     plan = q.engine(CPU).plan(Database.from_mapping(cols))
     return {k: p.execute() for k, p in out.items()}, plan.execute(), plan, out["jax"]
 
@@ -99,15 +110,19 @@ def test_port_synth_generates_the_jax_datasets(name):
             np.testing.assert_array_equal(db[rel].columns[attr], jdb[rel].columns[attr])
 
 
+def _tile_stream(cols, groups, tiles):
+    if tiles is None:
+        return None
+    attr = groups[0].split(".")[1]
+    dom = len(np.unique(cols[groups[0].split(".")[0]][attr]))
+    return (attr, -(-dom // tiles))
+
+
 @pytest.mark.parametrize("tiles", [None, 3])
 @pytest.mark.parametrize("name,n", [("C1", 3000), ("S1", 3000), ("B1", 2000)])
 def test_synthetic_bundle_bit_identical(name, n, tiles):
     cols, relations, groups, measure = _synth_cols(name, n)
-    stream = None
-    if tiles is not None:
-        attr = groups[0].split(".")[1]
-        dom = len(np.unique(cols[groups[0].split(".")[0]][attr]))
-        stream = (attr, -(-dom // tiles))
+    stream = _tile_stream(cols, groups, tiles)
     refs, got, plan, jplan = _run_all(cols, relations, groups, measure, stream=stream)
     assert plan.prep.decomposition.root == jplan.prep.decomposition.root
     assert got.num_rows > 0
@@ -268,10 +283,159 @@ def test_cyclic_query_and_unported_options_raise():
     with pytest.raises(UnsupportedPlanOption):
         q.mesh(2)
     with pytest.raises(UnsupportedPlanOption):
-        q.fused()
-    with pytest.raises(UnsupportedPlanOption):
         q.maintain(tri)
     cols = _quickstart_cols(200)
     plan = Q.over("R1", "R2", "R3").group_by("R1.g1").engine(CPU).plan(cols)
     with pytest.raises(UnsupportedPlanOption):
         plan.maintain()
+
+
+# ----------------------------------------------------------------------
+# the fused-hop path: Q.fused(True) / REPRO_FUSED
+# ----------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("tiles", [None, 3])
+@pytest.mark.parametrize("name,n", [("C1", 3000), ("S1", 3000), ("B1", 2000)])
+def test_fused_synthetic_bundle_bit_identical(name, n, tiles):
+    cols, relations, groups, measure = _synth_cols(name, n)
+    stream = _tile_stream(cols, groups, tiles)
+    refs, got, plan, _ = _run_all(
+        cols, relations, groups, measure, stream=stream, fused=True
+    )
+    assert plan.fused is True and got.num_rows > 0
+    _assert_identical(refs["jax"], got)
+    _assert_identical(refs["tensor"], got)
+
+
+@pytest.mark.parametrize(
+    "groups,stream",
+    [
+        (("R1.g1", "R3.g2"), None),
+        (("R1.g1", "R2.k"), None),
+        (("R1.j", "R3.g2"), ("g2", 11)),
+    ],
+)
+def test_fused_quickstart_where_and_joining_group_attr(groups, stream):
+    refs, got, _, _ = _run_all(
+        _quickstart_cols(), ("R1", "R2", "R3"), groups, "R2.m",
+        where=[("R2", "m", ">", 5)], stream=stream, fused=True,
+    )
+    _assert_identical(refs["jax"], got)
+    _assert_identical(refs["tensor"], got)
+
+
+def test_fused_self_join_aliases_bit_identical():
+    rng = np.random.default_rng(4)
+    cols = {"Items": {"basket": rng.integers(0, 60, 800),
+                      "item": rng.integers(0, 25, 800),
+                      "m": rng.integers(0, 9, 800)}}
+    renames = (("I1", {"item": "i1"}), ("I2", {"item": "i2", "m": "m2"}))
+    refs, got, _, _ = _run_all(
+        cols, (("I1", "Items"), ("I2", "Items")), ("I1.i1", "I2.i2"), "I2.m2",
+        renames=renames, fused=True,
+    )
+    _assert_identical(refs["jax"], got)
+    _assert_identical(refs["tensor"], got)
+
+
+def _star_cols(n=300, seed=7) -> dict:
+    """Three relations around R2, which carries the measure and a group
+    attribute of its own: the shape of ``tests/test_fused_hop.py``'s
+    ``_star_db`` plus R2.g, with join domains wider than the group ones so
+    that the root with the smallest peak message is R2, which contracts
+    two children with measure-weighted channels."""
+    rng = np.random.default_rng(seed)
+    a, b = 9, 20
+    return {
+        "R1": {"g1": rng.integers(0, a, n), "p": rng.integers(0, b, n)},
+        "R2": {"p": rng.integers(0, b, n), "q": rng.integers(0, b, n),
+               "g": rng.integers(0, 3, n), "m": rng.integers(0, 10, n)},
+        "R3": {"q": rng.integers(0, b, n), "g2": rng.integers(0, a, n)},
+    }
+
+
+def test_fused_star_measure_weighted_multi_child_hop():
+    refs, got, plan, jplan = _run_all(
+        _star_cols(), ("R1", "R2", "R3"), ("R1.g1", "R2.g", "R3.g2"), "R2.m",
+        fused=True,
+    )
+    deco = plan.prep.decomposition
+    assert plan.prep.decomposition.root == jplan.prep.decomposition.root
+    assert max(len(node.children) for node in deco.nodes.values()) >= 2
+    _assert_identical(refs["jax"], got)
+    _assert_identical(refs["tensor"], got)
+
+
+def _count_kernel_calls(monkeypatch) -> dict[str, int]:
+    calls = {"segment_sum": 0, "coo_spmm": 0, "segment_reduce": 0, "fused_hop": 0}
+    for name in calls:
+        fn = getattr(torch_engine, name)
+
+        def counting(*args, _fn=fn, _name=name, **kwargs):
+            calls[_name] += 1
+            return _fn(*args, **kwargs)
+
+        monkeypatch.setattr(torch_engine, name, counting)
+    return calls
+
+
+@pytest.mark.parametrize("fused", [True, False, None])
+def test_fused_option_routes_every_hop_to_one_fused_launch(monkeypatch, fused):
+    """``.fused(True)``: one ``fused_hop`` call per hop, per pass, per
+    stream tile and nothing else.  ``.fused(False)`` and the option left
+    unset: the three-dispatch routing, with the same calls."""
+    monkeypatch.delenv("REPRO_FUSED", raising=False)
+    calls = _count_kernel_calls(monkeypatch)
+    cols, relations, groups, measure = _synth_cols("C1", 2000)
+    stream = _tile_stream(cols, groups, 3)
+    q = _build(Q, relations, groups, _bundle(measure, PORT), stream=stream)
+    if fused is not None:
+        q = q.fused(fused)
+    plan = q.engine(CPU).plan(Database.from_mapping(cols))
+    got = plan.execute()
+    hops = len(plan.prep.decomposition.nodes)
+    passes = 1 + len(plan.minmax)
+    attr, tile = plan.resolved_stream()
+    tiles = math.ceil(plan.prep.dicts[attr].size / tile)
+    assert tiles > 1 and passes == 3
+    if fused:
+        assert calls == {"segment_sum": 0, "coo_spmm": 0, "segment_reduce": 0,
+                         "fused_hop": hops * passes * tiles}, calls
+        unfused = dataclasses.replace(plan, fused=False).execute()
+        _assert_identical(unfused, got)
+    else:
+        assert calls["fused_hop"] == 0
+        assert all(calls[n] > 0 for n in ("segment_sum", "coo_spmm", "segment_reduce"))
+
+
+def test_fused_env_switch(monkeypatch):
+    """``REPRO_FUSED=1`` turns fused hops on for plans that did not pin a
+    choice; an explicit ``.fused(False)`` still wins."""
+    assert ops.fused_enabled(True) is True
+    assert ops.fused_enabled(False) is False
+    monkeypatch.delenv("REPRO_FUSED", raising=False)
+    assert ops.fused_enabled(None) is False
+    calls = _count_kernel_calls(monkeypatch)
+    q = Q.over("R1", "R2", "R3").group_by("R1.g1", "R3.g2").agg(n=Count()).engine(CPU)
+    cols = _quickstart_cols(300)
+    q.execute(cols)
+    assert calls["fused_hop"] == 0
+    monkeypatch.setenv("REPRO_FUSED", "1")
+    assert ops.fused_enabled(None) is True
+    want = q.fused(False).execute(cols)
+    assert calls["fused_hop"] == 0
+    got = q.execute(cols)
+    assert calls["fused_hop"] == 3
+    _assert_identical(want, got)
+
+
+def test_fused_option_rejected_by_an_engine_without_fused_hops():
+    class NoFused(TorchChannelEngine):
+        supports_fused = False
+
+    q = Q.over("R1", "R2", "R3").group_by("R1.g1").engine(NoFused(device="cpu"))
+    cols = _quickstart_cols(100)
+    assert q.plan(cols).execute().num_rows > 0
+    with pytest.raises(UnsupportedPlanOption, match="no fused hop kernels"):
+        q.fused(True).plan(cols)

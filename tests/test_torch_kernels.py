@@ -1,6 +1,8 @@
 """The port's kernel wrappers on CPU tensors (their plain PyTorch
 versions) against the JAX package's jnp references, on the shapes of
-``tests/test_kernels.py`` plus sorted, out-of-range and sparse ids.
+``tests/test_kernels.py`` plus sorted, out-of-range and sparse ids; the
+fused hop against the three-dispatch contract of
+``tests/test_fused_hop.py`` built from ``repro.kernels.ref``.
 
 Tolerance 0: the data are integer-valued float32 below 2**24, so every
 sum is exact in any order.  The CUDA kernels themselves run only on a
@@ -13,9 +15,12 @@ import torch
 
 from repro.kernels import ref as jref
 from repro_torch.kernels import ops
+from repro_torch.kernels import ref as port_ref
 from repro_torch.kernels.coo_spmm import coo_spmm
+from repro_torch.kernels.fused_hop import MAX_CHILDREN, fused_hop
 from repro_torch.kernels.segment_reduce import segment_reduce
 from repro_torch.kernels.segment_sum import segment_sum
+from repro_torch.kernels.semiring_matmul import semiring_matmul
 
 SEG_SHAPES = [(100, 8, 16), (513, 128, 130), (64, 256, 7), (1, 8, 3)]
 SPMM_SHAPES = [(200, 32, 24, 16), (1000, 130, 257, 128), (5, 8, 8, 8)]
@@ -136,6 +141,8 @@ def test_cpu_calls_take_the_plain_version_and_count_no_launch():
     segment_sum(data, ids, 4)
     segment_reduce(data, ids, 4, "min")
     coo_spmm(ids, ids, torch.ones(4), torch.ones(4, 2), 4)
+    fused_hop(ids, data, [data], [ids], 4, k=2)
+    semiring_matmul(data, data.T.contiguous(), "min_add")
     assert ops.launch_counts() == {name: 0 for name in ops.KERNELS}
 
 
@@ -162,3 +169,168 @@ def test_kernel_build_targets_hopper_and_keys_libraries_by_source():
     for name, path in paths.items():
         assert path.parent == ops.BUILD_DIR and path.name.startswith(name + "-")
         assert ops._library_path(name) == path  # deterministic digest
+
+
+# ----------------------------------------------------------------------
+# fused_hop: the three-dispatch contract from repro.kernels.ref
+# ----------------------------------------------------------------------
+
+HOP_KINDS = [("sum", 1), ("sum", 3), ("min", 1), ("max", 1)]
+
+
+def _three_dispatch(keys, w, msgs, idxs, s, k, kind):
+    """Take each child's rows, multiply (add) them in child order, then
+    reduce with ``segment_sum_ref``/``segment_reduce_ref`` — the
+    three-dispatch path that ``tests/test_fused_hop.py:_oracle`` mirrors."""
+    vals = np.asarray(w, np.float32).reshape(len(keys), 1, k)
+    for msg, idx in zip(msgs, idxs):
+        rows = np.asarray(
+            jnp.take(jnp.asarray(msg.reshape(msg.shape[0], -1, k)), jnp.asarray(idx), axis=0)
+        )
+        prod = vals[:, :, None, :] * rows[:, None] if kind == "sum" else (
+            vals[:, :, None, :] + rows[:, None]
+        )
+        vals = prod.reshape(len(keys), -1, k)
+    flat = jnp.asarray(vals.reshape(len(keys), -1))
+    ids = jnp.asarray(keys, jnp.int32)
+    if kind == "sum":
+        return np.asarray(jref.segment_sum_ref(flat, ids, s))
+    return np.asarray(jref.segment_reduce_ref(flat, ids, s, kind))
+
+
+def _hop(rng, n, s, k, kind, widths, rows=7, infinite_rows=0, key_lo=0):
+    keys = np.sort(rng.integers(key_lo, s, n))
+    hi = 4 if kind == "sum" else 50
+    w = rng.integers(0, hi, (n, k)).astype(np.float32)
+    msgs, idxs = [], []
+    for wc in widths:
+        msg = rng.integers(-3, 4, (rows, wc * k)).astype(np.float32)
+        if infinite_rows:
+            msg[rng.choice(rows, infinite_rows, replace=False)] = (
+                np.inf if kind == "min" else -np.inf
+            )
+        msgs.append(msg)
+        idxs.append(rng.integers(0, rows, n))
+    return keys, w, msgs, idxs
+
+
+def _port_hop(keys, w, msgs, idxs, s, k, kind):
+    return fused_hop(
+        torch.from_numpy(keys), torch.from_numpy(w),
+        [torch.from_numpy(m) for m in msgs], [torch.from_numpy(i) for i in idxs],
+        s, k, kind,
+    ).numpy()
+
+
+@pytest.mark.parametrize("widths", [(), (3,), (2, 5), (2, 3, 4)])
+@pytest.mark.parametrize("kind,k", HOP_KINDS)
+def test_fused_hop_matches_three_dispatch(kind, k, widths):
+    rng = np.random.default_rng(len(widths) * 10 + k)
+    inf_rows = 2 if widths and kind != "sum" else 0  # ±inf identity rows
+    hop = _hop(rng, 300, 23, k, kind, widths, infinite_rows=inf_rows)
+    want = _three_dispatch(*hop, 23, k, kind)
+    got = _port_hop(*hop, 23, k, kind)
+    assert got.shape == (23, int(np.prod(widths, dtype=int)) * k)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("kind,k", HOP_KINDS)
+def test_fused_hop_edge_cases(kind, k):
+    rng = np.random.default_rng(9)
+    ident = {"sum": 0.0, "min": np.inf, "max": -np.inf}[kind]
+    # zero edges: every row holds the identity
+    keys, w, msgs, idxs = _hop(rng, 0, 5, k, kind, (2, 3))
+    got = _port_hop(keys, w, msgs, idxs, 5, k, kind)
+    np.testing.assert_array_equal(got, np.full((5, 6 * k), ident, np.float32))
+    # one segment; keys out of range on both ends are dropped
+    keys, w, msgs, idxs = _hop(rng, 200, 1, k, kind, (4,), key_lo=-2)
+    keys[-3:] = 1
+    np.testing.assert_array_equal(
+        _port_hop(keys, w, msgs, idxs, 1, k, kind),
+        _three_dispatch(keys, w, msgs, idxs, 1, k, kind),
+    )
+    # child rows all at the identity (min/max), and an edge indexing past
+    # a child
+    inf_rows = 0 if kind == "sum" else 4
+    keys, w, msgs, idxs = _hop(rng, 60, 9, k, kind, (3, 2), rows=4, infinite_rows=inf_rows)
+    want = _three_dispatch(keys, w, msgs, idxs, 9, k, kind)
+    got = _port_hop(keys, w, msgs, idxs, 9, k, kind)
+    np.testing.assert_array_equal(got, want)
+    idxs[1][0] = 4  # row 4 of a 4-row child: the edge contributes nothing
+    dropped = _three_dispatch(keys[1:], w[1:], msgs, [i[1:] for i in idxs], 9, k, kind)
+    np.testing.assert_array_equal(_port_hop(keys, w, msgs, idxs, 9, k, kind), dropped)
+
+
+def test_fused_hop_out_argument_and_plain_version_agree():
+    rng = np.random.default_rng(2)
+    keys, w, msgs, idxs = (
+        [torch.from_numpy(np.asarray(x)) for x in part] if isinstance(part, list)
+        else torch.from_numpy(part)
+        for part in _hop(rng, 50, 6, 2, "sum", (3,))
+    )
+    out = torch.full((6, 6), 99.0)
+    assert fused_hop(keys, w, msgs, idxs, 6, 2, out=out) is out
+    assert torch.equal(out, port_ref.fused_hop(keys, w, msgs, idxs, 6, 2))
+
+
+def test_fused_hop_argument_checks():
+    keys, w = torch.zeros(4, dtype=torch.int64), torch.ones(4, 1)
+    msg, idx = torch.ones(2, 1), torch.zeros(4, dtype=torch.int64)
+    over = MAX_CHILDREN + 1
+    with pytest.raises(ValueError, match=f"{over} children exceed the kernel's limit of 64"):
+        fused_hop(keys, w, [msg] * over, [idx] * over, 3)
+    assert fused_hop(keys, w, [msg] * MAX_CHILDREN, [idx] * MAX_CHILDREN, 3).shape == (3, 1)
+    with pytest.raises(ValueError, match="weights must be a contiguous 2-d torch.float32"):
+        fused_hop(keys, w.double(), [msg], [idx], 3)
+    with pytest.raises(ValueError, match="idxs\\[0\\] must be a contiguous 1-d torch.int64"):
+        fused_hop(keys, w, [msg], [idx.int()], 3)
+    with pytest.raises(ValueError, match="msgs\\[0\\] must be a contiguous"):
+        fused_hop(keys, w, [torch.ones(3, 2).T], [idx], 3)
+    with pytest.raises(ValueError, match="min/max k = 1"):
+        fused_hop(keys, torch.ones(4, 2), [], [], 3, k=2, kind="min")
+    with pytest.raises(ValueError, match="unknown hop kind"):
+        fused_hop(keys, w, [], [], 3, kind="avg")
+    with pytest.raises(ValueError, match="unsupported device"):
+        fused_hop(keys.to("meta"), w.to("meta"), [msg.to("meta")], [idx.to("meta")], 3)
+    with pytest.raises(ValueError, match="different devices"):
+        fused_hop(keys, w, [msg.to("meta")], [idx], 3)
+
+
+# ----------------------------------------------------------------------
+# semiring_matmul
+# ----------------------------------------------------------------------
+
+SEMIRINGS = ["add_mul", "max_add", "min_add", "or_and"]
+MATMUL_SHAPES = [(5, 7, 3), (33, 17, 65), (1, 1, 1), (64, 16, 64), (70, 130, 9)]
+
+
+@pytest.mark.parametrize("m,kd,n", MATMUL_SHAPES)
+@pytest.mark.parametrize("semiring", SEMIRINGS)
+def test_semiring_matmul_matches_jax_ref(semiring, m, kd, n):
+    rng = np.random.default_rng(m * 3 + kd + n)
+    a = rng.integers(-3, 4, (m, kd)).astype(np.float32)
+    b = rng.integers(-3, 4, (kd, n)).astype(np.float32)
+    if semiring in ("max_add", "min_add"):
+        inf = -np.inf if semiring == "max_add" else np.inf  # the identity
+        a[rng.random((m, kd)) < 0.2] = inf
+        b[rng.random((kd, n)) < 0.2] = inf
+    want = np.asarray(jref.semiring_matmul_ref(jnp.asarray(a), jnp.asarray(b), semiring))
+    got = semiring_matmul(torch.from_numpy(a), torch.from_numpy(b), semiring)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_semiring_matmul_empty_k_and_argument_checks():
+    a, b = torch.ones(3, 0), torch.ones(0, 4)
+    for semiring, ident in zip(SEMIRINGS, (0.0, -np.inf, np.inf, 0.0)):
+        assert torch.all(semiring_matmul(a, b, semiring) == ident)
+    out = torch.full((2, 2), 7.0)
+    assert semiring_matmul(torch.ones(2, 3), torch.ones(3, 2), out=out) is out
+    assert torch.all(out == 3.0)
+    with pytest.raises(ValueError, match="unknown semiring"):
+        semiring_matmul(torch.ones(2, 2), torch.ones(2, 2), "max_mul")
+    with pytest.raises(ValueError, match="shapes"):
+        semiring_matmul(torch.ones(2, 3), torch.ones(2, 2))
+    with pytest.raises(ValueError, match="torch.float32"):
+        semiring_matmul(torch.ones(2, 2, dtype=torch.float64), torch.ones(2, 2))
+    with pytest.raises(ValueError, match="unsupported device"):
+        semiring_matmul(torch.ones(2, 2, device="meta"), torch.ones(2, 2, device="meta"))
