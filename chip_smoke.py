@@ -25,7 +25,10 @@ Run from the root of a checkout on a machine with a CUDA card.  It
    card bit-identical to the same plan on the CPU;
 5. holds each kernel against its plain PyTorch version on the card, at
    the largest shape the paths launched it with (``fused_hop``: per kind
-   and child count) and on edge cases, with tolerance 0 (integer-valued
+   and child count; ``segment_sum`` and ``segment_reduce`` also at the
+   largest launch of their widest rows, the general hops' edge chunks,
+   with ``out=`` at that launch's alignment) and on edge cases (see
+   ``kernel_cases``), with tolerance 0 (integer-valued
    float32 below 2**24: every sum is exact), and times kernel, plain
    version, one PyTorch library call as a yardstick where one computes
    the same function, ``fused_hop``'s three-dispatch counterpart on the
@@ -48,12 +51,14 @@ import sys
 import time
 import warnings
 from pathlib import Path
+from typing import NamedTuple
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores
+SPIN_CYCLES = 100_000_000  # about 50 ms at the H100's 1.98 GHz boost clock
 
 KERNEL_SOURCES = {
     "segment_sum": ("src/repro_torch/csrc/segment_sum.cu", "src/repro/kernels/segment_sum.py:27"),
@@ -63,6 +68,7 @@ KERNEL_SOURCES = {
     "semiring_matmul": ("src/repro_torch/csrc/semiring_matmul.cu", "src/repro/kernels/semiring_matmul.py:29"),
 }
 UNFUSED_KERNELS = ("segment_sum", "coo_spmm", "segment_reduce")
+SEGMENT_KERNELS = ("segment_sum", "segment_reduce")
 
 
 class CheckFailed(RuntimeError):
@@ -93,12 +99,15 @@ def say(tag: str, msg: str) -> None:
 
 def time_ms(torch, fn, reps: int = 10) -> float:
     """Mean device time of ``fn`` over ``reps`` launches (CUDA events),
-    after two warm-up calls."""
+    after two warm-up calls.  The timed launches queue behind a device-side
+    spin of about 50 ms, so the host's time to enqueue them is not counted
+    unless ``fn`` itself waits for the device."""
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -211,7 +220,7 @@ def idle_share(torch, run) -> tuple[float, float, list[tuple[str, float, int]]]:
     top = sorted(
         ((name, ms, cnt) for name, (ms, cnt) in by_name.items()),
         key=lambda t: -t[1],
-    )[:10]
+    )[:16]
     return wall, busy_us / 1e6, top
 
 
@@ -221,14 +230,23 @@ def _numel(x) -> int:
     return x.numel() if hasattr(x, "numel") else 0
 
 
-def capture_launches(run, key_of):
+class Launch(NamedTuple):
+    args: tuple
+    kw: dict  # without ``out``
+    offset: int  # floats from ``out``'s start back to a 16-byte boundary
+    count: int  # launches with this key in the run
+    size: int  # elements read and written
+
+
+def capture_launches(run, key_of) -> dict:
     """Run ``run()`` with the engine's kernel wrappers wrapped, keeping
-    the arguments of the largest launch (by elements read and written)
-    for each key ``key_of(name, args, kwargs)`` (None: not kept).  This
-    run is outside any counted or timed one."""
+    for each key ``key_of(name, args, kwargs)`` (None: not kept) the
+    largest launch (by elements read and written) and the number of
+    launches.  This run is outside any counted or timed one."""
     from repro_torch.core import torch_engine
 
     largest: dict = {}
+    counts: dict = {}
     names = UNFUSED_KERNELS + ("fused_hop",)
     originals = {name: getattr(torch_engine, name) for name in names}
 
@@ -236,10 +254,15 @@ def capture_launches(run, key_of):
         def capturing(*args, **kwargs):
             out = fn(*args, **kwargs)
             key = key_of(name, args, kwargs)
+            if key is None:
+                return out
+            counts[key] = counts.get(key, 0) + 1
             size = out.numel() + _numel(args)
-            if key is not None and (key not in largest or size > largest[key][0]):
+            if key not in largest or size > largest[key][0]:
                 kw = {k: v for k, v in kwargs.items() if k != "out"}
-                largest[key] = (size, args, kw)
+                dst = kwargs.get("out")
+                offset = 0 if dst is None else (dst.data_ptr() // 4) % 4
+                largest[key] = (size, args, kw, offset)
             return out
 
         return capturing
@@ -251,7 +274,19 @@ def capture_launches(run, key_of):
     finally:
         for name, fn in originals.items():
             setattr(torch_engine, name, fn)
-    return {key: (args, kw) for key, (_, args, kw) in largest.items()}
+    return {
+        key: Launch(args, kw, offset, counts[key], size)
+        for key, (size, args, kw, offset) in largest.items()
+    }
+
+
+def main_path_key(name, args, kwargs):
+    """``segment_sum`` and ``segment_reduce`` launches by row width (the
+    leaf hops are narrow, the edge chunks of general hops wide);
+    ``coo_spmm`` by name."""
+    if name in SEGMENT_KERNELS:
+        return name, args[0].shape[1]
+    return name if name in UNFUSED_KERNELS else None
 
 
 def hop_class(name, args, kwargs):
@@ -268,11 +303,23 @@ def hop_class(name, args, kwargs):
 # ----------------------------------------------------------------------
 
 
-def compare(torch, tag, name, label, kernel, plain, args, kw=None):
+def compare(torch, tag, name, label, kernel, plain, args, kw=None, out=None):
     """Run ``kernel`` and ``plain`` on the same inputs; fail unless they
-    agree exactly.  Returns max |kernel - plain|."""
+    agree exactly.  With ``out`` (a view into a larger buffer), the kernel
+    writes there and must leave the rest of the buffer as it was.
+    Returns max |kernel - plain|."""
     kw = kw or {}
-    got = kernel(*args, **kw)
+    if out is None:
+        got = kernel(*args, **kw)
+    else:
+        buf = out._base
+        before = buf.clone()
+        got = kernel(*args, **kw, out=out)
+        check(got is out, f"{name} [{label}] did not return its out argument")
+        inside = torch.zeros(buf.shape, dtype=torch.bool, device=buf.device)
+        inside.view(-1)[out.storage_offset() - buf.storage_offset():][: out.numel()] = True
+        check(bool((buf == before)[~inside].all()),
+              f"{name} [{label}] wrote outside its out slice")
     want = plain(*args, **kw)
     torch.cuda.synchronize()
     err = max_abs_err(torch, got, want)
@@ -282,16 +329,38 @@ def compare(torch, tag, name, label, kernel, plain, args, kw=None):
             return [shape(v) for v in a] if len(a) <= 4 else f"{len(a)} x {shape(a[0])}"
         return tuple(a.shape) if hasattr(a, "shape") else a
 
-    say(tag, f"kernels: {name} [{label}] args {[shape(a) for a in args]} {kw}: "
+    where = "" if out is None else f", out at float offset {out.storage_offset()}"
+    say(tag, f"kernels: {name} [{label}] args {[shape(a) for a in args]} {kw}{where}: "
              f"max |kernel - plain| = {err} (tolerance 0)")
     check(err == 0.0, f"{name} [{label}] disagrees with its plain version: {err}")
     return err
 
 
+def out_view(torch, rows: int, d: int, offset: int, dev, fill: float = 7777.0):
+    """A contiguous ``(rows, d)`` float32 view starting ``offset`` floats
+    into a buffer filled with ``fill``: what ``out[k_lo:k_hi]`` of a larger
+    output looks like to a kernel."""
+    buf = torch.full((rows * d + offset + 5,), fill, device=dev)
+    return buf[offset: offset + rows * d].view(rows, d)
+
+
+class SegCase(NamedTuple):
+    label: str
+    data: object
+    ids: object
+    num_segments: int
+    out_rows: int | None  # out= slice this many rows into a larger output
+
+
 def kernel_cases(torch, dev):
-    """Edge cases per kernel: empty input, ids out of range on both ends,
-    one segment, a segment count that is a multiple of nothing, widths 1
-    and 33, all-empty MIN/MAX segments.  Integer-valued float32."""
+    """Edge cases per kernel, integer-valued float32.  Segment kernels:
+    empty input, ids out of range on both ends, one segment, a segment
+    count that is a multiple of nothing, all-empty segments (narrow and
+    wide); widths 1, 2, 3, 5, 33, 2250, 4097 and 4500; ``out=`` slices at
+    odd row offsets (not 16-byte aligned) and input rows that are a slice
+    too; many tiles with empty tiles between runs; a run longer than a
+    tile, than a marking batch and than the unroll; runs across tile and
+    column-slab boundaries; thousands of tiles."""
     g = torch.Generator(device="cpu").manual_seed(7)
 
     def ints(lo, hi, shape):
@@ -300,18 +369,45 @@ def kernel_cases(torch, dev):
     def sorted_ids(n, lo, hi):
         return torch.sort(ints(lo, hi, (n,))).values.contiguous()
 
-    def data(n, d):
-        return ints(-50, 50, (n, d)).float()
+    def data(n, d, skip=0):
+        return ints(-50, 50, (n + skip, d)).float()[skip:]
 
     seg = []
-    for n, d, s, id_lo, id_hi in [
-        (0, 4, 5, 0, 5),  # empty input
-        (300, 1, 17, -4, 21),  # out of range on both ends, width 1
-        (257, 33, 1, 0, 1),  # one segment, width 33
-        (1000, 33, 97, -2, 100),  # 97 segments, width 33
-        (40, 3, 11, 11, 20),  # every id out of range: all segments empty
+    for n, d, s, id_lo, id_hi, out_rows in [
+        (0, 4, 5, 0, 5, None),  # empty input
+        (300, 1, 17, -4, 21, None),  # out of range on both ends, width 1
+        (257, 33, 1, 0, 1, None),  # one segment, width 33
+        (1000, 33, 97, -2, 100, None),  # 97 segments, width 33
+        (40, 3, 11, 11, 20, None),  # every id out of range: all segments empty
+        (300, 1, 17, -4, 21, 3),
+        (500, 2, 50, 0, 50, 1),
+        (500, 3, 50, -1, 52, 5),
+        (700, 5, 61, 0, 61, 7),
+        (2000, 2250, 150, -2, 152, 1),  # slabs of 752, 8-byte aligned out
+        (1200, 4500, 300, -3, 305, None),  # slabs of 900, 16-byte vectors
+        (1500, 4500, 97, 0, 97, 3),
+        (3000, 4097, 20, 0, 20, 1),  # odd width: one column per thread
+        (500, 2250, 30, 30, 60, 1),  # every id out of range, wide
+        (50_000, 1, 9000, 0, 9000, None),  # dense runs across two tiles
+        (100_000, 1, 30_000_000, 0, 30_000_000, None),  # 1,832 narrow tiles
+        (3000, 4500, 1000, 0, 1000, None),  # 2,500 tiles x slabs
     ]:
-        seg.append(((data(n, d), sorted_ids(n, id_lo, id_hi), s), {}))
+        seg.append(SegCase(f"n={n} d={d} s={s} ids [{id_lo}, {id_hi})",
+                           data(n, d), sorted_ids(n, id_lo, id_hi), s, out_rows))
+    # input rows that are themselves a slice (8-byte aligned rows at d=2250)
+    seg.append(SegCase("data rows sliced, d=2250", data(800, 2250, skip=1),
+                       sorted_ids(800, 0, 90), 90, None))
+    # three clusters of ids in 100,000 segments: tiles of 8,192 empty rows
+    for d, out_rows in ((1, None), (2, 1)):
+        centers = torch.tensor([5, 70_000, 99_999], device=dev)
+        ids = torch.sort(centers[ints(0, 3, (4000,))] + ints(-2, 1, (4000,))).values
+        seg.append(SegCase(f"clustered ids, 100000 segments, d={d}", data(4000, d),
+                           ids.clamp(0, 99_999).contiguous(), 100_000, out_rows))
+    # one run longer than a narrow tile's rows, a marking batch and the unroll
+    for d, n in ((1, 20_000), (2250, 3000)):
+        ids = torch.cat([torch.full((n,), 3, device=dev), sorted_ids(97, 0, 20)])
+        seg.append(SegCase(f"one run of {n} edges, d={d}", data(n + 97, d),
+                           torch.sort(ids).values.contiguous(), 20, 2))
     spmm = []
     for nnz, k, w, s, r_lo, r_hi, c_lo, c_hi in [
         (0, 6, 5, 4, 0, 4, 0, 6),
@@ -327,9 +423,58 @@ def kernel_cases(torch, dev):
     return seg, spmm
 
 
+def segment_regime(torch, tag, name, label, launch):
+    """One captured ``segment_sum`` / ``segment_reduce`` launch: held
+    against its plain version with ``out=`` at the launch's own alignment,
+    and timed beside the plain version, the library call and the bound."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.segment_reduce import segment_reduce
+    from repro_torch.kernels.segment_sum import segment_sum
+
+    dev = torch.device("cuda")
+    data, ids, s = launch.args[:3]
+    n, d = data.shape
+    kind = launch.kw.get("kind")
+    out = out_view(torch, s, d, launch.offset, dev)
+    if name == "segment_sum":
+        args = (data, ids, s)
+        kernel, plain = segment_sum, ref.segment_sum
+
+        def library():
+            return torch.zeros((s, d), device=dev).index_add_(0, ids, data)
+    else:
+        args = (data, ids, s, kind)
+        kernel, plain = segment_reduce, ref.segment_reduce
+        red = "amin" if kind == "min" else "amax"
+        ident = float("inf") if kind == "min" else float("-inf")
+        index = ids[:, None].expand(n, d)
+
+        def library():
+            return torch.full((s, d), ident, device=dev).scatter_reduce_(
+                0, index, data, red, include_self=True
+            )
+    err = compare(torch, tag, name, f"main path, {label}", kernel, plain, args, out=out)
+    b, by = bound(n * d * 4 + n * 8 + s * d * 4, n * d)
+    row = dict(
+        shapes={"data": [n, d], "segment_ids": [n], "num_segments": s,
+                **({"kind": kind} if kind else {})},
+        launches=launch.count, out_offset=launch.offset, max_abs_err=err,
+        ms=time_ms(torch, lambda: kernel(*args, out=out)),
+        plain_ms=time_ms(torch, lambda: plain(*args)),
+        library_ms=time_ms(torch, library),
+        bound_ms=b, bound_by=by,
+    )
+    say(tag, f"kernels: {name} [{label}] at {row['shapes']}, out offset "
+             f"{launch.offset}, {launch.count} launches of this width: "
+             f"{row['ms']:.4f} ms, bound {b:.4f} ms by {by}, plain "
+             f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms")
+    return row
+
+
 def kernel_phase(torch, tag, captured):
-    """The three kernels of the unfused main path at its largest launch
-    of each and on edge cases."""
+    """The three kernels of the unfused main path on edge cases and at
+    their largest launch; ``segment_sum`` and ``segment_reduce`` also at
+    the largest launch of their widest rows (the edge-chunk shape)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.coo_spmm import coo_spmm
     from repro_torch.kernels.segment_reduce import segment_reduce
@@ -339,60 +484,38 @@ def kernel_phase(torch, tag, captured):
     seg_cases, spmm_cases = kernel_cases(torch, dev)
     results = {}
 
-    # --- segment_sum ---------------------------------------------------
-    args, kw = captured["segment_sum"]
-    data, ids, s = args
-    errs = [compare(torch, tag, "segment_sum", "main path", segment_sum,
-                    ref.segment_sum, args, kw)]
-    for a, k in seg_cases:
-        errs.append(compare(torch, tag, "segment_sum", "edge", segment_sum,
-                            ref.segment_sum, a, k))
-    n, d = data.shape
-    b, by = bound(n * d * 4 + n * 8 + s * d * 4, n * d)
-    results["segment_sum"] = dict(
-        shapes={"data": [n, d], "segment_ids": [n], "num_segments": s},
-        max_abs_err=max(errs),
-        ms=time_ms(torch, lambda: segment_sum(data, ids, s)),
-        plain_ms=time_ms(torch, lambda: ref.segment_sum(data, ids, s)),
-        library_ms=time_ms(
-            torch, lambda: torch.zeros((s, d), device=dev).index_add_(0, ids, data)
-        ),
-        bound_ms=b, bound_by=by,
-    )
-
-    # --- segment_reduce ------------------------------------------------
-    args, kw = captured["segment_reduce"]
-    (data, ids, s), kind = args, kw["kind"]
-    errs = [compare(torch, tag, "segment_reduce", "main path", segment_reduce,
-                    ref.segment_reduce, (data, ids, s, kind))]
-    for a, _ in seg_cases:
-        for kd in ("min", "max"):
-            errs.append(compare(torch, tag, "segment_reduce", f"edge {kd}",
-                                segment_reduce, ref.segment_reduce, (*a, kd)))
-    n, d = data.shape
-    b, by = bound(n * d * 4 + n * 8 + s * d * 4, n * d)
-    red = "amin" if kind == "min" else "amax"
-    ident = float("inf") if kind == "min" else float("-inf")
-    index = ids[:, None].expand(n, d)
-    results["segment_reduce"] = dict(
-        shapes={"data": [n, d], "segment_ids": [n], "num_segments": s, "kind": kind},
-        max_abs_err=max(errs),
-        ms=time_ms(torch, lambda: segment_reduce(data, ids, s, kind)),
-        plain_ms=time_ms(torch, lambda: ref.segment_reduce(data, ids, s, kind)),
-        library_ms=time_ms(
-            torch,
-            lambda: torch.full((s, d), ident, device=dev).scatter_reduce_(
-                0, index, data, red, include_self=True
-            ),
-        ),
-        bound_ms=b, bound_by=by,
-    )
+    # --- segment_sum and segment_reduce ---------------------------------
+    for name in SEGMENT_KERNELS:
+        errs = []
+        for case in seg_cases:
+            kinds = (None,) if name == "segment_sum" else ("min", "max")
+            for kd in kinds:
+                args = (case.data, case.ids, case.num_segments) + ((kd,) if kd else ())
+                out = None if case.out_rows is None else out_view(
+                    torch, case.num_segments + case.out_rows, case.data.shape[1], 0, dev
+                )[case.out_rows:]
+                kernel, plain = ((segment_sum, ref.segment_sum) if kd is None
+                                 else (segment_reduce, ref.segment_reduce))
+                errs.append(compare(torch, tag, name, f"edge {case.label} {kd or ''}",
+                                    kernel, plain, args, out=out))
+        launches = {key[1]: lc for key, lc in captured.items()
+                    if isinstance(key, tuple) and key[0] == name}
+        leaf = max(launches.values(), key=lambda lc: lc.size)
+        chunk = launches[max(launches)]
+        regimes = {"leaf": segment_regime(torch, tag, name, "largest launch", leaf),
+                   "chunk": segment_regime(torch, tag, name, "widest rows", chunk)}
+        row = dict(regimes["leaf"])
+        row.update(
+            max_abs_err=max(errs + [r["max_abs_err"] for r in regimes.values()]),
+            regimes=regimes,
+            launches_by_width={str(d): lc.count for d, lc in sorted(launches.items())},
+        )
+        results[name] = row
 
     # --- coo_spmm ------------------------------------------------------
-    args, kw = captured["coo_spmm"]
+    args = captured["coo_spmm"].args
     rows, cols, vals, dense, s = args
-    errs = [compare(torch, tag, "coo_spmm", "main path", coo_spmm, ref.coo_spmm,
-                    args, kw)]
+    errs = [compare(torch, tag, "coo_spmm", "main path", coo_spmm, ref.coo_spmm, args)]
     for a, k in spmm_cases:
         errs.append(compare(torch, tag, "coo_spmm", "edge", coo_spmm, ref.coo_spmm,
                             a, k))
@@ -482,7 +605,8 @@ def fused_phase(torch, tag, captured):
     for label, args in fused_hop_cases(torch, dev):
         errs.append(compare(torch, tag, "fused_hop", label, fused_hop, ref.fused_hop, args))
     hops = []
-    for (kind, nchild, uniform), (args, _) in sorted(captured.items()):
+    for (kind, nchild, uniform), launch in sorted(captured.items()):
+        args = launch.args
         keys, w, msgs, idxs, s, k, _ = args
         label = f"main path {kind}, {nchild} children, uniform={uniform}"
         errs.append(compare(torch, tag, "fused_hop", label, fused_hop, ref.fused_hop, args))
@@ -667,7 +791,7 @@ def drive(torch, tag, label, make_plan):
     say(tag, f"profile: {label}, warm execute {wall:.3f} s wall, device busy "
              f"{busy:.3f} s, idle share {1 - busy / wall:.3f}")
     for name, ms, cnt in top:
-        say(tag, f"profile: {ms:10.3f} ms x{cnt:<6d} {name[:90]}")
+        say(tag, f"profile: {ms:10.3f} ms x{cnt:<6d} {name[:140]}")
     summary = {
         "prepare_s": prepare_s, "cold_execute_s": cold_s, "warm_execute_s": warm_s,
         "engine_run_s": run_s, "assemble_s": assemble_s, "rows": res.num_rows,
@@ -787,11 +911,11 @@ def main() -> int:
               f"{label}: cuda result differs from cpu result")
 
     # 5. kernels vs plain, at the paths' shapes --------------------------
-    captured = capture_launches(plan.execute, lambda name, a, kw: (
-        name if name in UNFUSED_KERNELS else None
-    ))
-    for name in UNFUSED_KERNELS:
-        check(name in captured, f"no {name} launch captured")
+    captured = capture_launches(plan.execute, main_path_key)
+    check("coo_spmm" in captured, "no coo_spmm launch captured")
+    for name in SEGMENT_KERNELS:
+        check(any(key[0] == name for key in captured if isinstance(key, tuple)),
+              f"no {name} launch captured")
     results = kernel_phase(torch, tag, captured)
     results["fused_hop"] = fused_phase(torch, tag, capture_launches(fplan.execute, hop_class))
     results["semiring_matmul"] = semiring_phase(torch, tag)
@@ -813,6 +937,8 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shapes": r["shapes"], "path": paths[name],
         }
+        if name in SEGMENT_KERNELS:
+            entry.update(regimes=r["regimes"], launches_by_width=r["launches_by_width"])
         if name == "fused_hop":
             entry.update(three_dispatch_ms=r["three_dispatch_ms"], library=r["library"],
                          hops=r["hops"])

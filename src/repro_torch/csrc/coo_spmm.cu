@@ -40,8 +40,9 @@ struct SpmmRows {
 extern "C" int repro_coo_spmm(int device, const int64_t* rows, const int64_t* cols,
                               const float* vals, int64_t nnz, const float* dense,
                               int64_t num_dense_rows, int64_t width, int64_t num_rows,
-                              float* out, void* stream) {
+                              float* out, const ReproWalkPlan* plan,
+                              void* stream) {
   return static_cast<int>(repro_torch::launch_segmented_rows(
       device, rows, nnz, num_rows, width,
-      SpmmRows{cols, vals, dense, num_dense_rows, width}, out, stream));
+      SpmmRows{cols, vals, dense, num_dense_rows, width}, out, plan, stream));
 }

@@ -148,7 +148,7 @@ struct FusedHop {
 template <int NC, int K>
 cudaError_t launch(int device, const int64_t* keys, int64_t n, const float* weights,
                    uint32_t k, const Child* children, int nchild, int64_t num_segments,
-                   int64_t width, float* out, void* stream) {
+                   int64_t width, float* out, const ReproWalkPlan* plan, void* stream) {
   FusedHop<NC, K> op{};
   op.weights = weights;
   op.k = k;
@@ -157,30 +157,30 @@ cudaError_t launch(int device, const int64_t* keys, int64_t n, const float* weig
     op.children[i] = children[i];
   }
   return repro_torch::launch_segmented_rows(device, keys, n, num_segments,
-                                            width * k, op, out, stream);
+                                            width * k, op, out, plan, stream);
 }
 
 template <int K>
 cudaError_t launch_kind(int device, const int64_t* keys, int64_t n,
                         const float* weights, uint32_t k, const Child* children,
                         int nchild, int64_t num_segments, int64_t width, float* out,
-                        void* stream) {
+                        const ReproWalkPlan* plan, void* stream) {
   switch (nchild) {
     case 0:
       return launch<0, K>(device, keys, n, weights, k, children, nchild, num_segments,
-                          width, out, stream);
+                          width, out, plan, stream);
     case 1:
       return launch<1, K>(device, keys, n, weights, k, children, nchild, num_segments,
-                          width, out, stream);
+                          width, out, plan, stream);
     case 2:
       return launch<2, K>(device, keys, n, weights, k, children, nchild, num_segments,
-                          width, out, stream);
+                          width, out, plan, stream);
     case 3:
       return launch<3, K>(device, keys, n, weights, k, children, nchild, num_segments,
-                          width, out, stream);
+                          width, out, plan, stream);
     default:
       return launch<kDynamic, K>(device, keys, n, weights, k, children, nchild,
-                                 num_segments, width, out, stream);
+                                 num_segments, width, out, plan, stream);
   }
 }
 
@@ -193,7 +193,7 @@ extern "C" int repro_fused_hop(int device, const int64_t* keys, int64_t n,
                                const float* weights, int64_t k,
                                const ReproFusedChild* children, int nchild,
                                int64_t num_segments, int kind, float* out,
-                               void* stream) {
+                               const ReproWalkPlan* plan, void* stream) {
   if (nchild < 0 || nchild > kMaxChildren || k < 1 || k >= (int64_t{1} << 31)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -215,13 +215,13 @@ extern "C" int repro_fused_hop(int device, const int64_t* keys, int64_t n,
   switch (kind) {
     case kSum:
       return static_cast<int>(launch_kind<kSum>(device, keys, n, weights, k32, packed,
-                                                nchild, num_segments, width, out, stream));
+                                                nchild, num_segments, width, out, plan, stream));
     case kMin:
       return static_cast<int>(launch_kind<kMin>(device, keys, n, weights, k32, packed,
-                                                nchild, num_segments, width, out, stream));
+                                                nchild, num_segments, width, out, plan, stream));
     case kMax:
       return static_cast<int>(launch_kind<kMax>(device, keys, n, weights, k32, packed,
-                                                nchild, num_segments, width, out, stream));
+                                                nchild, num_segments, width, out, plan, stream));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

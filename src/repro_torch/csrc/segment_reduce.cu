@@ -11,43 +11,33 @@
 
 namespace {
 
-struct MinRows {
-  const float* data;
-  int64_t d;
-
-  __device__ uint32_t column(uint32_t c) const { return c; }
+struct Min {
   __device__ static float identity() { return repro_torch::positive_inf(); }
-
-  __device__ __forceinline__ float operator()(float acc, int64_t e, uint32_t c) const {
-    return fminf(acc, data[e * d + c]);
-  }
+  __device__ static float fold(float acc, float v) { return fminf(acc, v); }
 };
 
-struct MaxRows {
-  const float* data;
-  int64_t d;
-
-  __device__ uint32_t column(uint32_t c) const { return c; }
+struct Max {
   __device__ static float identity() { return repro_torch::negative_inf(); }
-
-  __device__ __forceinline__ float operator()(float acc, int64_t e, uint32_t c) const {
-    return fmaxf(acc, data[e * d + c]);
-  }
+  __device__ static float fold(float acc, float v) { return fmaxf(acc, v); }
 };
+
+using MinRows = repro_torch::RowOp<Min>;
+using MaxRows = repro_torch::RowOp<Max>;
 
 }  // namespace
 
 // kind: 0 = min, 1 = max; any other value returns cudaErrorInvalidValue.
 extern "C" int repro_segment_reduce(int device, const float* data, const int64_t* ids,
                                     int64_t n, int64_t d, int64_t num_segments,
-                                    int kind, float* out, void* stream) {
+                                    int kind, float* out,
+                                    const ReproWalkPlan* plan, void* stream) {
   if (kind == 0) {
     return static_cast<int>(repro_torch::launch_segmented_rows(
-        device, ids, n, num_segments, d, MinRows{data, d}, out, stream));
+        device, ids, n, num_segments, d, MinRows{data, d}, out, plan, stream));
   }
   if (kind == 1) {
     return static_cast<int>(repro_torch::launch_segmented_rows(
-        device, ids, n, num_segments, d, MaxRows{data, d}, out, stream));
+        device, ids, n, num_segments, d, MaxRows{data, d}, out, plan, stream));
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

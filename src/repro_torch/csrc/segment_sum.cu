@@ -10,23 +10,18 @@
 
 namespace {
 
-struct SumRows {
-  const float* data;
-  int64_t d;
-
-  __device__ uint32_t column(uint32_t c) const { return c; }
+struct Sum {
   __device__ static float identity() { return 0.0f; }
-
-  __device__ __forceinline__ float operator()(float acc, int64_t e, uint32_t c) const {
-    return __fadd_rn(acc, data[e * d + c]);
-  }
+  __device__ static float fold(float acc, float v) { return __fadd_rn(acc, v); }
 };
+
+using SumRows = repro_torch::RowOp<Sum>;
 
 }  // namespace
 
 extern "C" int repro_segment_sum(int device, const float* data, const int64_t* ids,
                                  int64_t n, int64_t d, int64_t num_segments,
-                                 float* out, void* stream) {
+                                 float* out, const ReproWalkPlan* plan, void* stream) {
   return static_cast<int>(repro_torch::launch_segmented_rows(
-      device, ids, n, num_segments, d, SumRows{data, d}, out, stream));
+      device, ids, n, num_segments, d, SumRows{data, d}, out, plan, stream));
 }

@@ -17,7 +17,8 @@ from repro_torch.kernels import ops, ref
 _ARGTYPES = (
     ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-    ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_int64, ctypes.c_void_p, ctypes.POINTER(ops.WalkPlan),
+    ctypes.c_void_p,
 )
 
 
@@ -59,10 +60,11 @@ def coo_spmm(
     out = ops.output("coo_spmm", out, (num_rows, width), dense)
     if num_rows == 0 or width == 0:
         return out
+    plan = ops.walk_plan(nnz, num_rows, width)
     fn = ops.load("coo_spmm", "repro_coo_spmm", _ARGTYPES)
     rc = fn(
         device.index, rows.data_ptr(), cols.data_ptr(), vals.data_ptr(), nnz,
-        dense.data_ptr(), k, width, num_rows, out.data_ptr(),
+        dense.data_ptr(), k, width, num_rows, out.data_ptr(), ctypes.byref(plan),
         ops.stream_of(device),
     )
     ops.check_launch("coo_spmm", rc)

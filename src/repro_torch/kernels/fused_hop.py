@@ -36,7 +36,7 @@ class _Child(ctypes.Structure):
 _ARGTYPES = (
     ctypes.c_int, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
     ctypes.c_int64, ctypes.POINTER(_Child), ctypes.c_int, ctypes.c_int64,
-    ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_void_p, ctypes.POINTER(ops.WalkPlan), ctypes.c_void_p,
 )
 
 
@@ -109,10 +109,11 @@ def fused_hop(
         _Child(msg.data_ptr(), idx.data_ptr(), msg.shape[0], w)
         for msg, idx, w in zip(msgs, idxs, widths)
     ))
+    plan = ops.walk_plan(n, num_segments, width * k)
     fn = ops.load("fused_hop", "repro_fused_hop", _ARGTYPES)
     rc = fn(
         device.index, keys.data_ptr(), n, weights.data_ptr(), k, children,
-        len(msgs), num_segments, _KINDS[kind], out.data_ptr(),
+        len(msgs), num_segments, _KINDS[kind], out.data_ptr(), ctypes.byref(plan),
         ops.stream_of(device),
     )
     ops.check_launch("fused_hop", rc)

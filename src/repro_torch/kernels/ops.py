@@ -16,6 +16,10 @@
   right after a successful launch and nowhere else, so a run can show
   which kernels its main path went through.  They are the module's only
   mutable state besides the per-process memo of built, loaded libraries.
+* **Walk plan.**  :func:`walk_plan` is the launch shape of the sorted-run
+  tile walk (``csrc/segmented_rows.cuh``) that ``segment_sum``,
+  ``segment_reduce``, ``coo_spmm`` and ``fused_hop`` share, from
+  ``(n, num_rows, d)`` alone; the wrappers pass it to the C entry points.
 * **Fused-path switch.**  :func:`fused_enabled` resolves ``Q.fused`` and
   the ``REPRO_FUSED`` environment variable, as the JAX package's
   ``kernels/ops.py:fused_enabled`` does.
@@ -63,6 +67,79 @@ def reset_launch_counts() -> None:
     with _launches_lock:
         for name in _launches:
             _launches[name] = 0
+
+
+# ----------------------------------------------------------------------
+# launch shape of the sorted-run tile walk
+# ----------------------------------------------------------------------
+
+WALK_THREADS = 256  # csrc/segmented_rows.cuh:kThreads
+NARROW_WIDTH = 32  # rows narrower than a warp take the narrow (flat) walk
+NARROW_TILE_ELEMS = 16384  # output floats of one narrow tile, at most
+WIDE_TILE_ELEMS = 2048  # output floats of one row-walk block
+MAX_SLAB = 1024  # columns of one row-walk slab, at most
+SMEM_LIMIT = 49152  # dynamic shared memory a block gets without opting in
+MAX_BLOCKS = 2**31 - 1  # blocks of one launch
+MAX_EDGES = 2**31 - 1  # run bounds are 32-bit offsets
+
+
+class WalkPlan(ctypes.Structure):
+    """``ReproWalkPlan`` of ``csrc/segmented_rows.cuh``: tiles of
+    ``rows_per_tile`` consecutive output rows, each row cut into ``slabs``
+    column slabs of ``slab`` columns (the last one shorter); block ``b``
+    walks slab ``b mod slabs`` of tile ``b div slabs``."""
+
+    _fields_ = [
+        ("rows_per_tile", ctypes.c_int64),
+        ("slab", ctypes.c_int64),
+        ("slabs", ctypes.c_int64),
+        ("blocks", ctypes.c_int64),
+        ("smem_bytes", ctypes.c_int64),
+        ("narrow", ctypes.c_int32),
+    ]
+
+    def __repr__(self) -> str:
+        return "WalkPlan(" + ", ".join(
+            f"{name}={getattr(self, name)}" for name, _ in self._fields_
+        ) + ")"
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def walk_plan(n: int, num_rows: int, d: int) -> WalkPlan:
+    """Launch shape of the sorted-run walk for ``n`` edges into a
+    ``(num_rows, d)`` output, both at least 1 wide.
+
+    Rows narrower than a warp (the leaf hops: d = k channels) take the
+    narrow walk: tiles of up to :data:`NARROW_TILE_ELEMS` output floats,
+    one contiguous span filled with 16-byte vectors.  Wider rows take the row walk: each row is cut
+    into column slabs of at most :data:`MAX_SLAB` columns (a multiple of
+    4, so vectors never straddle slabs) over as many blocks, with enough
+    rows per tile for about :data:`WIDE_TILE_ELEMS` output floats per
+    block and two int32 of shared memory per row.  One block per tile
+    and slab; the tile sizes are the fastest of ``tools/walk_sweep.py``'s
+    candidates on an H100."""
+    if n > MAX_EDGES:
+        raise ValueError(f"the sorted-run walk takes at most {MAX_EDGES} edges, got {n}")
+    if num_rows < 1 or d < 1:
+        raise ValueError(f"walk_plan needs num_rows >= 1 and d >= 1, got {num_rows}, {d}")
+    narrow = d < NARROW_WIDTH
+    if narrow:
+        slab, slabs = d, 1
+        rows = max(1, NARROW_TILE_ELEMS // d)
+    else:
+        slabs = _ceil_div(d, MAX_SLAB)
+        slab = d if slabs == 1 else 4 * _ceil_div(d, 4 * slabs)
+        slabs = _ceil_div(d, slab)
+        rows = max(1, WIDE_TILE_ELEMS // slab)
+    rows = min(rows, num_rows)
+    blocks = _ceil_div(num_rows, rows) * slabs
+    if blocks > MAX_BLOCKS:
+        raise ValueError(f"a ({num_rows}, {d}) output needs {blocks} blocks, more than one launch has")
+    smem = 0 if narrow else 8 * rows  # the row walk's run bounds
+    return WalkPlan(rows, slab, slabs, blocks, smem, int(narrow))
 
 
 # ----------------------------------------------------------------------

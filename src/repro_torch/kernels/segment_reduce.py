@@ -15,7 +15,7 @@ from repro_torch.kernels import ops, ref
 _ARGTYPES = (
     ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
     ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
-    ctypes.c_void_p,
+    ctypes.POINTER(ops.WalkPlan), ctypes.c_void_p,
 )
 _KINDS = {"min": 0, "max": 1}
 
@@ -54,10 +54,12 @@ def segment_reduce(
     out = ops.output("segment_reduce", out, (num_segments, d), data)
     if num_segments == 0 or d == 0:
         return out
+    plan = ops.walk_plan(n, num_segments, d)
     fn = ops.load("segment_reduce", "repro_segment_reduce", _ARGTYPES)
     rc = fn(
         device.index, data.data_ptr(), segment_ids.data_ptr(), n, d,
-        num_segments, _KINDS[kind], out.data_ptr(), ops.stream_of(device),
+        num_segments, _KINDS[kind], out.data_ptr(), ctypes.byref(plan),
+        ops.stream_of(device),
     )
     ops.check_launch("segment_reduce", rc)
     return out

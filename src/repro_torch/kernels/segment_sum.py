@@ -16,7 +16,8 @@ from repro_torch.kernels import ops, ref
 
 _ARGTYPES = (
     ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-    ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
+    ctypes.POINTER(ops.WalkPlan), ctypes.c_void_p,
 )
 
 
@@ -50,10 +51,11 @@ def segment_sum(
     out = ops.output("segment_sum", out, (num_segments, d), data)
     if num_segments == 0 or d == 0:
         return out
+    plan = ops.walk_plan(n, num_segments, d)
     fn = ops.load("segment_sum", "repro_segment_sum", _ARGTYPES)
     rc = fn(
         device.index, data.data_ptr(), segment_ids.data_ptr(), n, d,
-        num_segments, out.data_ptr(), ops.stream_of(device),
+        num_segments, out.data_ptr(), ctypes.byref(plan), ops.stream_of(device),
     )
     ops.check_launch("segment_sum", rc)
     return out

@@ -8,10 +8,13 @@ Tolerance 0: the data are integer-valued float32 below 2**24, so every
 sum is exact in any order.  The CUDA kernels themselves run only on a
 card; ``chip_smoke.py`` holds them against these plain versions there.
 """
+import ctypes
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import HealthCheck, assume, given, settings, strategies as st
 
 from repro.kernels import ref as jref
 from repro_torch.kernels import ops
@@ -169,6 +172,251 @@ def test_kernel_build_targets_hopper_and_keys_libraries_by_source():
     for name, path in paths.items():
         assert path.parent == ops.BUILD_DIR and path.name.startswith(name + "-")
         assert ops._library_path(name) == path  # deterministic digest
+
+
+# ----------------------------------------------------------------------
+# the sorted-run walk's launch plan (kernels/ops.py:walk_plan), and the
+# block search and run marking of csrc/segmented_rows.cuh mirrored here
+# ----------------------------------------------------------------------
+
+
+def _block_lower_bound(keys, lo, hi, value, threads=ops.WALK_THREADS):
+    """``segmented_rows.cuh:block_lower_bound``: each round every thread
+    probes one key, and the count of probes below ``value`` narrows the
+    range."""
+    while hi - lo > threads:
+        stride = -(-(hi - lo) // threads)
+        probes = lo + np.arange(threads) * stride
+        probes = probes[probes < hi]
+        below = int(np.sum(keys[probes] < value))
+        if below == 0:
+            return lo
+        lo, hi = lo + (below - 1) * stride + 1, min(hi, lo + below * stride)
+    return lo + int(np.sum(keys[lo:hi] < value))
+
+
+def _run_end(keys, i, e, k):
+    """``segmented_rows.cuh:run_end``: gallop, then bisect."""
+    last, step, probe = i, 1, i + 1
+    while probe < e and keys[probe] == k:
+        last, step = probe, step * 2
+        probe = last + step
+    lo, hi = last + 1, min(probe, e)
+    while lo < hi:
+        mid = (lo + hi) // 2
+        lo, hi = (mid + 1, hi) if keys[mid] == k else (lo, mid)
+    return lo
+
+
+def _walk(keys, num_rows, d, plan):
+    """What each block of the walk does, block by block: returns how often
+    each output element is filled with the identity (narrow walk) and
+    written with a run's value, and each row's run ``[first, stop)`` as
+    marked (``None`` for a row no edge opens)."""
+    n, rows_per_tile, threads = len(keys), plan.rows_per_tile, ops.WALK_THREADS
+    fills = np.zeros((num_rows, d), np.int64)
+    writes = np.zeros((num_rows, d), np.int64)
+    runs = {}
+    for block in range(plan.blocks):
+        tile, slab = divmod(block, plan.slabs)
+        s0 = tile * rows_per_tile
+        rows = min(rows_per_tile, num_rows - s0)
+        assert rows > 0, "a block past the last tile"
+        if plan.narrow:  # before the search: the whole tile span
+            fills[s0:s0 + rows] += 1
+        e0 = _block_lower_bound(keys, 0, n, s0)
+        marked = {}
+        e = e0
+        while True:  # marking, one batch of `threads` edges at a time
+            count = 0
+            for i in range(e, min(e + threads, n)):
+                k = int(keys[i])
+                if k >= s0 + rows:
+                    break
+                assert k >= s0
+                count += 1
+                if i == e0 or keys[i - 1] != k:
+                    marked.setdefault(k, [None, None])[0] = i
+                if i + 1 == n or keys[i + 1] != k:
+                    marked.setdefault(k, [None, None])[1] = i + 1
+            e += count
+            if count < threads:
+                break
+        if plan.narrow:
+            # after the search's barriers, each run by the thread holding
+            # its first edge, its end found by galloping
+            for k, (first, _) in marked.items():
+                marked[k][1] = _run_end(keys, first, e, k)
+                writes[k] += 1
+        else:
+            c0 = slab * plan.slab
+            writes[s0:s0 + rows, c0:min(d, c0 + plan.slab)] += 1
+        for k, run in marked.items():
+            assert runs.setdefault(k, tuple(run)) == tuple(run)
+    return fills, writes, runs
+
+
+def _check_plan(plan, n, num_rows, d):
+    """The plan's arithmetic, without walking it."""
+    assert plan.narrow == (d < ops.NARROW_WIDTH)
+    assert 1 <= plan.rows_per_tile <= num_rows
+    assert plan.smem_bytes == (0 if plan.narrow else 8 * plan.rows_per_tile)
+    assert plan.smem_bytes <= ops.SMEM_LIMIT
+    # column slabs partition [0, d); vectors of 4 never straddle two slabs
+    assert plan.slabs * plan.slab >= d > (plan.slabs - 1) * plan.slab
+    assert plan.slabs == 1 or (plan.slab % 4 == 0 and plan.slab <= ops.MAX_SLAB)
+    assert not plan.narrow or plan.slabs == 1
+    # one block per tile and slab: every output element has one block
+    tiles = -(-num_rows // plan.rows_per_tile)
+    assert plan.blocks == tiles * plan.slabs <= ops.MAX_BLOCKS
+    # a block's share of one tile fits the kernel's 32-bit element index
+    per_block = plan.rows_per_tile * (d if plan.narrow else plan.slab)
+    assert per_block <= max(ops.NARROW_TILE_ELEMS if plan.narrow else
+                            ops.WIDE_TILE_ELEMS, plan.slab) < 2**31
+
+
+@settings(max_examples=300, deadline=None)
+@given(
+    n=st.integers(0, ops.MAX_EDGES),
+    num_rows=st.integers(1, 2**34),
+    d=st.one_of(st.integers(1, 64), st.integers(1, 2**20),
+                st.sampled_from([2250, 4097, 4500])),
+)
+def test_walk_plan_arithmetic(n, num_rows, d):
+    assume(num_rows * d <= 2**36)  # outputs up to 256 GiB; a card holds 80
+    _check_plan(ops.walk_plan(n, num_rows, d), n, num_rows, d)
+
+
+@pytest.mark.parametrize("n,num_rows,d,narrow,rows,slabs", [
+    (500_000, 112_500_000, 1, 1, 16384, 1),  # leaf hops
+    (500_000, 112_500_000, 2, 1, 8192, 1),
+    (7456, 746, 2250, 0, 2, 3),  # edge chunks of the general hops
+    (3728, 373, 4500, 0, 2, 5),
+    (499_948, 50_000, 4500, 0, 2, 5),  # the coo_spmm hop
+])
+def test_walk_plan_at_main_path_shapes(n, num_rows, d, narrow, rows, slabs):
+    plan = ops.walk_plan(n, num_rows, d)
+    assert (plan.narrow, plan.rows_per_tile, plan.slabs) == (narrow, rows, slabs)
+    _check_plan(plan, n, num_rows, d)
+    if narrow:  # 4x-8x the 2,048 rows of the earlier walk's tiles
+        assert plan.rows_per_tile * d == ops.NARROW_TILE_ELEMS
+    else:  # a few hundred rows still fill the card's 132 SMs several times
+        assert plan.blocks >= 7 * 132
+
+
+def test_walk_plan_refuses_what_the_kernel_cannot_take():
+    with pytest.raises(ValueError, match="at most 2147483647 edges"):
+        ops.walk_plan(2**31, 10, 1)
+    with pytest.raises(ValueError, match="num_rows >= 1 and d >= 1"):
+        ops.walk_plan(10, 0, 1)
+    with pytest.raises(ValueError, match="more than one launch has"):
+        ops.walk_plan(10, 2**50, 1)
+    assert ctypes.sizeof(ops.WalkPlan) == 48  # ReproWalkPlan, field for field
+
+
+def _flat_split(offset: int, count: int) -> tuple[int, int, int]:
+    """How the narrow walk (``segmented_rows.cuh``, ``V == 0``) writes
+    ``count`` floats starting ``offset`` floats past a 16-byte boundary:
+    ``(head, vectors, tail)`` — scalars up to the next boundary, 16-byte
+    vectors, scalars."""
+    misaligned = offset % 4
+    head = 0 if misaligned == 0 else min(4 - misaligned, count)
+    vectors = (count - head) // 4
+    return head, vectors, count - head - 4 * vectors
+
+
+@settings(max_examples=200, deadline=None)
+@given(offset=st.integers(0, 2**40), count=st.integers(0, 200))
+def test_flat_split_aligns_the_body(offset, count):
+    head, vectors, tail = _flat_split(offset, count)
+    assert head + 4 * vectors + tail == count
+    assert 0 <= head < 4 and 0 <= tail < 4 and vectors >= 0
+    if vectors or tail:  # everything after the head starts on 16 bytes
+        assert (offset + head) % 4 == 0
+    written = np.zeros(count, np.int64)
+    written[:head] += 1
+    for v in range(vectors):
+        written[head + 4 * v: head + 4 * v + 4] += 1
+    written[count - tail:] += tail > 0
+    assert np.all(written == 1)
+
+
+@settings(max_examples=60, deadline=None,
+          suppress_health_check=[HealthCheck.too_slow, HealthCheck.data_too_large])
+@given(
+    data=st.data(),
+    d=st.sampled_from([1, 2, 3, 31, 32, 33, 1025, 2250, 4097]),
+    tile_elems=st.sampled_from([1, 7, 64, None]),
+)
+def test_walk_marks_every_run_and_writes_every_element_once(data, d, tile_elems):
+    """Block search and run marking, mirrored: every output element gets
+    its value once and every row's marked run is the one a binary search
+    finds.  Smaller tiles than the kernel's (``tile_elems``) make many
+    tiles of few rows."""
+    num_rows = data.draw(st.integers(1, 3000 if d < 32 else 40))
+    n = data.draw(st.integers(0, 1500))
+    lo, hi = data.draw(st.sampled_from([(0, num_rows), (-3, num_rows + 3),
+                                        (num_rows, num_rows + 5)]))
+    rng = np.random.default_rng(data.draw(st.integers(0, 2**32 - 1)))
+    keys = rng.integers(lo, max(hi, lo + 1), n)
+    if n and data.draw(st.booleans()):  # one run longer than a marking batch
+        keys[: min(n, 700)] = rng.integers(0, num_rows)
+    keys = np.sort(keys)
+    with pytest.MonkeyPatch.context() as mp:
+        if tile_elems is not None:
+            mp.setattr(ops, "NARROW_TILE_ELEMS", tile_elems)
+            mp.setattr(ops, "WIDE_TILE_ELEMS", tile_elems)
+        plan = ops.walk_plan(n, num_rows, d)
+    if tile_elems is None:
+        _check_plan(plan, n, num_rows, d)
+    fills, writes, runs = _walk(keys, num_rows, d, plan)
+    for r in range(num_rows):
+        first, stop = np.searchsorted(keys, r, "left"), np.searchsorted(keys, r, "right")
+        assert runs.get(r) == ((int(first), int(stop)) if stop > first else None)
+        if plan.narrow:  # every row filled once; each run's row then written once
+            assert np.all(fills[r] == 1) and np.all(writes[r] == int(stop > first))
+        else:  # every element written once, with its value
+            assert np.all(fills[r] == 0) and np.all(writes[r] == 1)
+
+
+# ----------------------------------------------------------------------
+# plain versions at the walk's edge cases, with out= slices
+# ----------------------------------------------------------------------
+
+# (n, d, num_segments, id_lo, id_hi): widths of the leaf hops, odd ones,
+# the edge chunks' 2250 and 4500 and a slab-ragged 4097; ids out of range
+EDGE_SHAPES = [
+    (300, 1, 17, -4, 21), (500, 2, 50, 0, 50), (500, 3, 50, -1, 52),
+    (700, 5, 61, 0, 61), (90, 2250, 13, -2, 15), (40, 4097, 5, 0, 5),
+    (60, 4500, 11, 0, 11), (50, 2250, 9, 9, 20),
+]
+
+
+@pytest.mark.parametrize("out_rows", [None, 1, 3])
+@pytest.mark.parametrize("n,d,s,id_lo,id_hi", EDGE_SHAPES)
+def test_segment_kernels_plain_versions_at_walk_edge_cases(n, d, s, id_lo, id_hi, out_rows):
+    rng = np.random.default_rng(n + d + s)
+    data = _data(rng, (n, d))
+    ids = np.sort(rng.integers(id_lo, id_hi, n))
+    jdata, jids = jnp.asarray(data), jnp.asarray(ids, jnp.int32)
+    tdata, tids = torch.from_numpy(data), torch.from_numpy(ids)
+    for kind in ("sum", "min", "max"):
+        if kind == "sum":
+            want = np.asarray(jref.segment_sum_ref(jdata, jids, s))
+        else:
+            want = np.asarray(jref.segment_reduce_ref(jdata, jids, s, kind))
+        out = None
+        if out_rows is not None:  # rows [out_rows, out_rows + s) of a larger output
+            buf = torch.full((s + out_rows + 2, d), 7777.0)
+            out = buf[out_rows:out_rows + s]
+        if kind == "sum":
+            got = segment_sum(tdata, tids, s, out=out)
+        else:
+            got = segment_reduce(tdata, tids, s, kind, out=out)
+        np.testing.assert_array_equal(got.numpy(), want)
+        if out is not None:
+            assert got is out
+            assert torch.all(buf[:out_rows] == 7777.0) and torch.all(buf[out_rows + s:] == 7777.0)
 
 
 # ----------------------------------------------------------------------
