@@ -28,7 +28,9 @@ Run from the root of a checkout on a machine with a CUDA card.  It
    and child count; ``segment_sum`` and ``segment_reduce`` also at the
    largest launch of their widest rows, the general hops' edge chunks,
    with ``out=`` at that launch's alignment) and on edge cases (see
-   ``kernel_cases``), with tolerance 0 (integer-valued
+   ``kernel_cases``, ``fused_hop_cases`` and, for the slab-major warp walk
+   of ``coo_spmm`` and one-child ``fused_hop`` hops, ``gather_cases``,
+   with operand and output pointers off 16 bytes), with tolerance 0 (integer-valued
    float32 below 2**24: every sum is exact), and times kernel, plain
    version, one PyTorch library call as a yardstick where one computes
    the same function, ``fused_hop``'s three-dispatch counterpart on the
@@ -423,6 +425,82 @@ def kernel_cases(torch, dev):
     return seg, spmm
 
 
+def gather_cases(torch, dev):
+    """Edge cases of the slab-major warp walk (``csrc/gathered_rows.cuh``)
+    that ``coo_spmm`` and one-child ``fused_hop`` hops of width >= 32 run
+    on, as (label, kernel name, args, out offset or None): d % 4 != 0,
+    d below the slab width and one past it, mostly empty rows, one run of
+    thousands of edges, operand rows out of range, ±inf child rows for
+    MIN/MAX, and operand and output pointers 4 or 8 bytes past a 16-byte
+    boundary (scalar and 8-byte lanes).  Integer-valued float32."""
+    from repro_torch.kernels import ops
+
+    g = torch.Generator(device="cpu").manual_seed(17)
+    slab = ops.GATHER_SLAB
+
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=g).to(dev)
+
+    def operand(rows, d, offset, lo=-3, hi=4):
+        """(rows, d) integers starting ``offset`` floats into a buffer."""
+        buf = ints(lo, hi, (rows * d + offset,)).float()
+        return buf[offset:].view(rows, d)
+
+    cases = []
+    for n, s, rows, d, offset, key_lo, key_hi, label in [
+        (20_000, 300, 500, 4500, 0, 0, 300, "d=4500"),
+        (5000, 97, 200, 130, 0, 0, 97, "d % 4 != 0"),
+        (4000, 60, 90, slab - 28, 0, 0, 60, "d < slab width"),
+        (4000, 60, 90, slab + 1, 0, -3, 63, "d = slab width + 1, keys out of range"),
+        (600, 30_000, 90, 256, 0, 0, 30_000, "mostly empty rows"),
+        (5000, 97, 200, 512, 1, 0, 97, "pointers 4 bytes past 16"),
+        (5000, 97, 200, 512, 2, 0, 97, "pointers 8 bytes past 16"),
+    ]:
+        keys = torch.sort(ints(key_lo, key_hi, (n,))).values.contiguous()
+        cols = ints(-2, rows + 2, (n,))  # some out of range
+        vals = ints(1, 9, (n,)).float()
+        cases.append((f"gather walk, {label}", "coo_spmm",
+                      (keys, cols, vals, operand(rows, d, offset), s), offset))
+        for kind, k in (("sum", 1), ("sum", 2), ("sum", 3), ("min", 1), ("max", 1)):
+            dk = d - d % k
+            w = ints(0, 4 if kind == "sum" else 50, (n, k)).float()
+            msg = operand(rows, dk, offset)
+            if kind != "sum":
+                msg[ints(0, rows, (5,))] = float("inf" if kind == "min" else "-inf")
+            cases.append((f"gather walk, {label}, {kind} k={k}", "fused_hop",
+                          (keys, w, [msg], [cols], s, k, kind), offset))
+    long = torch.sort(torch.cat([torch.full((6000,), 2, device=dev), ints(0, 9, (50,))])).values
+    cols = ints(-1, 41, (long.shape[0],))
+    cases.append(("gather walk, one run of 6000 edges", "coo_spmm",
+                  (long.contiguous(), cols, ints(1, 3, cols.shape).float(),
+                   operand(40, 300, 0, -1, 2), 9), 0))
+    for kind in ("sum", "min", "max"):
+        cases.append((f"gather walk, one run of 6000 edges, {kind}", "fused_hop",
+                      (long.contiguous(), ints(0, 3, (cols.shape[0], 1)).float(),
+                       [operand(40, 300, 0, -1, 2)], [cols], 9, 1, kind), 0))
+    return cases
+
+
+def gather_phase(torch, tag) -> dict[str, list[float]]:
+    """``coo_spmm`` and ``fused_hop`` on the slab-major warp walk's edge
+    cases against their plain versions, ``out=`` at the case's alignment;
+    returns each kernel's errors."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.coo_spmm import coo_spmm
+    from repro_torch.kernels.fused_hop import fused_hop
+
+    dev = torch.device("cuda")
+    kernels = {"coo_spmm": (coo_spmm, ref.coo_spmm), "fused_hop": (fused_hop, ref.fused_hop)}
+    errs = {name: [] for name in kernels}
+    for label, name, args, offset in gather_cases(torch, dev):
+        kernel, plain = kernels[name]
+        s = args[4]
+        d = args[3].shape[1] if name == "coo_spmm" else args[2][0].shape[1]
+        errs[name].append(compare(torch, tag, name, label, kernel, plain, args,
+                                  out=out_view(torch, s, d, offset, dev)))
+    return errs
+
+
 def segment_regime(torch, tag, name, label, launch):
     """One captured ``segment_sum`` / ``segment_reduce`` launch: held
     against its plain version with ``out=`` at the launch's own alignment,
@@ -475,7 +553,7 @@ def kernel_phase(torch, tag, captured):
     """The three kernels of the unfused main path on edge cases and at
     their largest launch; ``segment_sum`` and ``segment_reduce`` also at
     the largest launch of their widest rows (the edge-chunk shape)."""
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import ops, ref
     from repro_torch.kernels.coo_spmm import coo_spmm
     from repro_torch.kernels.segment_reduce import segment_reduce
     from repro_torch.kernels.segment_sum import segment_sum
@@ -526,12 +604,17 @@ def kernel_phase(torch, tag, captured):
     results["coo_spmm"] = dict(
         shapes={"rows": [nnz], "dense": [kdense, w], "num_rows": s,
                 "dense_rows_used": used},
+        walk=repr(ops.gather_plan(nnz, s, w)),
         max_abs_err=max(errs),
         ms=time_ms(torch, lambda: coo_spmm(rows, cols, vals, dense, s)),
         plain_ms=time_ms(torch, lambda: ref.coo_spmm(rows, cols, vals, dense, s), reps=3),
         library_ms=csr_spmm_ms(torch, rows, cols, vals, dense, s),
         bound_ms=b, bound_by=by,
     )
+    r = results["coo_spmm"]
+    say(tag, f"kernels: coo_spmm [main path] at {r['shapes']}: {r['ms']:.4f} ms, bound "
+             f"{b:.4f} ms by {by}, plain {r['plain_ms']:.4f} ms, library torch.sparse.mm "
+             f"{r['library_ms']:.4f} ms; {r['walk']}")
     return results
 
 
@@ -597,8 +680,8 @@ def fused_phase(torch, tag, captured):
     single-child channel-uniform sum hop, the hop ``coo_spmm`` runs on
     the unfused path, where ``torch.sparse.mm`` computes the same."""
     from repro_torch.core import torch_engine
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.fused_hop import fused_hop
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.fused_hop import fused_hop, gathers_one_child
 
     dev = torch.device("cuda")
     errs = []
@@ -643,6 +726,8 @@ def fused_phase(torch, tag, captured):
             kind=kind, children=nchild, uniform=uniform,
             shapes={"edges": n, "k": k, "num_segments": s,
                     "messages": [list(m.shape) for m in msgs]},
+            walk=repr(ops.gather_plan(n, s, width * k) if gathers_one_child(nchild, width * k)
+                      else ops.walk_plan(n, s, width * k)),
             ms=time_ms(torch, lambda: fused_hop(*args)),
             three_dispatch_ms=time_ms(
                 torch,
@@ -658,7 +743,8 @@ def fused_phase(torch, tag, captured):
         say(tag, f"kernels: fused_hop [{label}] at {hop['shapes']}: {hop['ms']:.4f} ms, "
                  f"three-dispatch {hop['three_dispatch_ms']:.4f} ms, bound "
                  f"{b:.4f} ms by {by}, plain {hop['plain_ms']:.4f} ms, library "
-                 f"{library} {library_ms if library_ms is None else f'{library_ms:.4f}'} ms")
+                 f"{library} {library_ms if library_ms is None else f'{library_ms:.4f}'} ms; "
+                 f"{hop['walk']}")
     check(hops, "no fused_hop launch captured")
     for kind in ("sum", "min", "max"):
         check(any(h["kind"] == kind for h in hops), f"fused path ran no {kind} hop")
@@ -919,6 +1005,8 @@ def main() -> int:
     results = kernel_phase(torch, tag, captured)
     results["fused_hop"] = fused_phase(torch, tag, capture_launches(fplan.execute, hop_class))
     results["semiring_matmul"] = semiring_phase(torch, tag)
+    for name, errs in gather_phase(torch, tag).items():
+        results[name]["max_abs_err"] = max([results[name]["max_abs_err"]] + errs)
 
     for label, summary in (("main path", main), ("fused path", fused)):
         say(tag, f"{label} summary: {json.dumps(summary)}")
@@ -939,9 +1027,11 @@ def main() -> int:
         }
         if name in SEGMENT_KERNELS:
             entry.update(regimes=r["regimes"], launches_by_width=r["launches_by_width"])
+        if name == "coo_spmm":
+            entry.update(walk=r["walk"])
         if name == "fused_hop":
             entry.update(three_dispatch_ms=r["three_dispatch_ms"], library=r["library"],
-                         hops=r["hops"])
+                         hops=r["hops"], walk=r["walk"])
         if name == "semiring_matmul":
             entry.update(note="no path launches it; held and timed on its own",
                          semirings=r["semirings"])

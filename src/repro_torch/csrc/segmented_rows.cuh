@@ -4,11 +4,14 @@
 //
 // Replaces the scatter half of the TPU kernels
 // repro/kernels/segment_sum.py:_segment_sum_kernel,
-// segment_reduce.py:_segment_reduce_kernel, coo_spmm.py:_coo_spmm_kernel
-// and fused_hop.py:_fused_hop_kernel, which turn the scatter into one-hot
+// segment_reduce.py:_segment_reduce_kernel and
+// fused_hop.py:_fused_hop_kernel, which turn the scatter into one-hot
 // matmuls because a TPU has no cheap scatter.  On Hopper the keys arrive
 // sorted (grouped-CSR order, DESIGN.md §7), so each output row's edges are
-// one contiguous run: no atomics, no separate zero fill.
+// one contiguous run: no atomics, no separate zero fill.  The ops that
+// gather one child row per edge (coo_spmm, one-child fused_hop hops of
+// width >= 32) take the slab-major warp walk of gathered_rows.cuh instead,
+// which reuses this file's block search and run marking.
 //
 // Bound on this card: bytes.  Every output element is written once and
 // every edge row is read once, against O(1) arithmetic per byte.  The main
@@ -50,9 +53,10 @@
 // element is still reduced by one thread, over its run in edge order, with
 // the op's own fold (__fadd_rn, fminf, fmaxf, or the op's product and
 // fold): wider loads and stores move the same values, and unrolling issues
-// loads early but folds them in order.  coo_spmm and fused_hop keep their
-// ops and their one-edge-at-a-time loop; they run on the row walk with
-// one column per thread, or on the narrow walk.
+// loads early but folds them in order.  fused_hop's hops with no child,
+// with two or more, or with one child narrower than a warp keep their
+// one-edge-at-a-time loop; they run on the row walk with one column per
+// thread, or on the narrow walk.
 //
 // Preconditions (the Python wrappers check all but the first two, which
 // would need a pass over the data):
@@ -96,13 +100,8 @@ struct RowOp {
   const float* data;
   int64_t d;
 
-  __device__ uint32_t column(uint32_t c) const { return c; }
   __device__ static float identity() { return Fold::identity(); }
   __device__ static float fold(float acc, float v) { return Fold::fold(acc, v); }
-
-  __device__ __forceinline__ float operator()(float acc, int64_t e, uint32_t c) const {
-    return Fold::fold(acc, data[e * d + c]);
-  }
 };
 
 template <class Op, class = void>
@@ -136,7 +135,7 @@ __device__ inline int64_t block_lower_bound(const int64_t* __restrict__ keys, in
 }
 
 // The op's fold over edges [e, end) of column col, one edge at a time (the
-// loop of coo_spmm and fused_hop, whose ops gather and are not redesigned).
+// loop of the fused_hop hops that stay on this walk).
 template <class Op, class Column>
 __device__ __forceinline__ float reduce_run(const Op& op, const Column& col, int64_t e,
                                             int64_t end) {
@@ -192,6 +191,45 @@ __device__ __forceinline__ float element(const Op& op, uint32_t c, int64_t e, in
   }
 }
 
+// Mark the runs of the tile of rows [s0, s0 + rows) whose first edge is
+// e0, by the whole block; every thread calls it and gets the end of the
+// tile's edges.  keys[e0..] are >= s0; those < s0 + rows belong here, a
+// prefix of each batch because the keys are sorted.  With kBounds, an
+// edge that opens row r's run stores first[r] and one that closes it
+// stop[r], both relative to e0; the caller has zeroed both, so a row no
+// edge opens keeps the empty run [0, 0).  The last __syncthreads_count
+// orders these stores before any thread reads them.
+template <bool kBounds>
+__device__ inline int64_t mark_runs(const int64_t* __restrict__ keys, int64_t n, int64_t e0,
+                                    int64_t s0, int64_t rows, int32_t* first, int32_t* stop) {
+  int64_t e = e0;
+  for (;;) {
+    const int64_t i = e + threadIdx.x;
+    int inside = 0;
+    if (i < n) {
+      const int64_t k = keys[i];
+      if (k < s0 + rows) {
+        inside = 1;
+        if constexpr (kBounds) {
+          const int64_t r = k - s0;
+          const int32_t rel = static_cast<int32_t>(i - e0);
+          if (i == e0 || keys[i - 1] != k) {
+            first[r] = rel;
+          }
+          if (i + 1 == n || keys[i + 1] != k) {
+            stop[r] = rel + 1;
+          }
+        }
+      }
+    }
+    const int count = __syncthreads_count(inside);
+    e += count;
+    if (count < static_cast<int>(blockDim.x)) {
+      return e;
+    }
+  }
+}
+
 // End of the run of key k that starts at edge i: the first edge in (i, e)
 // whose key differs, found by galloping, or e.
 __device__ __forceinline__ int64_t run_end(const int64_t* __restrict__ keys, int64_t i,
@@ -230,10 +268,11 @@ __device__ __forceinline__ int64_t run_end(const int64_t* __restrict__ keys, int
 // Op supplies `static float identity()`, `Column column(uint32_t c) const`
 // (what an output column needs across the edge loop) and `float
 // operator()(float acc, int64_t edge, const Column& col) const`; a RowOp
-// also `fold`.  The op is a __grid_constant__ parameter: its fields are
-// read from the parameter bank and never copied per thread.  Ops that
-// gather (coo_spmm, fused_hop) keep the 32 registers they had before the
-// walk grew, so that eight blocks share an SM.
+// supplies `identity`, `fold`, `data` and `d` instead.  The op is a
+// __grid_constant__ parameter: its fields are read from the parameter
+// bank and never copied per thread.  fused_hop's ops keep the 32
+// registers they had before the walk grew, so that eight blocks share an
+// SM.
 template <class Op, int V>
 __global__ void __launch_bounds__(kThreads, ReadsRows<Op>::value ? 1 : 8)
 segmented_rows(const int64_t* __restrict__ keys, int64_t n, int64_t num_rows,
@@ -268,34 +307,7 @@ segmented_rows(const int64_t* __restrict__ keys, int64_t n, int64_t num_rows,
     }
   }
   const int64_t e0 = block_lower_bound(keys, 0, n, s0);  // its barriers order the above
-  // Mark the tile's runs: keys[e0..] are >= s0; those < s0 + rows belong
-  // here, a prefix of each batch because the keys are sorted.
-  int64_t e = e0;
-  for (;;) {
-    const int64_t i = e + threadIdx.x;
-    int inside = 0;
-    if (i < n) {
-      const int64_t k = keys[i];
-      if (k < s0 + rows) {
-        inside = 1;
-        if constexpr (V != 0) {
-          const int64_t r = k - s0;
-          const int32_t rel = static_cast<int32_t>(i - e0);
-          if (i == e0 || keys[i - 1] != k) {
-            first[r] = rel;
-          }
-          if (i + 1 == n || keys[i + 1] != k) {
-            stop[r] = rel + 1;
-          }
-        }
-      }
-    }
-    const int count = __syncthreads_count(inside);
-    e += count;
-    if (count < static_cast<int>(blockDim.x)) {
-      break;
-    }
-  }
+  const int64_t e = mark_runs<V != 0>(keys, n, e0, s0, rows, first, stop);
   if constexpr (V == 0) {
     for (int64_t i = e0 + threadIdx.x; i < e; i += blockDim.x) {
       const int64_t k = keys[i];

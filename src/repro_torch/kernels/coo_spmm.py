@@ -1,10 +1,12 @@
 """COO sparse × dense product over sorted rows: the Hopper port of the
 TPU kernel ``repro/kernels/coo_spmm.py:coo_spmm``.
 
-The CUDA source is ``csrc/coo_spmm.cu``; ``ref.coo_spmm`` is its plain
-version.  The sparse engine sends single-child hops with channel-uniform
-weights here, the child message as the dense operand with its ``k``
-channels riding the columns (``(rows, width·k)``).
+The CUDA source is ``csrc/coo_spmm.cu``, on the slab-major warp walk of
+``csrc/gathered_rows.cuh`` (launch shape :func:`ops.gather_plan`);
+``ref.coo_spmm`` is its plain version.  The sparse engine sends
+single-child hops with channel-uniform weights here, the child message
+as the dense operand with its ``k`` channels riding the columns
+(``(rows, width·k)``).
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ from repro_torch.kernels import ops, ref
 _ARGTYPES = (
     ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-    ctypes.c_int64, ctypes.c_void_p, ctypes.POINTER(ops.WalkPlan),
+    ctypes.c_int64, ctypes.c_void_p, ctypes.POINTER(ops.GatherPlan),
     ctypes.c_void_p,
 )
 
@@ -60,7 +62,7 @@ def coo_spmm(
     out = ops.output("coo_spmm", out, (num_rows, width), dense)
     if num_rows == 0 or width == 0:
         return out
-    plan = ops.walk_plan(nnz, num_rows, width)
+    plan = ops.gather_plan(nnz, num_rows, width)
     fn = ops.load("coo_spmm", "repro_coo_spmm", _ARGTYPES)
     rc = fn(
         device.index, rows.data_ptr(), cols.data_ptr(), vals.data_ptr(), nnz,

@@ -2,10 +2,14 @@
 kernel ``repro/kernels/fused_hop.py:fused_hop``.
 
 The CUDA source is ``csrc/fused_hop.cu``; ``ref.fused_hop`` is its plain
-version.  Under ``.fused(True)`` (or ``REPRO_FUSED``) the sparse engine
-sends every hop here — sum hops with any children and weights, and
-MIN/MAX hops — in place of the gather, product and ``segment_sum`` /
-``coo_spmm`` / ``segment_reduce`` launches of the three-dispatch path.
+version.  Hops with one child and rows of 32 floats or more run the
+slab-major warp walk (``csrc/gathered_rows.cuh``, launch shape
+:func:`ops.gather_plan`), the others the sorted-run tile walk
+(:func:`ops.walk_plan`).  Under ``.fused(True)`` (or ``REPRO_FUSED``)
+the sparse engine sends every hop here — sum hops with any children and
+weights, and MIN/MAX hops — in place of the gather, product and
+``segment_sum`` / ``coo_spmm`` / ``segment_reduce`` launches of the
+three-dispatch path.
 """
 from __future__ import annotations
 
@@ -38,6 +42,18 @@ _ARGTYPES = (
     ctypes.c_int64, ctypes.POINTER(_Child), ctypes.c_int, ctypes.c_int64,
     ctypes.c_int, ctypes.c_void_p, ctypes.POINTER(ops.WalkPlan), ctypes.c_void_p,
 )
+_ONE_CHILD_ARGTYPES = (
+    ctypes.c_int, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+    ctypes.c_int64, ctypes.POINTER(_Child), ctypes.c_int64, ctypes.c_int,
+    ctypes.c_void_p, ctypes.POINTER(ops.GatherPlan), ctypes.c_void_p,
+)
+
+
+def gathers_one_child(nchild: int, d: int) -> bool:
+    """Whether a hop with ``nchild`` children into rows of ``d`` floats
+    runs the slab-major warp walk (``csrc/gathered_rows.cuh``) rather than
+    the sorted-run tile walk."""
+    return nchild == 1 and d >= ops.NARROW_WIDTH
 
 
 def fused_hop(
@@ -109,12 +125,21 @@ def fused_hop(
         _Child(msg.data_ptr(), idx.data_ptr(), msg.shape[0], w)
         for msg, idx, w in zip(msgs, idxs, widths)
     ))
-    plan = ops.walk_plan(n, num_segments, width * k)
-    fn = ops.load("fused_hop", "repro_fused_hop", _ARGTYPES)
-    rc = fn(
-        device.index, keys.data_ptr(), n, weights.data_ptr(), k, children,
-        len(msgs), num_segments, _KINDS[kind], out.data_ptr(), ctypes.byref(plan),
-        ops.stream_of(device),
-    )
+    if gathers_one_child(len(msgs), width * k):
+        plan = ops.gather_plan(n, num_segments, width * k)
+        fn = ops.load("fused_hop", "repro_fused_hop_one_child", _ONE_CHILD_ARGTYPES)
+        rc = fn(
+            device.index, keys.data_ptr(), n, weights.data_ptr(), k, children,
+            num_segments, _KINDS[kind], out.data_ptr(), ctypes.byref(plan),
+            ops.stream_of(device),
+        )
+    else:
+        plan = ops.walk_plan(n, num_segments, width * k)
+        fn = ops.load("fused_hop", "repro_fused_hop", _ARGTYPES)
+        rc = fn(
+            device.index, keys.data_ptr(), n, weights.data_ptr(), k, children,
+            len(msgs), num_segments, _KINDS[kind], out.data_ptr(), ctypes.byref(plan),
+            ops.stream_of(device),
+        )
     ops.check_launch("fused_hop", rc)
     return out

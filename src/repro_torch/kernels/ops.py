@@ -16,10 +16,13 @@
   right after a successful launch and nowhere else, so a run can show
   which kernels its main path went through.  They are the module's only
   mutable state besides the per-process memo of built, loaded libraries.
-* **Walk plan.**  :func:`walk_plan` is the launch shape of the sorted-run
-  tile walk (``csrc/segmented_rows.cuh``) that ``segment_sum``,
-  ``segment_reduce``, ``coo_spmm`` and ``fused_hop`` share, from
-  ``(n, num_rows, d)`` alone; the wrappers pass it to the C entry points.
+* **Walk plans.**  :func:`walk_plan` is the launch shape of the
+  sorted-run tile walk (``csrc/segmented_rows.cuh``) of ``segment_sum``,
+  ``segment_reduce`` and the ``fused_hop`` hops that do not gather one
+  child row per edge; :func:`gather_plan` that of the slab-major warp walk
+  (``csrc/gathered_rows.cuh``) of ``coo_spmm`` and the one-child
+  ``fused_hop`` hops of width >= 32.  Both come from ``(n, num_rows, d)``
+  alone; the wrappers pass them to the C entry points.
 * **Fused-path switch.**  :func:`fused_enabled` resolves ``Q.fused`` and
   the ``REPRO_FUSED`` environment variable, as the JAX package's
   ``kernels/ops.py:fused_enabled`` does.
@@ -140,6 +143,98 @@ def walk_plan(n: int, num_rows: int, d: int) -> WalkPlan:
         raise ValueError(f"a ({num_rows}, {d}) output needs {blocks} blocks, more than one launch has")
     smem = 0 if narrow else 8 * rows  # the row walk's run bounds
     return WalkPlan(rows, slab, slabs, blocks, smem, int(narrow))
+
+
+# ----------------------------------------------------------------------
+# launch shape of the slab-major warp walk
+# ----------------------------------------------------------------------
+
+GATHER_SLAB = 128  # W: output columns per slab
+GATHER_ROWS = 16  # output rows per block
+GATHER_WARPS = 4  # warps per block, each walking rows of the tile in turn
+GATHER_IN_FLIGHT = 1  # edges whose gathers a lane starts before it folds them
+GATHER_MAX_ROWS = 1024  # csrc/gathered_rows.cuh:kGatherMaxRows
+GATHER_MAX_WARPS = 4  # csrc/gathered_rows.cuh:kGatherMaxWarps
+GATHER_IN_FLIGHT_CHOICES = (1, 4, 8)  # the kernel's instantiations
+
+
+class GatherPlan(ctypes.Structure):
+    """``ReproGatherPlan`` of ``csrc/gathered_rows.cuh``: the output's
+    columns cut into ``slabs`` slabs of ``slab`` columns (the last one
+    shorter), its rows into ``tiles`` tiles of ``rows_per_block`` rows, one
+    block of ``warps`` warps per (tile, slab), each warp walking rows of
+    the tile in turn; with ``slab_major`` block ``b`` walks slab ``b div
+    tiles`` of tile ``b mod tiles``, else slab ``b mod slabs`` of tile
+    ``b div slabs``."""
+
+    _fields_ = [
+        ("slab", ctypes.c_int64),
+        ("slabs", ctypes.c_int64),
+        ("rows_per_block", ctypes.c_int64),
+        ("tiles", ctypes.c_int64),
+        ("blocks", ctypes.c_int64),
+        ("smem_bytes", ctypes.c_int64),
+        ("slab_major", ctypes.c_int32),
+        ("in_flight", ctypes.c_int32),
+        ("warps", ctypes.c_int32),
+    ]
+
+    def __repr__(self) -> str:
+        return "GatherPlan(" + ", ".join(
+            f"{name}={getattr(self, name)}" for name, _ in self._fields_
+        ) + ")"
+
+
+def make_gather_plan(
+    n: int,
+    num_rows: int,
+    d: int,
+    slab: int = GATHER_SLAB,
+    rows: int = GATHER_ROWS,
+    warps: int = GATHER_WARPS,
+    in_flight: int = GATHER_IN_FLIGHT,
+    slab_major: bool = True,
+) -> GatherPlan:
+    """A slab-major warp walk plan for ``n`` edges into a ``(num_rows,
+    d)`` output with the given slab width (a multiple of 32; rows narrower
+    than it take one slab of ``d`` rounded up to 32), rows and warps per
+    block and edges in flight; raises on what the kernel cannot take.
+    ``tools/walk_sweep.py`` times such candidates."""
+    if n > MAX_EDGES:
+        raise ValueError(f"the gather walk takes at most {MAX_EDGES} edges, got {n}")
+    if num_rows < 1 or d < 1:
+        raise ValueError(f"gather_plan needs num_rows >= 1 and d >= 1, got {num_rows}, {d}")
+    if slab < 32 or slab % 32:
+        raise ValueError(f"a gather slab is a multiple of 32 columns, got {slab}")
+    if not 1 <= rows <= GATHER_MAX_ROWS:
+        raise ValueError(f"a gather block holds 1 to {GATHER_MAX_ROWS} rows, got {rows}")
+    if not 1 <= warps <= GATHER_MAX_WARPS:
+        raise ValueError(f"a gather block has 1 to {GATHER_MAX_WARPS} warps, got {warps}")
+    if in_flight not in GATHER_IN_FLIGHT_CHOICES:
+        raise ValueError(f"edges in flight must be one of {GATHER_IN_FLIGHT_CHOICES}, got {in_flight}")
+    slab = min(slab, 32 * _ceil_div(d, 32))
+    slabs = _ceil_div(d, slab)
+    rows = min(rows, num_rows)
+    warps = min(warps, rows)
+    tiles = _ceil_div(num_rows, rows)
+    blocks = tiles * slabs
+    if blocks > MAX_BLOCKS:
+        raise ValueError(f"a ({num_rows}, {d}) output needs {blocks} blocks, more than one launch has")
+    return GatherPlan(slab, slabs, rows, tiles, blocks, 8 * rows, int(slab_major),
+                      in_flight, warps)
+
+
+def gather_plan(n: int, num_rows: int, d: int) -> GatherPlan:
+    """Launch shape of the slab-major warp walk for ``n`` edges into a
+    ``(num_rows, d)`` output: slabs of :data:`GATHER_SLAB` columns walked
+    slab by slab, :data:`GATHER_ROWS` rows and :data:`GATHER_WARPS` warps
+    per block, and :data:`GATHER_IN_FLIGHT` gathers in flight per lane,
+    the fastest of ``tools/walk_sweep.py``'s candidates on an H100.  At
+    the main path's shape a slab of the (50000, 4500) operand is 25.6 MB
+    of the 50 MB L2.  An output of more rows than one launch's blocks can
+    take at that tile height gets taller tiles."""
+    rows = max(GATHER_ROWS, _ceil_div(num_rows * _ceil_div(d, GATHER_SLAB), MAX_BLOCKS))
+    return make_gather_plan(n, num_rows, d, rows=rows)
 
 
 # ----------------------------------------------------------------------

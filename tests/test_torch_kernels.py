@@ -225,23 +225,7 @@ def _walk(keys, num_rows, d, plan):
         if plan.narrow:  # before the search: the whole tile span
             fills[s0:s0 + rows] += 1
         e0 = _block_lower_bound(keys, 0, n, s0)
-        marked = {}
-        e = e0
-        while True:  # marking, one batch of `threads` edges at a time
-            count = 0
-            for i in range(e, min(e + threads, n)):
-                k = int(keys[i])
-                if k >= s0 + rows:
-                    break
-                assert k >= s0
-                count += 1
-                if i == e0 or keys[i - 1] != k:
-                    marked.setdefault(k, [None, None])[0] = i
-                if i + 1 == n or keys[i + 1] != k:
-                    marked.setdefault(k, [None, None])[1] = i + 1
-            e += count
-            if count < threads:
-                break
+        marked, e = _mark_runs(keys, e0, s0, rows, threads)
         if plan.narrow:
             # after the search's barriers, each run by the thread holding
             # its first edge, its end found by galloping
@@ -417,6 +401,308 @@ def test_segment_kernels_plain_versions_at_walk_edge_cases(n, d, s, id_lo, id_hi
         if out is not None:
             assert got is out
             assert torch.all(buf[:out_rows] == 7777.0) and torch.all(buf[out_rows + s:] == 7777.0)
+
+
+# ----------------------------------------------------------------------
+# the slab-major warp walk's launch plan (kernels/ops.py:gather_plan), and
+# csrc/gathered_rows.cuh mirrored block by block, lane by lane
+# ----------------------------------------------------------------------
+
+
+def _check_gather_plan(plan, n, num_rows, d):
+    """The plan's arithmetic, without walking it."""
+    assert plan.slab >= 32 and plan.slab % 32 == 0
+    # column slabs partition [0, d)
+    assert plan.slabs * plan.slab >= d > (plan.slabs - 1) * plan.slab
+    assert 1 <= plan.rows_per_block <= min(num_rows, ops.GATHER_MAX_ROWS)
+    assert 1 <= plan.warps <= min(plan.rows_per_block, ops.GATHER_MAX_WARPS)
+    assert plan.smem_bytes == 8 * plan.rows_per_block <= ops.SMEM_LIMIT
+    assert plan.tiles == -(-num_rows // plan.rows_per_block)
+    assert plan.blocks == plan.tiles * plan.slabs <= ops.MAX_BLOCKS
+    assert plan.in_flight in ops.GATHER_IN_FLIGHT_CHOICES
+    assert plan.slab_major in (0, 1)
+
+
+def _block_cell(plan, block):
+    """``gathered_rows.cuh``: the (tile, slab) that block ``block`` walks."""
+    if plan.slab_major:
+        slab, tile = divmod(block, plan.tiles)
+    else:
+        tile, slab = divmod(block, plan.slabs)
+    return tile, slab
+
+
+@settings(max_examples=300, deadline=None)
+@given(
+    n=st.integers(0, ops.MAX_EDGES),
+    num_rows=st.integers(1, 2**34),
+    d=st.one_of(st.integers(1, 300), st.integers(1, 2**20),
+                st.sampled_from([2250, 4097, 4500])),
+)
+def test_gather_plan_arithmetic(n, num_rows, d):
+    assume(num_rows * d <= 2**36)
+    plan = ops.gather_plan(n, num_rows, d)
+    _check_gather_plan(plan, n, num_rows, d)
+    assert plan.slab_major == 1
+    # the slab is the slow dimension: blocks [j * tiles, (j + 1) * tiles)
+    # walk slab j, tile by tile
+    for block in (0, plan.tiles - 1, plan.tiles, plan.blocks - 1):
+        if block < plan.blocks:
+            assert _block_cell(plan, block) == (block % plan.tiles, block // plan.tiles)
+
+
+@pytest.mark.parametrize("slab_major", [True, False])
+@pytest.mark.parametrize("num_rows,d,slab,rows,warps", [
+    (1, 1, 32, 1, 1), (37, 300, 128, 8, 4), (50, 4500, 128, 32, 4),
+    (9, 129, 32, 16, 2), (100, 64, 256, 4, 4), (33, 2250, 64, 32, 1),
+])
+def test_gather_plan_covers_every_row_and_slab_once(num_rows, d, slab, rows, warps, slab_major):
+    plan = ops.make_gather_plan(500, num_rows, d, slab, rows, warps, 4, slab_major)
+    _check_gather_plan(plan, 500, num_rows, d)
+    cover = np.zeros((num_rows, d), np.int64)
+    slabs_in_order = []
+    for block in range(plan.blocks):
+        tile, slab_j = _block_cell(plan, block)
+        s0 = tile * plan.rows_per_block
+        c0 = slab_j * plan.slab
+        assert s0 < num_rows and c0 < d  # no block past the output
+        cover[s0:s0 + plan.rows_per_block, c0:c0 + plan.slab] += 1
+        slabs_in_order.append(slab_j)
+    assert np.all(cover == 1)
+    if slab_major:
+        assert slabs_in_order == sorted(slabs_in_order)
+
+
+@pytest.mark.parametrize("n,num_rows,d,k", [
+    (499_948, 50_000, 4500, 2),  # coo_spmm and the uniform / measure-weighted hops
+    (499_948, 50_000, 2250, 1),  # the MIN/MAX one-child hops
+])
+def test_gather_plan_at_main_path_shapes(n, num_rows, d, k):
+    plan = ops.gather_plan(n, num_rows, d)
+    _check_gather_plan(plan, n, num_rows, d)
+    assert (plan.slab, plan.slab_major) == (ops.GATHER_SLAB, 1)
+    assert plan.slabs == -(-d // ops.GATHER_SLAB)
+    # one slab of the gathered operand (its 50,000 rows: the child's join
+    # domain) and the edge arrays every slab rereads (keys, child index,
+    # k weights) stay well inside the H100's 50 MB L2
+    operand_slab = num_rows * plan.slab * 4
+    edges = n * (8 + 8 + 4 * k)
+    assert operand_slab + edges <= 0.8 * 50 * 2**20
+    # and the blocks of one slab fill the card's 132 SMs several times over
+    assert plan.tiles >= 8 * 132
+
+
+def test_gather_plan_refuses_what_the_kernel_cannot_take():
+    with pytest.raises(ValueError, match="at most 2147483647 edges"):
+        ops.gather_plan(2**31, 10, 1)
+    with pytest.raises(ValueError, match="num_rows >= 1 and d >= 1"):
+        ops.gather_plan(10, 1, 0)
+    with pytest.raises(ValueError, match="1 to 1024 rows"):  # tiles would outgrow a block
+        ops.gather_plan(10, 2**50, 1)
+    with pytest.raises(ValueError, match="more than one launch has"):
+        ops.make_gather_plan(10, 2**40, 1)
+    with pytest.raises(ValueError, match="multiple of 32 columns"):
+        ops.make_gather_plan(10, 10, 100, slab=48)
+    with pytest.raises(ValueError, match="1 to 1024 rows"):
+        ops.make_gather_plan(10, 10, 100, rows=0)
+    with pytest.raises(ValueError, match="1 to 4 warps"):
+        ops.make_gather_plan(10, 100, 100, rows=64, warps=5)
+    with pytest.raises(ValueError, match="edges in flight"):
+        ops.make_gather_plan(10, 10, 100, in_flight=2)
+    assert ctypes.sizeof(ops.GatherPlan) == 64  # ReproGatherPlan, field for field
+
+
+def test_one_child_hops_of_a_warp_width_or_more_take_the_gather_walk():
+    from repro_torch.kernels.fused_hop import gathers_one_child
+
+    assert gathers_one_child(1, ops.NARROW_WIDTH) and gathers_one_child(1, 4500)
+    assert not gathers_one_child(1, ops.NARROW_WIDTH - 1)  # narrow one-child hops
+    assert not gathers_one_child(0, 4500) and not gathers_one_child(2, 4500)
+
+
+def _mark_runs(keys, e0, s0, rows, threads):
+    """``segmented_rows.cuh:mark_runs``: one strided pass, a batch of
+    ``threads`` edges at a time; returns each row's run ``[first, stop)``
+    (absolute edge offsets, ``None`` for a row no edge opens) and the end
+    of the tile's edges."""
+    n, e, marked = len(keys), e0, {}
+    while True:
+        count = 0
+        for i in range(e, min(e + threads, n)):
+            k = int(keys[i])
+            if k >= s0 + rows:
+                break
+            assert k >= s0
+            count += 1
+            if i == e0 or keys[i - 1] != k:
+                marked.setdefault(k, [None, None])[0] = i
+            if i + 1 == n or keys[i + 1] != k:
+                marked.setdefault(k, [None, None])[1] = i + 1
+        e += count
+        if count < threads:
+            return marked, e
+
+
+def _gather_walk(keys, index, rows_of, scalar, scales, src, num_rows, d, plan, identity, fold):
+    """What each block of the slab-major warp walk does, block by block in
+    launch order and lane by lane: the search and marking of the tile's
+    runs; per warp and row, per 128-column chunk of the slab (4 adjacent
+    columns per lane; the access width the pointers allow moves the same
+    values), batches of 32 edges whose operand row (-1 where out of range)
+    and scalar one lane each loads for the warp; ``plan.in_flight`` gathers
+    per lane before it folds any, then the folds in edge order.  Returns
+    the output and how often each element was written."""
+    n, R, U = len(keys), plan.rows_per_block, plan.in_flight
+    out = np.full((num_rows, d), np.nan, np.float32)
+    writes = np.zeros((num_rows, d), np.int64)
+    lane_cols = np.arange(32)[:, None] * 4 + np.arange(4)  # (32 lanes, 4 columns)
+    for block in range(plan.blocks):
+        tile, slab = _block_cell(plan, block)
+        s0 = tile * R
+        rows = min(R, num_rows - s0)
+        threads = 32 * plan.warps
+        e0 = _block_lower_bound(keys, 0, n, s0, threads)
+        marked, _ = _mark_runs(keys, e0, s0, rows, threads)
+        c0, c1 = slab * plan.slab, min(d, (slab + 1) * plan.slab)
+        for warp in range(plan.warps):
+            for r in range(warp, rows, plan.warps):
+                st, en = marked.get(s0 + r, (e0, e0))
+                for cc in range(c0, c1, 128):
+                    cols = cc + lane_cols
+                    live = cols < c1
+                    cols = np.where(live, cols, 0)
+                    acc = np.full(cols.shape, identity, np.float32)
+                    for base in range(st, en, 32):
+                        m = min(32, en - base)
+                        batch = index[base:base + m]  # one edge per lane
+                        loaded = np.where((batch >= 0) & (batch < rows_of), batch, -1)
+                        w = scalar[base:base + m]
+                        for j in range(0, m, U):
+                            group = [u for u in range(j, min(j + U, m)) if loaded[u] >= 0]
+                            gathered = {u: src[loaded[u]][cols] for u in group}
+                            for u in group:  # folds in edge order
+                                acc = fold(acc, scales(base + u, w[u], cols), gathered[u])
+                    out[s0 + r, cols[live]] = acc[live]
+                    writes[s0 + r, cols[live]] += 1
+    return out, writes
+
+
+_F32 = np.float32
+_FOLDS = {
+    "sum": (_F32(0), lambda acc, s, x: acc + s * x),
+    "min": (_F32(np.inf), lambda acc, s, x: np.fmin(acc, s + x)),
+    "max": (_F32(-np.inf), lambda acc, s, x: np.fmax(acc, s + x)),
+}
+
+# (n, num_rows, operand rows, d, key range, label)
+GATHER_CASES = [
+    (600, 37, 25, 300, (0, 37), "d % 4 == 0, three slabs"),
+    (500, 20, 25, 130, (0, 20), "d % 4 == 2: a lane with 2 columns"),
+    (400, 20, 25, 33, (0, 20), "odd d < W"),
+    (400, 13, 25, 129, (-3, 16), "d = W + 1, keys out of range"),
+    (300, 40, 25, 258, (0, 40), "d % 4 == 2, three slabs"),
+    (300, 40, 25, 131, (0, 40), "d % 4 == 3"),
+    (60, 300, 25, 64, (0, 300), "mostly empty rows"),
+    (0, 9, 5, 100, (0, 9), "no edges"),
+]
+
+
+def _gather_inputs(rng, n, num_rows, K, d, key_lo, key_hi, index_lo=-2):
+    keys = np.sort(rng.integers(key_lo, key_hi, n))
+    index = rng.integers(index_lo, K + 2, n)  # some out of range
+    src = _data(rng, (K, d))
+    return keys, index, src
+
+
+@pytest.mark.parametrize("n,num_rows,K,d,key_range,label", GATHER_CASES)
+def test_gather_walk_mirror_reproduces_coo_spmm(n, num_rows, K, d, key_range, label):
+    rng = np.random.default_rng(n + d)
+    keys, cols, dense = _gather_inputs(rng, n, num_rows, K, d, *key_range)
+    vals = rng.integers(1, 9, n).astype(np.float32)
+    plan = ops.gather_plan(n, num_rows, d)
+    identity, fold = _FOLDS["sum"]
+    got, writes = _gather_walk(
+        keys, cols, K, vals, lambda e, w, c: w, dense, num_rows, d, plan, identity, fold,
+    )
+    assert np.all(writes == 1)
+    want = port_ref.coo_spmm(torch.from_numpy(keys), torch.from_numpy(cols),
+                             torch.from_numpy(vals), torch.from_numpy(dense), num_rows)
+    np.testing.assert_array_equal(got, want.numpy())
+
+
+@pytest.mark.parametrize("kind,k", [("sum", 1), ("sum", 2), ("sum", 3), ("min", 1), ("max", 1)])
+@pytest.mark.parametrize("n,num_rows,K,d,key_range,label", GATHER_CASES)
+def test_gather_walk_mirror_reproduces_one_child_fused_hop(
+    n, num_rows, K, d, key_range, label, kind, k
+):
+    d -= d % k  # rows of width * k floats
+    rng = np.random.default_rng(n + d + k)
+    keys, idx, msg = _gather_inputs(rng, n, num_rows, K, d, *key_range)
+    w = rng.integers(0, 4 if kind == "sum" else 50, (n, k)).astype(np.float32)
+    if kind != "sum":  # child rows at the identity
+        msg[rng.choice(K, 4, replace=False)] = np.inf if kind == "min" else -np.inf
+    plan = ops.gather_plan(n, num_rows, d)
+    identity, fold = _FOLDS[kind]
+    got, writes = _gather_walk(
+        keys, idx, K, w[:, 0], lambda e, we, c: w[e][c % k] if k > 1 else we, msg,
+        num_rows, d, plan, identity, fold,
+    )
+    assert np.all(writes == 1)
+    want = port_ref.fused_hop(torch.from_numpy(keys), torch.from_numpy(w),
+                              [torch.from_numpy(msg)], [torch.from_numpy(idx)],
+                              num_rows, k, kind)
+    np.testing.assert_array_equal(got, want.numpy())
+    if kind == "sum" and k == 1:  # the same hop through coo_spmm's plain version
+        np.testing.assert_array_equal(
+            got, port_ref.coo_spmm(torch.from_numpy(keys), torch.from_numpy(idx),
+                                   torch.from_numpy(w[:, 0]), torch.from_numpy(msg),
+                                   num_rows).numpy())
+
+
+@pytest.mark.parametrize("kind", ["sum", "min", "max"])
+def test_gather_walk_mirror_one_run_of_thousands_of_edges(kind):
+    """One key run of 3,000 edges: ninety-four 32-edge batches, each split
+    into groups of gathers in flight."""
+    rng = np.random.default_rng(5)
+    n, num_rows, K, d = 3000, 3, 40, 40
+    keys = np.full(n, 1)
+    idx = rng.integers(-1, K + 1, n)
+    msg = rng.integers(-1, 2, (K, d)).astype(np.float32)
+    w = rng.integers(0, 3, (n, 1)).astype(np.float32)
+    identity, fold = _FOLDS[kind]
+    for in_flight in ops.GATHER_IN_FLIGHT_CHOICES:
+        plan = ops.make_gather_plan(n, num_rows, d, in_flight=in_flight)
+        got, writes = _gather_walk(keys, idx, K, w[:, 0], lambda e, we, c: we, msg, num_rows,
+                                   d, plan, identity, fold)
+        assert np.all(writes == 1)
+        want = port_ref.fused_hop(torch.from_numpy(keys), torch.from_numpy(w),
+                                  [torch.from_numpy(msg)], [torch.from_numpy(idx)],
+                                  num_rows, 1, kind)
+        np.testing.assert_array_equal(got, want.numpy())
+
+
+@pytest.mark.parametrize("slab,rows,warps,in_flight,slab_major", [
+    (32, 4, 4, 1, True), (64, 16, 2, 4, False), (128, 32, 4, 8, True),
+    (256, 16, 4, 4, True), (32, 1, 1, 8, False),
+])
+def test_gather_walk_mirror_same_bits_for_every_candidate_plan(
+    slab, rows, warps, in_flight, slab_major
+):
+    """What tools/walk_sweep.py holds on the card: any plan the kernel
+    takes gives the chosen plan's bits."""
+    rng = np.random.default_rng(slab + rows)
+    n, num_rows, K, d = 500, 45, 30, 260
+    keys, cols, dense = _gather_inputs(rng, n, num_rows, K, d, -2, num_rows + 2)
+    vals = rng.integers(1, 9, n).astype(np.float32)
+    plan = ops.make_gather_plan(n, num_rows, d, slab, rows, warps, in_flight, slab_major)
+    _check_gather_plan(plan, n, num_rows, d)
+    identity, fold = _FOLDS["sum"]
+    got, writes = _gather_walk(keys, cols, K, vals, lambda e, w, c: w, dense, num_rows, d,
+                               plan, identity, fold)
+    assert np.all(writes == 1)
+    want = port_ref.coo_spmm(torch.from_numpy(keys), torch.from_numpy(cols),
+                             torch.from_numpy(vals), torch.from_numpy(dense), num_rows)
+    np.testing.assert_array_equal(got, want.numpy())
 
 
 # ----------------------------------------------------------------------
