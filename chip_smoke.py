@@ -7,7 +7,8 @@ Run from the root of a checkout on a machine with a CUDA card.  It
 
 1. builds the port's five CUDA kernels from ``src/repro_torch/csrc`` (one
    ``nvcc`` per source, in parallel) and prints the build time and
-   ptxas' register, stack and spill lines;
+   ptxas' register, shared memory, stack and spill lines (per entry
+   function for ``semiring_matmul``);
 2. drives the port's main path through ``Q ... .engine("torch")`` on the
    paper's synthetic chain C1 at ``--n`` rows per relation (Table IV
    scale by default) with an integer measure on R3: COUNT, SUM, AVG, MIN
@@ -36,7 +37,10 @@ Run from the root of a checkout on a machine with a CUDA card.  It
    the same function, ``fused_hop``'s three-dispatch counterpart on the
    same hop, and the bound from bytes and operations.  No engine calls
    ``semiring_matmul``: it is held and timed at (2048, 2048) x (2048,
-   2048) and on ragged shapes.
+   2048), held at (3000, 1000) x (1000, 2500), on fractional values, on
+   ragged shapes, with ±inf in the last values of k and with operands off
+   16-byte alignment, all at tolerance 0, and each semiring's time stands
+   beside its bound and its instruction floor (``semiring_floor``).
 
 The last three lines of standard output are the card's name and power
 limit, one JSON object of per-kernel numbers, and
@@ -60,6 +64,11 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores
+FP32_INSTR_PER_S = FP32_OPS_PER_S / 2  # float32 instructions (an FMA counts 2 operations)
+# 32-bit logic and float32 min/max: 64 a clock per SM (CUDA C++ Programming
+# Guide, arithmetic instruction throughput, compute capability 9.0) x 132 SMs
+# x 1.98 GHz boost clock
+LOGIC_OPS_PER_S = 64 * 132 * 1.98e9
 SPIN_CYCLES = 100_000_000  # about 50 ms at the H100's 1.98 GHz boost clock
 
 KERNEL_SOURCES = {
@@ -757,12 +766,37 @@ def fused_phase(torch, tag, captured):
     return dict(row, max_abs_err=max(errs), hops=hops)
 
 
+def semiring_floor(semiring: str, m: int, kd: int, n: int) -> float:
+    """ms of the instructions the tile loop must issue for one launch:
+    ``add_mul`` one FMA per step, the tropical semirings an add and a
+    max/min per step, ``or_and`` one logic operation per packed word."""
+    if semiring == "or_and":
+        return -(-kd // 32) * m * n / LOGIC_OPS_PER_S * 1e3
+    steps = m * kd * n * (1 if semiring == "add_mul" else 2)
+    return steps / FP32_INSTR_PER_S * 1e3
+
+
+def semiring_bound(semiring: str, m: int, kd: int, n: int) -> tuple[float, str]:
+    """Bytes (A and B read once, C written once) against the operations:
+    2 m kd n float32 operations, or for ``or_and`` one 32-bit logic
+    operation per word of 32 packed values of k."""
+    nbytes = (m * kd + kd * n + m * n) * 4
+    if semiring != "or_and":
+        return bound(nbytes, 2 * m * kd * n)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = semiring_floor(semiring, m, kd, n)
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def semiring_phase(torch, tag, size: int = 2048):
-    """``semiring_matmul`` against its plain version for every semiring
-    at (size, size) x (size, size) and on ragged shapes, small integers
-    (``add_mul`` stays exact) and ±inf entries; timed beside
-    ``torch.matmul`` in full float32 (TF32 off) for ``add_mul``."""
-    from repro_torch.kernels import ref
+    """``semiring_matmul`` against its plain version for every semiring,
+    tolerance 0: at (size, size) x (size, size) on small integers and on
+    fractional values, at (3000, 1000) x (1000, 2500) fractional, on ragged
+    shapes with ±inf entries, with ±inf only in the last values of k, and
+    with operands 4 and 8 bytes off 16-byte alignment; timed beside
+    ``torch.matmul`` in full float32 (TF32 off) for ``add_mul``, with each
+    semiring's bound and instruction floor."""
+    from repro_torch.kernels import ops, ref
     from repro_torch.kernels.semiring_matmul import SEMIRINGS, semiring_matmul
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -778,38 +812,66 @@ def semiring_phase(torch, tag, size: int = 2048):
             x[(pick >= infs / 2) & (pick < infs)] = float("-inf")
         return x.to(dev)
 
+    def fractions(shape, offset=0):
+        """Normal floats; ``offset`` floats into a larger buffer."""
+        buf = torch.randn(offset + shape[0] * shape[1], generator=g).to(dev)
+        return buf[offset:].view(shape)
+
+    def tail_infs(m, kd, n, last=5):
+        a, b = fractions((m, kd)), fractions((kd, n))
+        for x in (a[:, -last:], b[-last:]):
+            pick = torch.rand(x.shape, generator=g).to(dev)
+            x[pick < 0.25] = float("inf")
+            x[(pick >= 0.25) & (pick < 0.5)] = float("-inf")
+        return a, b
+
     errs = []
+
+    def hold(semiring, label, a, b):
+        plan = ops.matmul_plan(a.shape[0], b.shape[1], a.shape[1], semiring,
+                               align=ops.alignment(a, b))
+        errs.append(compare(torch, tag, "semiring_matmul", f"{semiring} {label}, vec "
+                            f"{plan.vec}", semiring_matmul, ref.semiring_matmul,
+                            (a, b, semiring)))
+
     a, b = ints((size, size)), ints((size, size))
+    fa, fb = fractions((size, size)), fractions((size, size))
+    ra, rb = fractions((3000, 1000)), fractions((1000, 2500))
     for semiring in SEMIRINGS:
-        errs.append(compare(torch, tag, "semiring_matmul", f"{semiring} main shape",
-                            semiring_matmul, ref.semiring_matmul, (a, b, semiring)))
+        hold(semiring, "main shape", a, b)
+        hold(semiring, "main shape, fractional", fa, fb)
+        hold(semiring, "rectangular, fractional", ra, rb)
         for m, kd, n, infs in [(65, 33, 129, 0.0), (1, 1, 1, 0.0), (100, 0, 7, 0.0),
                                (3, 1000, 5, 0.0), (130, 70, 66, 0.1)]:
-            errs.append(compare(
-                torch, tag, "semiring_matmul", f"{semiring} ragged, inf share {infs}",
-                semiring_matmul, ref.semiring_matmul,
-                (ints((m, kd), infs), ints((kd, n), infs), semiring),
-            ))
-    b_ms, by = bound(3 * size * size * 4, 2 * size**3)
-    times = {
-        semiring: dict(
+            hold(semiring, f"ragged, inf share {infs}", ints((m, kd), infs),
+                 ints((kd, n), infs))
+        hold(semiring, "ragged, ±inf in the last 5 values of k", *tail_infs(257, 77, 263))
+        for offset in (1, 2):
+            hold(semiring, f"operands {4 * offset} bytes off 16-byte alignment",
+                 fractions((256, 512), offset), fractions((512, 384), offset))
+    times = {}
+    for semiring in SEMIRINGS:
+        b_ms, by = semiring_bound(semiring, size, size, size)
+        times[semiring] = dict(
             ms=time_ms(torch, lambda: semiring_matmul(a, b, semiring)),
             plain_ms=time_ms(torch, lambda: ref.semiring_matmul(a, b, semiring), reps=2),
+            bound_ms=b_ms, bound_by=by, floor_ms=semiring_floor(semiring, size, size, size),
+            library_ms=time_ms(torch, lambda: torch.matmul(a, b)) if semiring == "add_mul" else None,
+            plan=repr(ops.matmul_plan(size, size, size, semiring, align=ops.alignment(a, b))),
         )
-        for semiring in SEMIRINGS
-    }
-    library_ms = time_ms(torch, lambda: torch.matmul(a, b))
     for semiring, t in times.items():
         say(tag, f"kernels: semiring_matmul {semiring} at ({size}, {size}) x ({size}, "
                  f"{size}): {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
-                 f"{b_ms:.4f} ms by {by}")
+                 f"{t['bound_ms']:.4f} ms by {t['bound_by']}, instruction floor "
+                 f"{t['floor_ms']:.4f} ms, {t['plan']}")
     say(tag, f"kernels: semiring_matmul library torch.matmul (float32, TF32 off) "
-             f"{library_ms:.4f} ms")
+             f"{times['add_mul']['library_ms']:.4f} ms")
+    main = times["add_mul"]
     return dict(
         shapes={"a": [size, size], "b": [size, size], "semiring": "add_mul"},
-        max_abs_err=max(errs), ms=times["add_mul"]["ms"],
-        plain_ms=times["add_mul"]["plain_ms"], library_ms=library_ms,
-        bound_ms=b_ms, bound_by=by, semirings=times,
+        max_abs_err=max(errs), ms=main["ms"], plain_ms=main["plain_ms"],
+        library_ms=main["library_ms"], bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+        semirings=times,
     )
 
 
@@ -934,7 +996,8 @@ def main() -> int:
              + ", ".join(f"{k} {v.seconds:.2f} s" for k, v in built.items()) + ")")
     for name, b in built.items():
         for line in b.log.splitlines():
-            if "registers" in line or "spill" in line or "stack frame" in line:
+            if ("registers" in line or "spill" in line or "stack frame" in line
+                    or (name == "semiring_matmul" and "entry function" in line)):
                 say(tag, f"build: {name}: {line.strip()}")
 
     # 2. main path (unfused) ---------------------------------------------

@@ -23,6 +23,8 @@
   (``csrc/gathered_rows.cuh``) of ``coo_spmm`` and the one-child
   ``fused_hop`` hops of width >= 32.  Both come from ``(n, num_rows, d)``
   alone; the wrappers pass them to the C entry points.
+  :func:`matmul_plan` is the launch shape of ``semiring_matmul``'s
+  register-tiled loop (block tile, stage depth, access width).
 * **Fused-path switch.**  :func:`fused_enabled` resolves ``Q.fused`` and
   the ``REPRO_FUSED`` environment variable, as the JAX package's
   ``kernels/ops.py:fused_enabled`` does.
@@ -235,6 +237,91 @@ def gather_plan(n: int, num_rows: int, d: int) -> GatherPlan:
     take at that tile height gets taller tiles."""
     rows = max(GATHER_ROWS, _ceil_div(num_rows * _ceil_div(d, GATHER_SLAB), MAX_BLOCKS))
     return make_gather_plan(n, num_rows, d, rows=rows)
+
+
+# ----------------------------------------------------------------------
+# launch shape of semiring_matmul's tile loop
+# ----------------------------------------------------------------------
+
+MATMUL_THREADS = 256  # csrc/semiring_matmul.cu:kThreads, 8 warps as 4 x 2
+MATMUL_STAGES = 2  # csrc/semiring_matmul.cu:kStages
+MATMUL_TILES = ((128, 128, 16), (128, 128, 8), (128, 64, 16))  # (BM, BN, BK) built
+MATMUL_TILE = (128, 128, 16)
+MATMUL_VECS = (4, 2, 1)  # floats per global access
+PACKED = "or_and"  # the semiring that runs on words of 32 packed values of k
+
+
+class MatmulPlan(ctypes.Structure):
+    """``ReproMatmulPlan`` of ``csrc/semiring_matmul.cu``: ``tiles_m x
+    tiles_n`` blocks of ``block_m x block_n`` outputs (block ``b`` owns tile
+    row ``b div tiles_n`` and tile column ``b mod tiles_n``), each walking
+    ``k_steps`` in stages of ``block_k`` with global accesses ``vec`` floats
+    wide.  For ``or_and`` the loop runs over packed words: ``k_steps`` words
+    per row of A (``ceil(kd / 32)`` rounded up to 4) and rows of ``ldb``
+    words in B (``n`` rounded up to 4)."""
+
+    _fields_ = [
+        ("block_m", ctypes.c_int64),
+        ("block_n", ctypes.c_int64),
+        ("block_k", ctypes.c_int64),
+        ("vec", ctypes.c_int64),
+        ("k_steps", ctypes.c_int64),
+        ("ldb", ctypes.c_int64),
+        ("tiles_m", ctypes.c_int64),
+        ("tiles_n", ctypes.c_int64),
+        ("blocks", ctypes.c_int64),
+        ("smem_bytes", ctypes.c_int64),
+    ]
+
+    def __repr__(self) -> str:
+        return "MatmulPlan(" + ", ".join(
+            f"{name}={getattr(self, name)}" for name, _ in self._fields_
+        ) + ")"
+
+
+def alignment(*tensors: torch.Tensor) -> int:
+    """The largest of 16, 8 and 4 bytes that every tensor's data pointer
+    is a multiple of."""
+    return next(
+        (al for al in (16, 8) if all(t.data_ptr() % al == 0 for t in tensors)), 4
+    )
+
+
+def matmul_plan(
+    m: int,
+    n: int,
+    kd: int,
+    semiring: str,
+    align: int = 16,
+    tile: tuple[int, int, int] = MATMUL_TILE,
+    vec: int | None = None,
+) -> MatmulPlan:
+    """Launch shape of ``semiring_matmul`` for ``(m, kd) x (kd, n)`` with
+    operand pointers aligned to ``align`` bytes: block tile ``tile``, by
+    default :data:`MATMUL_TILE`, the fastest of ``tools/walk_sweep.py
+    --cases matmul``'s candidates on an H100, and ``vec`` floats per
+    access, by default the widest that ``align``, ``kd`` and ``n`` allow;
+    raises on what the kernel cannot take."""
+    if m < 1 or n < 1 or kd < 0:
+        raise ValueError(f"matmul_plan needs m, n >= 1 and kd >= 0, got {m}, {n}, {kd}")
+    if tile not in MATMUL_TILES:
+        raise ValueError(f"a matmul block tile is one of {MATMUL_TILES}, got {tile}")
+    bm, bn, bk = tile
+    if semiring == PACKED:
+        k_steps, ldb, widest = 4 * _ceil_div(_ceil_div(kd, 32), 4), 4 * _ceil_div(n, 4), 4
+    else:
+        k_steps, ldb = kd, n
+        widest = next(v for v in MATMUL_VECS if align % (4 * v) == 0 and kd % v == 0 and n % v == 0)
+    vec = widest if vec is None else vec
+    if vec not in MATMUL_VECS or vec > widest or (semiring == PACKED and vec != 4):
+        raise ValueError(f"{vec} floats per access do not fit ({m}, {kd}) x ({kd}, {n}) "
+                         f"{semiring} at {align}-byte alignment (widest {widest})")
+    tiles_m, tiles_n = _ceil_div(m, bm), _ceil_div(n, bn)
+    blocks = tiles_m * tiles_n
+    if blocks > MAX_BLOCKS:
+        raise ValueError(f"a ({m}, {n}) output needs {blocks} blocks, more than one launch has")
+    smem = MATMUL_STAGES * bk * (bm + bn) * 4
+    return MatmulPlan(bm, bn, bk, vec, k_steps, ldb, tiles_m, tiles_n, blocks, smem)
 
 
 # ----------------------------------------------------------------------

@@ -103,9 +103,10 @@ def semiring_matmul(
     """``C[i, j] = ⊕_k a[i, k] ⊗ b[k, j]`` over ``add_mul``, ``max_add``,
     ``min_add`` or ``or_and`` (``any(a > 0 & b > 0)`` as 0/1), as
     ``repro/kernels/ref.py:semiring_matmul_ref``.  One step per ``k`` in
-    ascending order, each rounded on its own, as the kernel reduces, so
-    the two agree bit for bit on any data; an empty ``k`` gives the
-    identity (0, -inf, +inf, 0)."""
+    ascending order, as the kernel reduces: ``add_mul``'s step is one
+    fused multiply-add (:func:`fma`), the others an add then a NaN-
+    propagating max or min, so the two agree bit for bit on any data; an
+    empty ``k`` gives the identity (0, -inf, +inf, 0)."""
     if semiring not in _SEMIRING_IDENTITY:
         raise ValueError(f"unknown semiring {semiring!r}")
     if a.shape[1] != b.shape[0]:
@@ -114,7 +115,7 @@ def semiring_matmul(
     for i in range(a.shape[1]):
         x, y = a[:, i : i + 1], b[i : i + 1, :]
         if semiring == "add_mul":
-            out = out + x * y
+            out = fma(x, y, out)
         elif semiring == "max_add":
             out = torch.maximum(out, x + y)
         elif semiring == "min_add":
@@ -122,3 +123,38 @@ def semiring_matmul(
         else:
             out = torch.where((x > 0) & (y > 0), 1.0, out)
     return out
+
+
+def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` of float32 tensors (broadcast) rounded once, as the
+    card's fused multiply-add ``__fmaf_rn`` and libm's ``fmaf`` round it.
+
+    In float64 the product is exact (24 + 24 significand bits) and TwoSum
+    gives the sum's rounding error ``e`` exactly; rounding the sum to odd
+    (one step toward ``e`` where ``e != 0`` and its last bit is even) and
+    then to nearest float32 is correctly rounded, since 53 >= 24 + 2."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    z = s - p
+    e = (p - (s - z)) + (c - z)
+    to_odd = (e != 0) & ((s.view(torch.int64) & 1) == 0) & torch.isfinite(s)
+    toward = torch.copysign(torch.tensor(math.inf, dtype=torch.float64, device=s.device), e)
+    return torch.where(to_odd, torch.nextafter(s, toward), s).float()
+
+
+def pack_positive(x: torch.Tensor, words: int) -> torch.Tensor:
+    """``(rows, words)`` int32 whose word ``w`` of row ``r`` has bit ``t``
+    set where ``x[r, 32 w + t] > 0`` (NaN, -0.0 and -inf count as not
+    positive; bits past ``x``'s columns are 0): the packing that
+    ``semiring_matmul``'s ``or_and`` pre-pass kernels write, A as
+    ``pack_positive(a, k_steps)`` and B as ``pack_positive(b.T, k_steps).T``
+    in ``ldb`` columns."""
+    rows, kd = x.shape
+    if words * 32 < kd:
+        raise ValueError(f"{words} words hold fewer than the {kd} values of a row")
+    bits = torch.zeros((rows, words * 32), dtype=torch.int64, device=x.device)
+    bits[:, :kd] = (x > 0).long()
+    shifts = torch.arange(32, device=x.device)
+    packed = (bits.view(rows, words, 32) << shifts).sum(dim=2)
+    return torch.where(packed >= 2**31, packed - 2**32, packed).to(torch.int32)

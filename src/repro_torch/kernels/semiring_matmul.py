@@ -17,6 +17,7 @@ SEMIRINGS = {"add_mul": 0, "max_add": 1, "min_add": 2, "or_and": 3}
 _ARGTYPES = (
     ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
     ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
+    ctypes.POINTER(ops.MatmulPlan), ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_void_p,
 )
 
@@ -29,9 +30,11 @@ def semiring_matmul(
 ) -> torch.Tensor:
     """``C[i, j] = ⊕_k a[i, k] ⊗ b[k, j]`` for ``a (m, kd)`` and ``b (kd,
     n)`` float32 into ``(m, n)`` float32, over ``add_mul``, ``max_add``,
-    ``min_add`` or ``or_and``; reduced over ``k`` in ascending order with
-    every step rounded on its own.  ``out``, when given, is written in
-    full and returned.
+    ``min_add`` or ``or_and``; reduced over ``k`` in ascending order, one
+    step per ``k`` (``add_mul``: one fused multiply-add).  ``out``, when
+    given, is written in full and returned.  The launch shape is
+    :func:`ops.matmul_plan`'s; ``or_and`` packs ``a > 0`` and ``b > 0``
+    into 32-bit words in scratch the wrapper allocates.
 
     Every call requires contiguous 2-d float32 tensors on one device;
     CPU tensors run :func:`ref.semiring_matmul`.
@@ -52,10 +55,17 @@ def semiring_matmul(
     out = ops.output("semiring_matmul", out, (m, n), a)
     if m == 0 or n == 0:
         return out
+    plan = ops.matmul_plan(m, n, kd, semiring, align=ops.alignment(a, b))
+    a_words = b_words = None
+    if semiring == ops.PACKED:
+        a_words = torch.empty((m, plan.k_steps), dtype=torch.int32, device=device)
+        b_words = torch.empty((plan.k_steps, plan.ldb), dtype=torch.int32, device=device)
     fn = ops.load("semiring_matmul", "repro_semiring_matmul", _ARGTYPES)
     rc = fn(
         device.index, a.data_ptr(), b.data_ptr(), m, kd, n, SEMIRINGS[semiring],
-        out.data_ptr(), ops.stream_of(device),
+        out.data_ptr(), ctypes.byref(plan),
+        None if a_words is None else a_words.data_ptr(),
+        None if b_words is None else b_words.data_ptr(), ops.stream_of(device),
     )
     ops.check_launch("semiring_matmul", rc)
     return out

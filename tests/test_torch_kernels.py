@@ -5,10 +5,15 @@ fused hop against the three-dispatch contract of
 ``tests/test_fused_hop.py`` built from ``repro.kernels.ref``.
 
 Tolerance 0: the data are integer-valued float32 below 2**24, so every
-sum is exact in any order.  The CUDA kernels themselves run only on a
-card; ``chip_smoke.py`` holds them against these plain versions there.
+sum is exact in any order.  ``semiring_matmul`` is also held on
+fractional data: its plain version's fused multiply-add step against
+libm's ``fmaf`` and the numpy mirror of the kernel's tile loop at
+tolerance 0, and against ``jnp.dot``, which fixes no summation order, at
+the stated bound.  The CUDA kernels themselves run only on a card;
+``chip_smoke.py`` holds them against these plain versions there.
 """
 import ctypes
+import ctypes.util
 
 import jax.numpy as jnp
 import numpy as np
@@ -868,3 +873,269 @@ def test_semiring_matmul_empty_k_and_argument_checks():
         semiring_matmul(torch.ones(2, 2, dtype=torch.float64), torch.ones(2, 2))
     with pytest.raises(ValueError, match="unsupported device"):
         semiring_matmul(torch.ones(2, 2, device="meta"), torch.ones(2, 2, device="meta"))
+
+
+# ----------------------------------------------------------------------
+# semiring_matmul's plain version: the exact FMA step, fractional add_mul
+# ----------------------------------------------------------------------
+
+
+def _libm_fmaf():
+    libm = ctypes.CDLL(ctypes.util.find_library("m"))
+    fn = libm.fmaf
+    fn.argtypes = [ctypes.c_float] * 3
+    fn.restype = ctypes.c_float
+    return fn
+
+
+def _fma_triples(rng, kind: str, n: int) -> list[np.ndarray]:
+    """Seeded float32 triples: normal values, wide exponents, subnormal
+    products and addends, specials (±inf, NaN, ±0) among normals, random
+    bit patterns, and sums that cancel to the product's rounding error."""
+    if kind == "normal":
+        return [rng.standard_normal(n).astype(np.float32) for _ in range(3)]
+    if kind == "wide":
+        return [(rng.standard_normal(n) * 2.0 ** rng.integers(-140, 120, n)).astype(np.float32)
+                for _ in range(3)]
+    if kind == "subnormal":
+        tiny = [(rng.standard_normal(n) * 2.0 ** rng.integers(-80, -60, n)).astype(np.float32)
+                for _ in range(2)]
+        return tiny + [(rng.standard_normal(n) * 2.0 ** -135).astype(np.float32)]
+    if kind == "special":
+        out = [rng.standard_normal(n).astype(np.float32) for _ in range(3)]
+        specials = np.array([np.inf, -np.inf, np.nan, 0.0, -0.0], np.float32)
+        for x in out:
+            pick = rng.random(n) < 0.3
+            x[pick] = rng.choice(specials, pick.sum())
+        return out
+    if kind == "bits":
+        return [rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32).view(np.float32)
+                for _ in range(3)]
+    a, b = (rng.standard_normal(n).astype(np.float32) for _ in range(2))  # "cancel"
+    return [a, b, (-(a.astype(np.float64) * b)).astype(np.float32)]
+
+
+@pytest.mark.parametrize("kind", ["normal", "wide", "subnormal", "special", "bits", "cancel"])
+def test_fma_step_matches_libm_fmaf(kind):
+    a, b, c = _fma_triples(np.random.default_rng(len(kind)), kind, 4000)
+    fmaf = _libm_fmaf()
+    want = np.array([fmaf(x, y, z) for x, y, z in zip(a.tolist(), b.tolist(), c.tolist())],
+                    np.float32)
+    got = port_ref.fma(torch.from_numpy(a), torch.from_numpy(b), torch.from_numpy(c)).numpy()
+    same = (got.view(np.uint32) == want.view(np.uint32)) | (np.isnan(got) & np.isnan(want))
+    assert same.all(), f"{(~same).sum()} of {len(a)} differ from fmaf"
+
+
+@pytest.mark.parametrize("m,kd,n", [(33, 300, 65), (64, 1000, 16), (7, 5, 3)])
+def test_semiring_matmul_add_mul_fractional_within_bound_of_jax_ref(m, kd, n):
+    # jnp.dot promises no summation order, so the two agree to within the
+    # error of a kd-term float32 sum, kd 2**-24 (|A| |B|) elementwise
+    rng = np.random.default_rng(m + kd + n)
+    a = rng.uniform(-1, 1, (m, kd)).astype(np.float32)
+    b = rng.uniform(-1, 1, (kd, n)).astype(np.float32)
+    want = np.asarray(jref.semiring_matmul_ref(jnp.asarray(a), jnp.asarray(b), "add_mul"))
+    got = semiring_matmul(torch.from_numpy(a), torch.from_numpy(b), "add_mul").numpy()
+    tol = kd * 2.0**-24 * (np.abs(a).astype(np.float64) @ np.abs(b).astype(np.float64))
+    assert np.all(np.abs(got.astype(np.float64) - want) <= tol)
+
+
+# ----------------------------------------------------------------------
+# semiring_matmul's launch plan (kernels/ops.py:matmul_plan), the or_and
+# packing, and csrc/semiring_matmul.cu's tile loop mirrored block by
+# block, thread by thread, stage by stage
+# ----------------------------------------------------------------------
+
+_MATMUL_PAD = {"add_mul": 0.0, "max_add": -np.inf, "min_add": np.inf, "or_and": 0}
+_MATMUL_IDENTITY = {"add_mul": 0.0, "max_add": -np.inf, "min_add": np.inf, "or_and": 0}
+
+
+def _check_matmul_plan(plan, m, n, kd, semiring, align=16):
+    bm, bn, bk = plan.block_m, plan.block_n, plan.block_k
+    assert (bm, bn, bk) in ops.MATMUL_TILES
+    # the blocks cover C once: tile rows and columns partition [0, m) x [0, n)
+    assert plan.tiles_m * bm >= m > (plan.tiles_m - 1) * bm
+    assert plan.tiles_n * bn >= n > (plan.tiles_n - 1) * bn
+    assert plan.blocks == plan.tiles_m * plan.tiles_n <= ops.MAX_BLOCKS
+    # two stages of A (bk x bm) and B (bk x bn) fit in static shared memory
+    assert plan.smem_bytes == ops.MATMUL_STAGES * bk * (bm + bn) * 4 <= ops.SMEM_LIMIT
+    if semiring == ops.PACKED:
+        assert plan.vec == 4 and plan.k_steps % 4 == 0 and plan.ldb % 4 == 0
+        assert plan.k_steps * 32 >= kd > (plan.k_steps - 4) * 32 or kd == plan.k_steps == 0
+        assert plan.ldb - 4 < n <= plan.ldb
+    else:
+        assert (plan.k_steps, plan.ldb) == (kd, n)
+        fits = [v for v in ops.MATMUL_VECS if align % (4 * v) == 0 and kd % v == 0 and n % v == 0]
+        assert plan.vec == max(fits)
+
+
+@settings(max_examples=300, deadline=None)
+@given(
+    m=st.integers(1, 2**20), n=st.integers(1, 2**20), kd=st.integers(0, 2**20),
+    semiring=st.sampled_from(SEMIRINGS), align=st.sampled_from([4, 8, 16]),
+    tile=st.sampled_from(ops.MATMUL_TILES),
+)
+def test_matmul_plan_arithmetic(m, n, kd, semiring, align, tile):
+    _check_matmul_plan(ops.matmul_plan(m, n, kd, semiring, align=align), m, n, kd, semiring, align)
+    plan = ops.matmul_plan(m, n, kd, semiring, tile=tile, align=align)
+    _check_matmul_plan(plan, m, n, kd, semiring, align)
+
+
+@pytest.mark.parametrize("m,kd,n,offset,semiring,vec", [
+    (2048, 2048, 2048, 0, "add_mul", 4),
+    (3000, 1000, 2500, 0, "max_add", 4),
+    (256, 512, 384, 1, "add_mul", 1),  # operands 4 bytes off 16-byte alignment
+    (256, 512, 384, 2, "min_add", 2),  # 8 bytes off
+    (256, 33, 384, 0, "add_mul", 1),  # odd kd: rows of A start anywhere
+    (256, 512, 386, 0, "max_add", 2),
+    (65, 33, 129, 1, "or_and", 4),  # or_and reads its own packed words
+])
+def test_matmul_plan_alignment_picks_the_access_width(m, kd, n, offset, semiring, vec):
+    buf = torch.zeros(m * kd + kd * n + 16)
+    a = buf[offset:offset + m * kd].view(m, kd)
+    b = buf[offset + 4 * -(-m * kd // 4):][: kd * n].view(kd, n)
+    align = ops.alignment(a, b)
+    assert align == {0: 16, 1: 4, 2: 8}[offset]
+    plan = ops.matmul_plan(m, n, kd, semiring, align=align)
+    _check_matmul_plan(plan, m, n, kd, semiring, align)
+    assert plan.vec == vec
+
+
+def test_matmul_plan_refuses_what_the_kernel_cannot_take():
+    with pytest.raises(ValueError, match="m, n >= 1"):
+        ops.matmul_plan(0, 4, 4, "add_mul")
+    with pytest.raises(ValueError, match="block tile"):
+        ops.matmul_plan(4, 4, 4, "add_mul", tile=(64, 64, 8))
+    with pytest.raises(ValueError, match="floats per access"):
+        ops.matmul_plan(4, 4, 4, "add_mul", vec=4, align=8)
+    with pytest.raises(ValueError, match="floats per access"):
+        ops.matmul_plan(4, 4, 4, "or_and", vec=2)
+    with pytest.raises(ValueError, match="more than one launch has"):
+        ops.matmul_plan(2**40, 2**40, 4, "add_mul")
+    assert ctypes.sizeof(ops.MatmulPlan) == 80  # ReproMatmulPlan, field for field
+
+
+@pytest.mark.parametrize("kd", [1, 31, 32, 77, 130])
+def test_or_and_packing_matches_positive(kd):
+    rng = np.random.default_rng(kd)
+    x = rng.standard_normal((9, kd)).astype(np.float32)
+    specials = np.array([np.nan, -0.0, 0.0, np.inf, -np.inf], np.float32)
+    pick = rng.random(x.shape) < 0.3
+    x[pick] = rng.choice(specials, pick.sum())
+    words = ops.matmul_plan(9, 5, kd, "or_and").k_steps
+    packed = port_ref.pack_positive(torch.from_numpy(x), words).numpy().view(np.uint32)
+    assert packed.shape == (9, words)
+    bits = (packed[:, :, None] >> np.arange(32, dtype=np.uint32)) & 1
+    bits = bits.reshape(9, words * 32).astype(bool)
+    np.testing.assert_array_equal(bits[:, :kd], x > 0)
+    assert not bits[:, kd:].any()
+
+
+def _lane_cells(bm, bn):
+    """``tiled_kernel``'s register tile: the (row, column) cells of the
+    block tile that each of the 256 threads folds, 8 warps as 4 x 2, a
+    warp as 4 x 8 lanes, each lane bm / 64 x bn / 64 groups of 4 x 4."""
+    cells = []
+    for tid in range(ops.MATMUL_THREADS):
+        warp, lane = divmod(tid, 32)
+        tr = (warp // 2) * (bm // 4) + (lane // 8) * 4
+        tc = (warp % 2) * (bn // 2) + (lane % 8) * 4
+        rows = [tr + 16 * g + i for g in range(bm // 64) for i in range(4)]
+        cols = [tc + 32 * g + j for g in range(bn // 64) for j in range(4)]
+        cells.append((rows, cols))
+    return cells
+
+
+def _mirror_tile_loop(a, b, semiring, plan):
+    """``csrc/semiring_matmul.cu:tiled_kernel`` in numpy: per block, every
+    stage's shared A (k-major, the semiring's pad past kd) and B (0 past kd
+    and n) filled piece by piece as the threads load them, then each
+    cell's ascending-k fold, stored where the row and column exist."""
+    bm, bn, bk, vec = plan.block_m, plan.block_n, plan.block_k, plan.vec
+    m, n_out = a.shape[0], b.shape[1]
+    if semiring == ops.PACKED:
+        big_a = port_ref.pack_positive(a, plan.k_steps).numpy().view(np.uint32)
+        big_b = np.zeros((plan.k_steps, plan.ldb), np.uint32)
+        big_b[:, :n_out] = port_ref.pack_positive(b.T, plan.k_steps).numpy().view(np.uint32).T
+    else:
+        big_a, big_b = a.numpy(), b.numpy()
+    kd, n = plan.k_steps, plan.ldb
+    dtype = big_a.dtype
+    threads = ops.MATMUL_THREADS
+    b_row = bn // vec
+    b_total = bk * bn // vec
+
+    def step(acc, x, y):
+        if semiring == "add_mul":
+            return port_ref.fma(torch.from_numpy(x), torch.from_numpy(y), torch.from_numpy(acc)).numpy()
+        if semiring == ops.PACKED:
+            return acc | (x & y)
+        with np.errstate(invalid="ignore", over="ignore"):
+            return (np.maximum if semiring == "max_add" else np.minimum)(acc, x + y)
+
+    cells = _lane_cells(bm, bn)
+    cover = np.zeros((bm, bn), np.int64)
+    for rows, cols in cells:
+        cover[np.ix_(rows, cols)] += 1
+    assert np.all(cover == 1)  # every cell of the block tile has one owner
+    out = np.full((m, n_out), 7777.0, np.float32)
+    written = np.zeros((m, n_out), np.int64)
+    for block in range(plan.blocks):
+        row0, col0 = (block // plan.tiles_n) * bm, (block % plan.tiles_n) * bn
+        acc = np.full((bm, bn), _MATMUL_IDENTITY[semiring], dtype)
+        for t in range(-(-kd // bk)):
+            sa, sb = np.zeros((bk, bm), dtype), np.zeros((bk, bn), dtype)
+            na, nb = np.zeros((bk, bm), np.int64), np.zeros((bk, bn), np.int64)
+            for tid in range(threads):
+                ar = tid % bm
+                for i in range(bm * bk // vec // threads):
+                    kv = ((tid + i * threads) // bm) * vec
+                    k = t * bk + kv
+                    ok = row0 + ar < m and k < kd
+                    sa[kv:kv + vec, ar] = big_a[row0 + ar, k:k + vec] if ok else _MATMUL_PAD[semiring]
+                    na[kv:kv + vec, ar] += 1
+                bc = (tid % b_row) * vec
+                for i in range(-(-b_total // threads)):
+                    p = tid + i * threads
+                    if p >= b_total:
+                        continue
+                    br = p // b_row
+                    k = t * bk + br
+                    ok = col0 + bc < n and k < kd
+                    sb[br, bc:bc + vec] = big_b[k, col0 + bc:col0 + bc + vec] if ok else 0
+                    nb[br, bc:bc + vec] += 1
+            assert np.all(na == 1) and np.all(nb == 1)  # each shared cell loaded once
+            for kk in range(bk):
+                acc = step(acc, sa[kk][:, None], sb[kk][None, :])
+        res = (acc != 0).astype(np.float32) if semiring == ops.PACKED else acc
+        for rows, cols in cells:
+            for r in rows:
+                for c in cols:
+                    if row0 + r < m and col0 + c < n_out:
+                        out[row0 + r, col0 + c] = res[r, c]
+                        written[row0 + r, col0 + c] += 1
+    assert np.all(written == 1)  # every element of C stored once
+    return out
+
+
+@pytest.mark.parametrize("tile", ops.MATMUL_TILES)
+@pytest.mark.parametrize("m,kd,n,tail_infs", [
+    (130, 70, 132, True),  # two tile rows, ragged last stage, ±inf in the last k only
+    (5, 33, 200, False),  # odd kd: 4-byte accesses; two tile columns
+    (70, 18, 66, True),  # kd and n even: 8-byte accesses
+    (1, 1, 1, False),
+    (9, 0, 7, False),  # empty k: the identity
+])
+@pytest.mark.parametrize("semiring", SEMIRINGS)
+def test_matmul_tile_mirror_matches_plain(semiring, m, kd, n, tail_infs, tile):
+    rng = np.random.default_rng(m * 7 + kd + n)
+    a = rng.standard_normal((m, kd)).astype(np.float32)
+    b = rng.standard_normal((kd, n)).astype(np.float32)
+    if tail_infs and kd > 4:
+        a[:, -4:][rng.random((m, 4)) < 0.3] = np.inf
+        a[:, -4:][rng.random((m, 4)) < 0.3] = -np.inf
+        b[-4:][rng.random((4, n)) < 0.3] = -np.inf
+    a[rng.random(a.shape) < 0.02] = np.nan
+    plan = ops.matmul_plan(m, n, kd, semiring, tile=tile)
+    got = _mirror_tile_loop(torch.from_numpy(a), torch.from_numpy(b), semiring, plan)
+    want = port_ref.semiring_matmul(torch.from_numpy(a), torch.from_numpy(b), semiring).numpy()
+    np.testing.assert_array_equal(got, want)

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Launch-shape sweep of the two sorted-run walks on one CUDA card.
+"""Launch-shape sweep of the two sorted-run walks and of
+``semiring_matmul``'s tile loop on one CUDA card.
 
-    python3 tools/walk_sweep.py [--seed 0] [--cases all|segment|gather]
+    python3 tools/walk_sweep.py [--seed 0] [--cases all|segment|gather|matmul]
                                 [--out build/walk_sweep.json]
 
 Run from the root of a checkout.  For the shapes the C1 n=500,000 bundle
@@ -26,6 +27,11 @@ so every sum is exact.
   of range (no gathers: the search, marking and stores alone), an
   operand of 1,000 rows (18 MB: every gather hits L2), and every edge on
   one operand row (gathers that hit L1).
+* ``matmul``: ``semiring_matmul``'s tile loop (``ops.matmul_plan``) at
+  (2048, 2048) x (2048, 2048) for every semiring and at (3000, 1000) x
+  (1000, 2500) for ``add_mul``, over every block tile the kernel is built
+  for, and, at the chosen tile, 8- and 4-byte accesses on the same
+  16-byte-aligned operands (what misaligned operands would cost).
 """
 from __future__ import annotations
 
@@ -80,7 +86,7 @@ def time_ms(torch, fn, reps: int = 20) -> float:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--cases", choices=("all", "segment", "gather"), default="all")
+    ap.add_argument("--cases", choices=("all", "segment", "gather", "matmul"), default="all")
     ap.add_argument("--out", default="build/walk_sweep.json")
     args = ap.parse_args()
     import torch
@@ -89,7 +95,7 @@ def main() -> int:
         print("walk_sweep: needs a CUDA card", file=sys.stderr)
         return 2
     from repro_torch.kernels import ops, segment_reduce as sr, segment_sum as ss
-    from repro_torch.kernels import coo_spmm as cs, fused_hop as fh
+    from repro_torch.kernels import coo_spmm as cs, fused_hop as fh, semiring_matmul as sm
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -111,6 +117,7 @@ def main() -> int:
     seg_red = ops.load("segment_reduce", "repro_segment_reduce", sr._ARGTYPES)
     spmm = ops.load("coo_spmm", "repro_coo_spmm", cs._ARGTYPES)
     one_child = ops.load("fused_hop", "repro_fused_hop_one_child", fh._ONE_CHILD_ARGTYPES)
+    mm = ops.load("semiring_matmul", "repro_semiring_matmul", sm._ARGTYPES)
 
     def segment(kind, n, s, d):
         data, ids = ints(-50, 50, (n, d)).float(), keys(n, s)
@@ -173,7 +180,26 @@ def main() -> int:
 
         return run
 
-    segment_cases = [] if args.cases == "gather" else [
+    def matmul(semiring, m, kd, n):
+        a, b = ints(-3, 4, (m, kd)).float(), ints(-3, 4, (kd, n)).float()
+        out = torch.empty((m, n), device=dev)
+        if semiring == "add_mul":
+            libraries[("matmul", m, kd, n)] = lambda: torch.matmul(a, b)
+
+        def run(plan):
+            words = [None, None]
+            if semiring == ops.PACKED:
+                words = [torch.empty(shape, dtype=torch.int32, device=dev)
+                         for shape in ((m, plan.k_steps), (plan.k_steps, plan.ldb))]
+            rc = mm(0, a.data_ptr(), b.data_ptr(), m, kd, n, sm.SEMIRINGS[semiring],
+                    out.data_ptr(), ctypes.byref(plan),
+                    *(None if w is None else w.data_ptr() for w in words), stream)
+            check(rc)
+            return out
+
+        return run
+
+    segment_cases = [] if args.cases in ("gather", "matmul") else [
         ("leaf min d=1", segment("min", 498_847, 112_500_000, 1), 498_847, 112_500_000, 1,
          [(True, r, 1) for r in (4096, 8192, 16384, 32768)]),
         ("leaf sum d=2", segment("sum", 498_847, 112_500_000, 2), 498_847, 112_500_000, 2,
@@ -184,13 +210,13 @@ def main() -> int:
          [(False, r, sl) for r in (1, 2, 4) for sl in (1, 3, 5, 9)]),
     ]
     ne, nr = 499_948, 50_000  # the main path's one-child hops
-    gather_cases = [] if args.cases == "segment" else [
+    gather_cases = [] if args.cases in ("segment", "matmul") else [
         ("coo_spmm d=4500", coo(ne, nr, 4500), ne, nr, 4500),
         ("fused one-child sum k=2 d=4500", hop("sum", ne, nr, 4500, 2), ne, nr, 4500),
         ("fused one-child min d=2250", hop("min", ne, nr, 2250, 1), ne, nr, 2250),
         ("fused one-child max d=2250", hop("max", ne, nr, 2250, 1), ne, nr, 2250),
     ]
-    probes = [] if args.cases == "segment" else [
+    probes = [] if args.cases in ("segment", "matmul") else [
         ("coo_spmm d=4500, every column out of range",
          coo(ne, nr, 4500, torch.full((ne,), -1, device=dev))),
         ("coo_spmm d=4500, operand of 1000 rows",
@@ -277,6 +303,38 @@ def main() -> int:
         ms = time_ms(torch, lambda: run(plan))
         print(f"{label} (probe): gather_plan: {ms:.4f} ms", flush=True)
         results.append({"case": label, "probe": True, "gather_plan_ms": ms})
+    matmul_cases = [] if args.cases in ("segment", "gather") else [
+        (semiring, m, kd, n, matmul(semiring, m, kd, n))
+        for semiring, (m, kd, n) in [(s, (2048, 2048, 2048)) for s in sm.SEMIRINGS]
+        + [("add_mul", (3000, 1000, 2500))]
+    ]
+    for semiring, m, kd, n, run in matmul_cases:
+        label = f"semiring_matmul {semiring} ({m}, {kd}) x ({kd}, {n})"
+        chosen = ops.matmul_plan(m, n, kd, semiring)
+        want = run(chosen).clone()
+        chosen_ms = time_ms(torch, lambda: run(chosen))
+        library = libraries.get(("matmul", m, kd, n))
+        library_ms = None if library is None else time_ms(torch, library)
+        print(f"{label}: matmul_plan {chosen}: {chosen_ms:.4f} ms; library {library_ms} ms "
+              f"[{card}]", flush=True)
+        candidates = [(tile, None) for tile in ops.MATMUL_TILES] + [
+            (ops.MATMUL_TILE, vec) for vec in ops.MATMUL_VECS[1:] if semiring != ops.PACKED
+        ]
+        rows = []
+        for tile, vec in candidates:
+            plan = ops.matmul_plan(m, n, kd, semiring, tile=tile, vec=vec)
+            got = run(plan)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                print(f"{label}: {plan} disagrees with matmul_plan's result", file=sys.stderr)
+                disagree.append((label, repr(plan)))
+                continue
+            ms = time_ms(torch, lambda: run(plan))
+            rows.append({"plan": repr(plan), "tile": list(tile), "vec": plan.vec, "ms": ms})
+            print(f"{label}:   {plan}: {ms:.4f} ms", flush=True)
+        results.append({"case": label, "m": m, "kd": kd, "n": n, "matmul_plan": repr(chosen),
+                        "matmul_plan_ms": chosen_ms, "library_ms": library_ms,
+                        "candidates": rows})
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text(json.dumps({"card": card, "cases": results}, indent=1))
     print(card)
