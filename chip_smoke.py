@@ -9,10 +9,11 @@ Run from the root of a checkout on a machine with a CUDA card.  It
    ``nvcc`` per source, in parallel) and prints the build time and
    ptxas' register, shared memory, stack and spill lines (per entry
    function for ``semiring_matmul``);
-2. drives the port's main path through ``Q ... .engine("torch")`` on the
-   paper's synthetic chain C1 at ``--n`` rows per relation (Table IV
-   scale by default) with an integer measure on R3: COUNT, SUM, AVG, MIN
-   and MAX grouped by R1.g1 and R4.g2.  It prints prepare, cold and warm
+2. drives the port's main path through ``Q ... .engine("torch")`` (its
+   default plan, statistics on) on the paper's synthetic chain C1 at
+   ``--n`` rows per relation (Table IV scale by default) with an integer
+   measure on R3: COUNT, SUM, AVG, MIN and MAX grouped by R1.g1 and
+   R4.g2.  It prints prepare, cold and warm
    execute times, result rows, peak device memory, the stream tile, each
    kernel's launch count (``segment_sum``, ``coo_spmm`` and
    ``segment_reduce`` must be > 0, ``fused_hop`` 0) and the device's
@@ -40,11 +41,27 @@ Run from the root of a checkout on a machine with a CUDA card.  It
    2048), held at (3000, 1000) x (1000, 2500), on fractional values, on
    ragged shapes, with ±inf in the last values of k and with operands off
    16-byte alignment, all at tolerance 0, and each semiring's time stands
-   beside its bound and its instruction floor (``semiring_floor``).
+   beside its bound and its instruction floor (``semiring_floor``);
+6. drives the split leg: the catalog's SKEWCHAIN (``data/queries.py``, 30 %
+   of both sides on one hot key of p0) at ``--n`` rows per relation, its
+   COUNT through ``Q.from_query``, once with the default plan (statistics
+   on: it must split p0 into key ranges) and once with ``.stats(False)``
+   (unsplit), each with the numbers of 2 and its peak device memory above
+   what was allocated before planning; checks split = unsplit bit for bit,
+   Σ COUNT against numpy's Σ_p0 c1[p0]·c2[p0] in int64, the fused split
+   plan (only ``fused_hop`` launches) and, at ``--check-n``, card = CPU;
+7. drives the cyclic leg: TRIANGLE (40,000 edges per relation), FOURCYCLE
+   (20,000) and FOFGROUP (40,000) through the GHD compiler, printing the
+   host prepare split into encode, ``build_ghd``, bag materialization and
+   ``finish_prepare`` beside warm execute, bag rows and peak bytes, and
+   the decomposition left after the fold; checks each group's COUNT
+   against an int64 count with ``scipy.sparse`` (exact below 2**24, within
+   ``count_rtol`` above it) and, at 4,000 edges, card = CPU bit for bit.
 
 The last three lines of standard output are the card's name and power
-limit, one JSON object of per-kernel numbers, and
-``{"ok": true, "device": {...}}``.  Any failed check exits non-zero.
+limit, one JSON object of per-kernel numbers (with each kernel's launches
+in every leg), and ``{"ok": true, "device": {...}}``.  Any failed check
+exits non-zero.
 """
 from __future__ import annotations
 
@@ -887,13 +904,16 @@ def drive(torch, tag, label, make_plan):
     from repro_torch.api import plan as plan_mod
     from repro_torch.kernels import ops
 
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     plan = make_plan()
     torch.cuda.synchronize()
     prepare_s = time.perf_counter() - t0
     stream = plan.resolved_stream()
-    say(tag, f"{label}: {plan}; fused={plan.fused}; prepare {prepare_s:.3f} s; est "
-             f"peak message {plan.message_peak} B; stream tile {stream}")
+    say(tag, f"{label}: {plan}; fused={plan.fused}; statistics {plan.stats_enabled}; "
+             f"prepare {prepare_s:.3f} s; est peak message {plan.message_peak} B, "
+             f"est peak {plan.est_peak} B; stream tile {stream}")
 
     ops.reset_launch_counts()
     t0 = time.perf_counter()
@@ -910,10 +930,11 @@ def drive(torch, tag, label, make_plan):
     warm_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     say(tag, f"{label}: warm execute {warm_s:.3f} s, result rows "
-             f"{res.num_rows}, peak device memory {peak} B")
+             f"{res.num_rows}, peak device memory {peak} B ({peak - resident} B "
+             f"above the {resident} B allocated before planning)")
 
     t0 = time.perf_counter()
-    outputs = plan.engine.run(plan.prep, plan.channels, plan.minmax, stream, plan.fused)
+    outputs = plan.outputs()
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -943,7 +964,8 @@ def drive(torch, tag, label, make_plan):
     summary = {
         "prepare_s": prepare_s, "cold_execute_s": cold_s, "warm_execute_s": warm_s,
         "engine_run_s": run_s, "assemble_s": assemble_s, "rows": res.num_rows,
-        "peak_bytes": peak, "stream": stream, "device_busy_s": busy,
+        "peak_bytes": peak, "peak_above_resident_bytes": peak - resident,
+        "est_peak_bytes": plan.est_peak, "stream": stream, "device_busy_s": busy,
         "idle_share": 1 - busy / wall, "launches": launches,
     }
     return plan, res, summary
@@ -956,6 +978,195 @@ def same_result(a, b) -> bool:
         a.column(c).dtype == b.column(c).dtype and np.array_equal(a.column(c), b.column(c))
         for c in a.relation.columns
     )
+
+
+# ----------------------------------------------------------------------
+# the split leg and the cyclic leg
+# ----------------------------------------------------------------------
+
+CYCLIC_SIZES = {"TRIANGLE": 40_000, "FOURCYCLE": 20_000, "FOFGROUP": 40_000}
+CYCLIC_CHECK_N = 4000
+F32_UNIT = 2.0 ** -24  # float32 unit roundoff
+
+
+def skew_total(db) -> int:
+    """Σ COUNT of SKEWCHAIN's R1 ⋈ R2 in int64, without the port:
+    Σ over p0 of c1[p0] · c2[p0]."""
+    import numpy as np
+
+    c1 = np.bincount(db["R1"].columns["p0"]).astype(np.int64)
+    c2 = np.bincount(db["R2"].columns["p0"]).astype(np.int64)
+    m = min(len(c1), len(c2))
+    return int((c1[:m] * c2[:m]).sum())
+
+
+def cyclic_counts(name: str, db) -> dict:
+    """Per-group COUNT of a cyclic catalog query in int64 with
+    ``scipy.sparse``, without the port: {group value: count} for every
+    group with a nonzero count."""
+    import numpy as np
+    from scipy import sparse
+
+    def mat(rel, a, b, rows=None, cols=None):
+        x, y = db[rel].columns[a], db[rel].columns[b]
+        shape = (rows or int(x.max()) + 1, cols or int(y.max()) + 1)
+        return sparse.csr_matrix((np.ones(len(x), np.int64), (x, y)), shape=shape)
+
+    if name in ("TRIANGLE", "FOURCYCLE"):
+        v = len(db["L"].columns["a"])  # vertex ids are 0 .. v-1
+        a1 = mat("E1", "a", "b", v, v)
+        a2 = mat("E2", "b", "c", v, v)
+        if name == "TRIANGLE":
+            per_a = (a1 @ a2).multiply(mat("E3", "c", "a", v, v).T)
+            label = "vlabel"
+        else:
+            back = mat("E3", "c", "d", v, v) @ mat("E4", "d", "a", v, v)
+            per_a = (a1 @ a2).multiply(back.T)
+            label = "lab"
+        per_a = np.asarray(per_a.sum(axis=1)).ravel()
+        node, labels = db["L"].columns["a"], db["L"].columns[label]
+        out: dict = {}
+        for lab, cnt in zip(labels.tolist(), per_a[node].tolist()):
+            out[lab] = out.get(lab, 0) + int(cnt)
+    else:  # FOFGROUP: diag(G1ᵀ (F1 @ F2) G2)
+        people = 1 + max(int(db[r].columns[a].max()) for r, a in (
+            ("F1", "u"), ("F1", "v"), ("F2", "v"), ("F2", "w"), ("G1", "u"), ("G2", "w")))
+        groups = 1 + max(int(db[r].columns["grp"].max()) for r in ("G1", "G2"))
+        f = mat("F1", "u", "v", people, people) @ mat("F2", "v", "w", people, people)
+        m = f @ mat("G2", "w", "grp", people, groups)
+        per_grp = np.asarray(mat("G1", "u", "grp", people, groups).multiply(m).sum(axis=0)).ravel()
+        grp_values = np.arange(groups)
+        out = dict(zip(grp_values.tolist(), (int(c) for c in per_grp)))
+    return {k: c for k, c in out.items() if c}
+
+
+def count_rtol(plan) -> float:
+    """Relative tolerance of a float32 COUNT against the exact count.  Every
+    weight is positive.  A hop rounds each edge weight once, multiplies by
+    one gathered value per child (one rounding each) and adds at most the
+    relation's edges into a key (one rounding per addition), each rounding
+    at most 2**-24 relative; the errors of the hops compound, so their
+    counts add to first order: Σ over the decomposition's relations of
+    (edges + children + 1) × 2**-24."""
+    deco = plan.prep.decomposition
+    steps = sum(plan.prep.encoded[r].num_rows + len(deco.nodes[r].children) + 1
+                for r in deco.order)
+    return steps * F32_UNIT
+
+
+def split_leg(torch, tag, args) -> dict:
+    """SKEWCHAIN at ``--n``: the default plan (statistics on, split on p0)
+    and the ``.stats(False)`` plan, driven and compared."""
+    import numpy as np
+
+    from repro_torch.api import Q, TorchChannelEngine
+    from repro_torch.data.queries import skewed_chain_like
+    from repro_torch.kernels import ops
+
+    db, q = skewed_chain_like(args.n, seed=args.seed)
+    dom = len(np.unique(np.concatenate([db["R1"].columns["p0"], db["R2"].columns["p0"]])))
+    hot = float((db["R1"].columns["p0"] == 0).mean())
+    say(tag, f"data: SKEWCHAIN n={args.n} seed={args.seed}: {dom} distinct p0 values, "
+             f"{len(np.unique(db['R1'].columns['g1']))} group values, R1 share on p0=0 "
+             f"{hot:.4f}")
+    splan, sres, split = drive(torch, tag, "split leg", lambda: Q.from_query(q).plan(db))
+    d = splan.split
+    check(d is not None, "statistics chose no split plan on SKEWCHAIN")
+    say(tag, f"split leg: {d.describe()}; roots {list(d.roots)}; ranges {list(d.ranges)}")
+    for name in ("segment_sum", "coo_spmm"):
+        check(split["launches"][name] > 0, f"split leg never launched {name}")
+    uplan, ures, unsplit = drive(
+        torch, tag, "split leg, stats(False)", lambda: Q.from_query(q).stats(False).plan(db)
+    )
+    check(uplan.split is None, "the stats(False) plan split")
+    same = same_result(sres, ures)
+    say(tag, f"check: split leg: split = unsplit bit for bit: {same}; peak device memory "
+             f"above resident {split['peak_above_resident_bytes']} B split vs "
+             f"{unsplit['peak_above_resident_bytes']} B unsplit")
+    check(same, "split result differs from the unsplit result")
+    want = skew_total(db)
+    got = sres.column("count").sum()
+    say(tag, f"check: split leg: Σ count {got:.0f} vs numpy {want}")
+    check(got == want and sres.num_rows > 0, "split leg: Σ count disagrees with numpy")
+
+    ops.reset_launch_counts()
+    fres = Q.from_query(q).fused(True).plan(db).execute()
+    flaunches = ops.launch_counts()
+    say(tag, f"check: split leg, fused: launches {flaunches}; bit-identical to unfused: "
+             f"{same_result(sres, fres)}")
+    check(same_result(sres, fres), "fused split result differs from the unfused one")
+    check(flaunches["fused_hop"] > 0 and all(flaunches[k] == 0 for k in UNFUSED_KERNELS),
+          "the fused split plan did not run on fused_hop alone")
+
+    small, sq = skewed_chain_like(args.check_n, seed=args.seed)
+    gplan = Q.from_query(sq).plan(small)
+    cplan = Q.from_query(sq).engine(TorchChannelEngine(device="cpu")).plan(small)
+    gpu, cpu = gplan.execute(), cplan.execute()
+    same = same_result(gpu, cpu) and gplan.split is not None and cplan.split == gplan.split
+    say(tag, f"check: split leg: SKEWCHAIN n={args.check_n}: split {gplan.split.describe()}; "
+             f"{cpu.num_rows} rows bit-identical to device='cpu': {same}")
+    check(same, "split leg: cuda result differs from cpu result")
+    return {"split": split, "split, stats(False)": unsplit,
+            "launches": {"split": split["launches"], "split, stats(False)": unsplit["launches"],
+                         "split, fused": flaunches}}
+
+
+def cyclic_leg(torch, tag, args) -> dict:
+    """TRIANGLE, FOURCYCLE and FOFGROUP through the GHD compiler: host
+    bag build against warm execute on the card, each count against
+    ``scipy.sparse``, each card result against the CPU's."""
+    from repro_torch.api import Q, TorchChannelEngine
+    from repro_torch.data.queries import CYCLIC
+
+    out = {"launches": {}}
+    for name, n in CYCLIC_SIZES.items():
+        db, q = CYCLIC[name](n, seed=args.seed)
+        label = f"cyclic {name}"
+        plan, res, summary = drive(torch, tag, label, lambda: Q.from_query(q).plan(db))
+        g = plan.ghd_plan
+        check(plan.cyclic and g is not None, f"{name} was not compiled through the GHD")
+        secs = g.seconds
+        bags = {b: bt.num_rows for b, bt in g.bag_tables.items()}
+        say(tag, f"{label}: n={n}; prepare {summary['prepare_s']:.3f} s of which encode "
+                 f"{secs['encode']:.3f} s, build_ghd {secs['build_ghd']:.3f} s, bags "
+                 f"{secs['bags']:.3f} s, finish_prepare {secs['finish_prepare']:.3f} s; "
+                 f"bag rows {bags}; bag_peak_bytes {g.bag_peak_bytes}; max bag weight "
+                 f"{max(int(bt.count.max(initial=0)) for bt in g.bag_tables.values())}; "
+                 f"nodes after the fold {list(plan.prep.decomposition.nodes)} (rows "
+                 f"{ {r: e.num_rows for r, e in plan.prep.encoded.items()} }, folded "
+                 f"{plan.prep.folded})")
+        summary.update(ghd_seconds=secs, bag_rows=bags, bag_peak_bytes=g.bag_peak_bytes,
+                       nodes=list(plan.prep.decomposition.nodes))
+        check(sum(summary["launches"].values()) > 0, f"{label} launched no kernel")
+        want = cyclic_counts(name, db)
+        group = plan.group_display[0]
+        got = dict(zip(res.column(group).tolist(), res.column("count").tolist()))
+        rtol = count_rtol(plan)
+        worst = 0.0
+        ok = set(got) == set(want)
+        for key, exact in want.items():
+            err = abs(got.get(key, 0.0) - exact)
+            if exact < 2 ** 24:
+                ok = ok and err == 0
+            else:
+                worst = max(worst, err / exact)
+        ok = ok and worst <= rtol
+        say(tag, f"check: {label}: {len(got)} groups, Σ count {sum(got.values()):.0f} vs "
+                 f"scipy {sum(want.values())}; largest count {max(want.values())}; exact "
+                 f"below 2**24, above it worst relative error {worst:.3e} within "
+                 f"{rtol:.3e}: {ok}")
+        check(ok, f"{label}: counts disagree with scipy.sparse")
+        small, sq = CYCLIC[name](CYCLIC_CHECK_N, seed=args.seed)
+        gpu = Q.from_query(sq).plan(small).execute()
+        cpu = Q.from_query(sq).engine(TorchChannelEngine(device="cpu")).plan(small).execute()
+        same = same_result(gpu, cpu)
+        say(tag, f"check: {label}: n={CYCLIC_CHECK_N}: {cpu.num_rows} rows bit-identical to "
+                 f"device='cpu': {same}")
+        check(same and gpu.num_rows > 0, f"{label}: cuda result differs from cpu result")
+        out[label] = summary
+        out["launches"][label] = summary["launches"]
+        del plan, res
+    return out
 
 
 # ----------------------------------------------------------------------
@@ -1004,6 +1215,8 @@ def main() -> int:
     db, cols = chain_db(args.n, args.seed)
     say(tag, f"data: C1 n={args.n} seed={args.seed}")
     plan, res, main = drive(torch, tag, "main path", lambda: bundle_query("torch").plan(db))
+    say(tag, f"main path: root with statistics on (the default): "
+             f"{plan.prep.decomposition.root}")
     launches = main["launches"]
     for name in UNFUSED_KERNELS:
         check(launches[name] > 0, f"main path never launched {name}")
@@ -1071,7 +1284,17 @@ def main() -> int:
     for name, errs in gather_phase(torch, tag).items():
         results[name]["max_abs_err"] = max([results[name]["max_abs_err"]] + errs)
 
-    for label, summary in (("main path", main), ("fused path", fused)):
+    # 6. split leg and 7. cyclic leg -------------------------------------
+    del plan, fplan, res, fres, captured
+    torch.cuda.empty_cache()
+    split = split_leg(torch, tag, args)
+    cyclic = cyclic_leg(torch, tag, args)
+
+    legs = {"main": launches, "fused": flaunches}
+    legs.update(split.pop("launches"))
+    legs.update(cyclic.pop("launches"))
+    for label, summary in (("main path", main), ("fused path", fused), *split.items(),
+                           *cyclic.items()):
         say(tag, f"{label} summary: {json.dumps(summary)}")
     paths = {name: "main" for name in UNFUSED_KERNELS}
     paths.update(fused_hop="fused", semiring_matmul=None)
@@ -1087,6 +1310,7 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shapes": r["shapes"], "path": paths[name],
+            "leg_launches": {leg: counts_of[name] for leg, counts_of in legs.items()},
         }
         if name in SEGMENT_KERNELS:
             entry.update(regimes=r["regimes"], launches_by_width=r["launches_by_width"])

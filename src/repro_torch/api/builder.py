@@ -14,8 +14,9 @@ Every method returns a new immutable ``Q``; ``plan(db)`` compiles to a
 :class:`~repro_torch.api.plan.Plan`.  Self-joins: pass ``("alias",
 "Source")`` tuples (or repeat a bare name — occurrences auto-alias as
 ``name__2``, ``name__3``, ...) and rename the alias's columns with
-``.rename``.  Port of the JAX package's ``api/builder.py``; ``.mesh``
-and ``.maintain`` raise :class:`UnsupportedPlanOption`.  The port has
+``.rename``; ``Q.from_query`` wraps a catalog ``JoinAggQuery``.  Port
+of the JAX package's ``api/builder.py``; ``.mesh`` and ``.maintain``
+raise :class:`UnsupportedPlanOption`.  The port has
 no dense path, so ``.fused(True)`` already runs on the sparse one.
 """
 from __future__ import annotations
@@ -29,6 +30,7 @@ from repro_torch.aggregates.semiring import AggSpec
 from repro_torch.api.engines import TorchChannelEngine
 from repro_torch.api.plan import Plan, Predicate, compile_plan
 from repro_torch.core.operator import UnsupportedPlanOption
+from repro_torch.core.query import JoinAggQuery
 from repro_torch.relational.relation import Database
 
 
@@ -79,6 +81,7 @@ class Q:
     engine_name: str | TorchChannelEngine = "torch"
     budget: int | None = None
     stream_opt: tuple[str, int] | None = None
+    stats_opt: bool = True  # statistics-driven planning (DESIGN.md §10)
     # fused hop kernels (DESIGN.md §13): True/False pins the choice,
     # None defers to the REPRO_FUSED environment switch
     fused_opt: bool | None = None
@@ -109,6 +112,24 @@ class Q:
         if len(set(names)) != len(names):
             raise ValueError(f"duplicate relation aliases: {names}")
         return Q(relations=tuple(out))
+
+    @staticmethod
+    def from_query(query: JoinAggQuery) -> "Q":
+        """Wrap a :class:`JoinAggQuery` (as the catalog in
+        ``repro_torch.data`` hands them out) with its one aggregate,
+        named after its kind."""
+        attrs = [a for _, a in query.group_by]
+        displays = {
+            a if attrs.count(a) == 1 else f"{r}.{a}" for r, a in query.group_by
+        }
+        name = query.agg.kind
+        while name in displays:  # a group column may be named e.g. "count"
+            name += "_"
+        return Q(
+            relations=tuple((r, r) for r in query.relations),
+            group_attrs=tuple(query.group_by),
+            aggs=((name, query.agg),),
+        )
 
     # ------------------------------------------------------------------
     def rename(self, relation: str, **mapping: str) -> "Q":
@@ -210,6 +231,12 @@ class Q:
         option."""
         return replace(self, fused_opt=bool(enabled))
 
+    def stats(self, enabled: bool = True) -> "Q":
+        """Toggle statistics-driven planning (DESIGN.md §10).  When off,
+        root choice falls back to the dense-bytes heuristic and per-split
+        plans are disabled."""
+        return replace(self, stats_opt=bool(enabled))
+
     def maintain(self, db):
         raise UnsupportedPlanOption(
             "incremental maintenance is not ported to repro_torch"
@@ -218,7 +245,8 @@ class Q:
     # ------------------------------------------------------------------
     def plan(self, db) -> Plan:
         """Compile against ``db`` (a :class:`Database` or a mapping of
-        relations): logical rewrites, root choice, channelization."""
+        relations): logical rewrites, cost-based root / split / GHD
+        choice, channelization."""
         return compile_plan(self, _as_database(db))
 
     def execute(self, db):

@@ -97,8 +97,9 @@ def sparsify(
         if offsets and offsets.get(attr):
             codes[i] += offsets[attr]
     values = torch.cat(
-        [arr.reshape(-1, k)[flat].T] + [a.reshape(-1)[flat][None] for a in mm.values()]
-    ).to(torch.float64)
+        [arr.reshape(-1, k)[flat].T.to(torch.float64)]
+        + [a.reshape(-1)[flat][None].to(torch.float64) for a in mm.values()]
+    )
     codes_h, values_h = _to_host(codes), _to_host(values)
     return EngineOutput(
         codes_h.T,
@@ -116,8 +117,9 @@ class TorchChannelEngine:
     ``device`` defaults to ``"cuda"``; a plan fails at compile time when
     no card is present.  ``TorchChannelEngine(device="cpu")`` runs the
     same walk on the CPU, where every kernel wrapper takes its plain
-    PyTorch version.  Values are float32, exact to 2**24 per partial
-    product (DESIGN.md §2, §7)."""
+    PyTorch version.  Channel values are float32, exact to 2**24 per
+    partial product (DESIGN.md §2, §7); MIN/MAX walk payload ranks and
+    return the payloads themselves, in float64."""
 
     name = "torch"
     supports_streaming = True

@@ -6,23 +6,27 @@ single :class:`Plan` through three stages:
 1. **Logical rewrites** — self-join aliasing, per-relation selection
    pushdown (``where`` predicates filter *before* encoding), and the
    automatic column copy of group attributes that participate in joins
-   (the paper's Section II-A convention).
-2. **Root choice** — encode once, fold/decompose per candidate
-   group-relation root, keep the root with the smallest estimated peak
-   message (the JAX package's byte heuristic, its ``stats(False)`` mode).
+   (the paper's Section II-A convention; acyclic queries only, the GHD
+   compiler copies inside its bags).
+2. **Physical choice** — cyclic queries route through the GHD compiler
+   (``repro_torch.ghd``), acyclic ones through a cost-based root search
+   over the fold/decompose pipeline: the statistics-refined cost model
+   (``repro_torch.planner.cost``) by default, the byte heuristic under
+   ``Q.stats(False)``.  With statistics on, a skewed join attribute may
+   split the plan into key ranges (``repro_torch.planner.split``).
 3. **Channelization** — the named-aggregate bundle becomes one COUNT
    channel, one SUM channel per distinct measure (AVG = SUM/COUNT pair,
    derived at assembly), and MIN/MAX requests; all distributive channels
    run in a *single* contraction pass.
 
-Port of the acyclic subset of the JAX package's ``api/plan.py``, fused
-hops included (``Q.fused``); cyclic queries (its GHD compiler), meshes
-and incremental maintenance raise :class:`UnsupportedPlanOption`.
+Port of the JAX package's ``api/plan.py``, fused hops included
+(``Q.fused``); meshes and incremental maintenance raise
+:class:`UnsupportedPlanOption`.
 """
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable
 
 import numpy as np
@@ -36,7 +40,6 @@ from repro_torch.api.engines import (
     TorchChannelEngine,
     resolve_engine,
 )
-from repro_torch.core.hypergraph import Hypergraph
 from repro_torch.core.operator import (
     DEFAULT_MEMORY_BUDGET,
     UnsupportedPlanOption,
@@ -44,6 +47,8 @@ from repro_torch.core.operator import (
 )
 from repro_torch.core.prepare import Prepared, encode_query, finish_prepare
 from repro_torch.core.query import JoinAggQuery, resolve_schema
+from repro_torch.ghd.rewrite import compile_ghd, is_cyclic_query
+from repro_torch.planner.cost import plan_cost
 from repro_torch.relational.relation import Database, Relation
 
 COPY_SUFFIX = "__grp"
@@ -100,17 +105,50 @@ class Plan:
     # fused hop kernels (DESIGN.md §13): True/False pins the choice,
     # None defers to the REPRO_FUSED environment switch at run time
     fused: bool | None = None
+    cyclic: bool = False
+    ghd_plan: "object | None" = None  # repro_torch.ghd.rewrite.GHDPlan
+    # per-split execution decision (repro_torch.planner.split.
+    # SplitDecision) when the statistics found qualifying skew; None =
+    # unsplit plan
+    split: "object | None" = None
+    # False when the spec disabled statistics-driven planning (byte
+    # heuristic only)
+    stats_enabled: bool = True
+    # the split plan's per-range Prepared set, built on the first
+    # execute and kept, so warm executes reuse each range's device views
+    _split_parts: "list[Prepared] | None" = field(
+        default=None, init=False, repr=False
+    )
 
     @property
     def message_peak(self) -> int:
         return peak_message_bytes(self.prep)
 
+    @property
+    def est_peak(self) -> int:
+        """Estimated peak bytes: the bag materialization's working set
+        where it is larger (cyclic), the largest range's peak message
+        (split), else the peak message."""
+        if self.ghd_plan is not None:
+            return max(self.ghd_plan.bag_peak_bytes, self.message_peak)
+        if self.split is not None:
+            return self.split.est_split_peak
+        return self.message_peak
+
+    @property
+    def stats(self):
+        """Collected statistics (lazy; see ``Prepared.stats``)."""
+        return self.prep.stats
+
     def resolved_stream(self) -> tuple[str, int] | None:
         """The tile plan actually used: the explicit ``stream`` option, or
         auto-streaming over the largest group attribute when the
-        estimated peak message exceeds the memory budget."""
+        estimated peak message exceeds the memory budget; None for a
+        split plan, whose key ranges already bound the messages."""
         if self.stream is not None:
             return self.stream
+        if self.split is not None:
+            return None
         budget = (
             self.memory_budget
             if self.memory_budget is not None
@@ -125,15 +163,30 @@ class Plan:
         shrink = int(math.ceil(peak / budget))
         return (attr, max(1, dom // shrink))
 
-    def execute(self) -> AggResult:
-        """Run every named aggregate in a single contraction pass."""
+    def outputs(self) -> list[EngineOutput]:
+        """The engine's sparse outputs for every channel and MIN/MAX
+        request: one per stream tile, or for a split plan the per-range
+        partials merged into one."""
+        if self.split is not None:
+            from repro_torch.planner.split import execute_split, split_parts
+
+            if self._split_parts is None:
+                self._split_parts = split_parts(self.prep, self.split)
+            return execute_split(
+                self._split_parts, self.engine, self.channels,
+                len(self.prep.group_attrs), self.fused,
+            )
         kwargs = {}
         if getattr(self.engine, "supports_fused", False):
             kwargs["fused"] = self.fused
-        outputs = self.engine.run(
+        return self.engine.run(
             self.prep, self.channels, self.minmax, self.resolved_stream(), **kwargs
         )
-        return _assemble(self, outputs)
+
+    def execute(self) -> AggResult:
+        """Run every named aggregate in a single contraction pass (one
+        per key range of a split plan)."""
+        return _assemble(self, self.outputs())
 
     def maintain(self):
         raise UnsupportedPlanOption(
@@ -142,8 +195,9 @@ class Plan:
         )
 
     def __repr__(self) -> str:
+        kind = "ghd" if self.cyclic else "acyclic"
         return (
-            f"Plan(acyclic, engine={self.engine.name}, "
+            f"Plan({kind}, engine={self.engine.name}, "
             f"root={self.prep.decomposition.root}, "
             f"aggs={[n for n, _ in self.aggs]})"
         )
@@ -152,14 +206,6 @@ class Plan:
 # ----------------------------------------------------------------------
 # compilation
 # ----------------------------------------------------------------------
-
-
-def is_cyclic_query(query: JoinAggQuery, db: Database) -> bool:
-    """GYO test on the query's own hypergraph (group-join attrs allowed);
-    a copy of the JAX package's ``ghd/rewrite.py:is_cyclic_query``."""
-    schema = resolve_schema(query, db, allow_group_join_attrs=True)
-    hg = Hypergraph({r: frozenset(a) for r, a in schema.relevant.items()})
-    return not hg.is_acyclic()
 
 
 def compile_plan(spec, db: Database) -> Plan:
@@ -197,23 +243,48 @@ def compile_plan(spec, db: Database) -> Plan:
 
     primary = aggs[0][1]
     query0 = JoinAggQuery(rel_names, tuple(group_by), primary)
-    if is_cyclic_query(query0, edb):
-        raise UnsupportedPlanOption(
-            "cyclic join query: the GHD compiler is not ported to "
-            "repro_torch; use the JAX package's repro.api"
-        )
-    edb, group_by = _copy_joining_group_attrs(rel_names, edb, group_by, notes)
-    query0 = JoinAggQuery(rel_names, tuple(group_by), primary)
+    cyclic = is_cyclic_query(query0, edb)
+    if not cyclic:
+        edb, group_by = _copy_joining_group_attrs(rel_names, edb, group_by, notes)
+        query0 = JoinAggQuery(rel_names, tuple(group_by), primary)
 
     group_display = _display_names(spec.group_attrs)
     clash = set(group_display) & set(names)
     if clash:
         raise ValueError(f"aggregate names collide with group columns: {sorted(clash)}")
 
-    prep = _best_root(query0, edb, measures)
-    channels, minmax, assemble = _channelize(
-        aggs, lambda rel: prep.measure_moves.get(rel, rel)
-    )
+    stats_on = bool(spec.stats_opt)
+    ghd_plan = None
+    if cyclic:
+        ghd_plan = compile_ghd(query0, edb, measures=measures)
+        prep = ghd_plan.prepared
+        bag_of = dict(ghd_plan.measure_bags)
+
+        def resolve_rel(rel: str) -> str:
+            rel = bag_of.get(rel, rel)
+            return prep.measure_moves.get(rel, rel)
+
+    else:
+        prep = _best_root(query0, edb, measures, use_stats=stats_on)
+
+        def resolve_rel(rel: str) -> str:
+            return prep.measure_moves.get(rel, rel)
+
+    channels, minmax, assemble = _channelize(aggs, resolve_rel)
+    split = None
+    if (
+        stats_on
+        and not cyclic
+        and not minmax
+        and spec.stream_opt is None
+        and engine.name == "torch"
+    ):
+        from repro_torch.planner.split import decide_split
+
+        split = decide_split(prep, prep.stats)
+        budget = spec.budget if spec.budget is not None else DEFAULT_MEMORY_BUDGET
+        if split is not None and split.est_split_peak > budget:
+            split = None  # the split cannot fit either; stream instead
     return Plan(
         aggs=aggs,
         group_display=group_display,
@@ -226,6 +297,10 @@ def compile_plan(spec, db: Database) -> Plan:
         memory_budget=spec.budget,
         stream=spec.stream_opt,
         fused=spec.fused_opt,
+        cyclic=cyclic,
+        ghd_plan=ghd_plan,
+        split=split,
+        stats_enabled=stats_on,
     )
 
 
@@ -322,16 +397,22 @@ def _copy_joining_group_attrs(rel_names, edb: Database, group_by, notes: list[st
 
 
 def _best_root(
-    query: JoinAggQuery, db: Database, measures: dict[str, str]
+    query: JoinAggQuery,
+    db: Database,
+    measures: dict[str, str],
+    use_stats: bool = True,
 ) -> Prepared:
-    """Root search: encode once, fold/decompose per candidate
-    group-relation root, rank by estimated peak message bytes (first
-    candidate wins ties).  Raises with every rejected root's reason when
-    no candidate is valid."""
+    """Cost-based root search: encode once, fold/decompose per candidate
+    group-relation root, rank by the statistics-refined cost model
+    (:func:`repro_torch.planner.cost.plan_cost`) — or the raw dense-bytes
+    heuristic when ``use_stats`` is off; the first candidate wins ties.
+    Raises with every rejected root's reason when no candidate is
+    valid."""
     schema = resolve_schema(query, db)
     dicts, encoded = encode_query(query, db, schema, measures=measures)
-    best: tuple[Prepared, int] | None = None
+    best: tuple[Prepared, tuple] | None = None
     failures: list[str] = []
+    stats = None
     for root in dict.fromkeys(r for r, _ in query.group_by):
         try:
             p = finish_prepare(
@@ -340,7 +421,16 @@ def _best_root(
         except ValueError as e:
             failures.append(f"{root}: {e}")
             continue
-        cost = peak_message_bytes(p)
+        if use_stats:
+            if stats is None:
+                # fold/encode are root-independent: the first candidate's
+                # statistics describe every candidate's encodings
+                stats = p.stats
+            else:
+                p.attach_stats(stats)
+            cost: tuple = plan_cost(p, stats)
+        else:
+            cost = (peak_message_bytes(p),)
         if best is None or cost < best[1]:
             best = (p, cost)
     if best is None:

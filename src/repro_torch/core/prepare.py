@@ -12,9 +12,10 @@
 5. the query decomposition tree with attribute splitting.
 
 Copy of the JAX package's ``core/prepare.py`` without its out-of-core
-view build, its statistics and its incremental-maintenance bookkeeping.
-The torch engine moves each grouped-CSR view to the device once and
-memoizes it in :attr:`Prepared.device_views`.
+view build and its growable dictionaries.  Statistics are collected
+lazily (:attr:`Prepared.stats`).  The torch engine moves each
+grouped-CSR view to the device once and memoizes it in
+:attr:`Prepared.device_views`.
 """
 from __future__ import annotations
 
@@ -81,6 +82,9 @@ class Prepared:
     dicts: dict[str, Dictionary]
     encoded: dict[str, EncodedRelation]
     decomposition: Decomposition
+    folded: list[str] = field(default_factory=list)
+    # folded relation -> surviving host relation (fold chains resolved)
+    fold_hosts: dict[str, str] = field(default_factory=dict)
     # measure relation -> relation now carrying its payloads after the
     # fold rewrite (resolved chains); the logical planner re-points each
     # aggregate channel through this map (DESIGN.md §6)
@@ -93,6 +97,27 @@ class Prepared:
         # to the device once per Prepared, however many hops and
         # executes read it
         self.device_views: dict = {}
+        # engine-owned memo of the sorted distinct MIN/MAX payloads the
+        # walk ranks against, keyed by (device, relation, kind)
+        self.payload_values: dict = {}
+        # lazily collected statistics; None until the planner (or a
+        # caller) first touches .stats, so paths that never consult the
+        # cost model pay nothing for them
+        self._stats_cache = None
+
+    @property
+    def stats(self):
+        """Collected :class:`~repro_torch.stats.collect.Statistics` over
+        the (post-fold) encoded relations — lazy, cached, shareable via
+        :meth:`attach_stats` across same-encoding candidate roots."""
+        if self._stats_cache is None:
+            from repro_torch.stats.collect import collect_statistics
+
+            self._stats_cache = collect_statistics(self.encoded, self.dicts)
+        return self._stats_cache
+
+    def attach_stats(self, stats) -> None:
+        self._stats_cache = stats
 
     @property
     def group_attrs(self) -> tuple[tuple[str, str], ...]:
@@ -161,6 +186,7 @@ def _fold_leaf_multipliers(
     list[str],
     dict[str, tuple[str, ...]],
     dict[str, str],
+    dict[str, str],
 ]:
     """Fold non-group leaf relations into a neighbor as count weights.
 
@@ -175,10 +201,12 @@ def _fold_leaf_multipliers(
     payloads transfer to the host (sum scales by host multiplicity,
     min/max pass through per key), and the returned ``moved`` map records
     the relation now carrying the measure so the aggregate spec can be
-    re-pointed.
+    re-pointed; ``host_of`` maps each folded relation to its immediate
+    host.
     """
     relevant = {r: tuple(a) for r, a in schema.relevant.items()}
     folded: list[str] = []
+    host_of: dict[str, str] = {}  # folded relation -> immediate host
     moved: dict[str, str] = {}
     changed = True
     while changed:
@@ -254,6 +282,7 @@ def _fold_leaf_multipliers(
             )
             del encoded[f]
             folded.append(f)
+            host_of[f] = p
             changed = True
             # drop attrs that stopped being join attrs and re-aggregate
             counts: dict[str, int] = {}
@@ -278,7 +307,7 @@ def _fold_leaf_multipliers(
                     )
                     relevant[r] = new_attrs
             break
-    return encoded, folded, relevant, moved
+    return encoded, folded, relevant, moved, host_of
 
 
 def query_measures(
@@ -325,6 +354,11 @@ def finish_prepare(
 ) -> Prepared:
     """Back half of :func:`prepare`: fold rewrite + decomposition.
 
+    Also the entry point for pre-encoded relation sets whose multiplicities
+    did not come from raw tuple counts — the GHD compiler feeds materialized
+    bag relations (weights = within-bag join products) through here so cyclic
+    queries reuse the exact same fold/decompose/engine pipeline.
+
     ``measures`` (relation -> measured attr) widens the fold rewrite's
     keep-set to every measure relation of a multi-aggregate bundle; the
     resulting :attr:`Prepared.measure_moves` records where each measure's
@@ -332,9 +366,15 @@ def finish_prepare(
     """
     measure = query.agg.measure
     keep = set(query_measures(query, measures))
-    encoded, folded, relevant, moved = _fold_leaf_multipliers(
+    encoded, folded, relevant, moved, host_of = _fold_leaf_multipliers(
         schema, dict(encoded), dicts, keep
     )
+    fold_hosts: dict[str, str] = {}
+    for f in folded:
+        cur = f
+        while cur in host_of:
+            cur = host_of[cur]
+        fold_hosts[f] = cur
 
     measure_moves: dict[str, str] = {}
     for m_rel in query_measures(query, measures):
@@ -368,7 +408,9 @@ def finish_prepare(
 
     hg = Hypergraph({r: frozenset(relevant[r]) for r in encoded})
     deco = decompose(schema, hg, root=root)
-    return Prepared(query, schema, dicts, encoded, deco, measure_moves)
+    return Prepared(
+        query, schema, dicts, encoded, deco, folded, fold_hosts, measure_moves
+    )
 
 
 def prepare(

@@ -256,23 +256,30 @@ class _KernelChannelEngine(_CsrHopMixin, ChannelTensorEngine):
         )
 
 
+# MIN/MAX walk payload ranks while they stay exact in float32
+_MAX_EXACT_RANKS = 1 << 24
+
+
 class _MinMaxKernelEngine(_CsrHopMixin, TensorEngine):
     """(min, +) / (max, +) semiring message passing over the tree: the
-    measure relation contributes its per-edge payload, every other
-    relation contributes 0, and each hop reduces the per-edge candidate
-    sums into their row keys with ``segment_reduce`` (or forms and
-    reduces them in one ``fused_hop`` launch when ``fused``).  Unreached
-    entries hold the identity (±inf) until
-    :meth:`SparseProgram.run_minmax` masks them."""
+    measure relation contributes its per-edge payload rank (its position
+    in ``values``, the sorted distinct payloads; or, with ``values``
+    None, the payload itself in float32), every other relation
+    contributes 0, and each hop reduces the per-edge candidate sums into
+    their row keys with ``segment_reduce`` (or forms and reduces them in
+    one ``fused_hop`` launch when ``fused``).  Unreached entries hold the
+    identity (±inf) until :meth:`SparseProgram.run_minmax` masks them."""
 
     def __init__(
         self, prep, kind: str, rel_m: str, device, *,
+        values: np.ndarray | None = None,
         domains=None, encoded=None, view_cache: dict | None = None,
         fused: bool = False,
     ):
         super().__init__(prep, device, domains=domains, encoded=encoded)
         self.kind = kind
         self.rel_m = rel_m
+        self.values = values
         self.view_cache = {} if view_cache is None else view_cache
         self.fused = fused
 
@@ -280,9 +287,12 @@ class _MinMaxKernelEngine(_CsrHopMixin, TensorEngine):
         er = self.encoded[rel]
         if rel != self.rel_m:
             return torch.zeros(er.num_rows, dtype=torch.float32, device=self.device)
-        key = ("payload", self.kind)
+        key = ("payload", self.kind, self.values is None)
         if key not in view.memo:
-            view.memo[key] = view.upload(er.payloads[self.kind])
+            payload = er.payloads[self.kind]
+            if self.values is not None:
+                payload = np.searchsorted(self.values, payload)
+            view.memo[key] = view.upload(payload)
         return view.memo[key]
 
     def _contract_block(self, weights, gathers, view, knum):
@@ -325,19 +335,44 @@ class SparseProgram:
         )
         return eng.run()
 
+    def _payload_values(self, kind: str, rel_m: str):
+        """Sorted distinct ``kind`` payloads of ``rel_m`` (host, and as
+        float64 on the device), memoized on the ``Prepared``; None when
+        there are too many for their ranks to stay exact in float32."""
+        key = (str(self.device), rel_m, kind)
+        memo = self.prep.payload_values
+        if key not in memo:
+            host = np.unique(self.prep.encoded[rel_m].payloads[kind])
+            memo[key] = (
+                (host, torch.from_numpy(host).to(self.device))
+                if len(host) <= _MAX_EXACT_RANKS else None
+            )
+        return memo[key]
+
     def run_minmax(
         self, kind: str, rel_m: str, encoded=None, domains=None,
         view_cache: dict | None = None,
     ) -> torch.Tensor:
-        """MIN/MAX(rel_m) over canonical group axes on the device;
-        unreached groups hold 0.0 — mask with a COUNT support before use."""
+        """MIN/MAX(rel_m) over canonical group axes on the device, float64;
+        unreached groups hold 0.0 — mask with a COUNT support before use.
+
+        The walk runs on payload ranks, which float32 holds exactly, and
+        the reached ranks map back to the float64 payloads here, so
+        fractional measures come back unrounded (a min or max is one of
+        the payloads, and ranks order as the payloads do)."""
+        values = self._payload_values(kind, rel_m)
         eng = _MinMaxKernelEngine(
             self.prep, kind, rel_m, self.device,
+            values=None if values is None else values[0],
             domains=domains, encoded=encoded, view_cache=view_cache,
             fused=fused_enabled(self.fused),
         )
         arr = eng.run()
-        return torch.where(torch.isfinite(arr), arr, torch.zeros_like(arr))
+        reached = torch.isfinite(arr)
+        out = torch.where(reached, arr, torch.zeros_like(arr))
+        if values is None or not len(values[0]):  # no payloads: none reached
+            return out.to(torch.float64)
+        return torch.where(reached, values[1][out.long()], 0.0)
 
     def run_stream(self, attr: str, tile: int):
         """Yield ``(encoded, domains, offsets)`` per group-axis row tile;

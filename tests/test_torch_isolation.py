@@ -1,6 +1,8 @@
 """The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
-neither JAX nor the JAX package ``repro``, and the port's default engine
-refuses to run without a CUDA card instead of quietly using the CPU."""
+neither JAX nor the JAX package ``repro`` (an acyclic, a split and a
+cyclic query are answered with both refused), and the port's default
+engine refuses to run without a CUDA card instead of quietly using the
+CPU."""
 import ast
 import json
 import os
@@ -45,8 +47,18 @@ res = (
     .agg(n=Count(), s=Sum("R2.m"), lo=Min("R2.m"), hi=Max("R2.m"))
     .engine(TorchChannelEngine(device="cpu")).execute(db)
 )
+from repro_torch.data.queries import skewed_chain_like, triangle_like
+
+cpu = TorchChannelEngine(device="cpu")
+sdb, sq = skewed_chain_like(2000, seed=0)
+split = Q.from_query(sq).engine(cpu).plan(sdb)
+tdb, tq = triangle_like(800, seed=0)
+cyclic = Q.from_query(tq).engine(cpu).plan(tdb)
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in {"jax", "jaxlib", "repro"})
 print(json.dumps({"rows": res.num_rows, "n": float(res.column("n").sum()),
+                  "split": split.split is not None,
+                  "split_rows": split.execute().num_rows,
+                  "cyclic": cyclic.cyclic, "cyclic_rows": cyclic.execute().num_rows,
                   "loaded": loaded}))
 """
 
@@ -66,6 +78,8 @@ def test_port_answers_a_query_with_jax_and_repro_refused():
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["loaded"] == []
     assert out["rows"] > 0 and out["n"] > 0
+    assert out["split"] and out["split_rows"] > 0
+    assert out["cyclic"] and out["cyclic_rows"] > 0
 
 
 def _imported_modules(path: Path) -> list[str]:
