@@ -56,7 +56,30 @@ Run from the root of a checkout on a machine with a CUDA card.  It
    ``finish_prepare`` beside warm execute, bag rows and peak bytes, and
    the decomposition left after the fold; checks each group's COUNT
    against an int64 count with ``scipy.sparse`` (exact below 2**24, within
-   ``count_rtol`` above it) and, at 4,000 edges, card = CPU bit for bit.
+   ``count_rtol`` above it), at 4,000 edges card = CPU bit for bit, and
+   runs each query once more with ``mode="sparse"``, bit-identical, so
+   that ``segment_sum`` still launches in this leg;
+8. drives the dense leg: the catalog's TPCH with an integer
+   ``lineitem.quantity`` in [1, 50] (TPC-H's ``l_quantity``) and the
+   COUNT/SUM/AVG/MIN/MAX bundle of it, at the largest ``n`` of the
+   doubling series 600, 1200, ... for which ``choose_path`` still says
+   dense, printing the relation tensors' element counts; the default
+   (dense) plan and a ``mode="sparse"`` plan, each with the numbers of 2;
+   checks dense = sparse bit for bit, Σ COUNT and Σ SUM against numpy,
+   card = CPU at 4,800 rows, and the dense result again under a global
+   ``torch.backends.cuda.matmul.allow_tf32 = True``: unchanged, and the
+   setting still on afterwards; then times both paths, each pinned, at
+   every size of the series and one doubling past it (``path_sweep``),
+   beside what ``choose_path`` picks there;
+9. prints ``plan.explain(actuals=True)`` of TPCH at 600 rows on the card
+   and checks that ``verify()`` finds no broken invariant in any leg's
+   plan (V-OVERFLOW, an estimate the legs' exact count checks settle,
+   is printed).
+
+Every leg prints its ``torch path:`` line — per key range for the split
+leg — and checks the path each run took against ``choose_path``: a dense
+run launches no hop kernel but ``segment_reduce`` (its MIN/MAX), a
+sparse one does.
 
 The last three lines of standard output are the card's name and power
 limit, one JSON object of per-kernel numbers (with each kernel's launches
@@ -980,6 +1003,102 @@ def same_result(a, b) -> bool:
     )
 
 
+HOP_KERNELS = ("segment_sum", "coo_spmm", "fused_hop")
+
+
+def verified(tag, label, plan) -> None:
+    """Fail if ``plan.verify()`` finds any broken invariant.  V-OVERFLOW
+    is printed and let pass: it compares a sketch estimate of a subtree's
+    join rows with 2**24, and every leg checks its counts against an
+    exact count itself (exact below 2**24, ``count_rtol`` above)."""
+    diags = plan.verify(strict=False)
+    say(tag, f"check: {label}: verify() on {plan}: {len(diags)} finding(s) "
+             f"{[str(d) for d in diags]}")
+    check(all(d.code == "V-OVERFLOW" for d in diags),
+          f"{label}: the plan breaks its invariants")
+
+
+def run_paths(plan) -> list[tuple[str, object]]:
+    """``(label, choose_path's choice)`` for every ``engine.run`` of
+    ``plan.execute()``: one, or one per key range of a split plan (no
+    budget there, as the JAX package's ``execute_split`` runs them)."""
+    from repro_torch.core.torch_engine import choose_path
+
+    cm = tuple(ch.measure[0] if ch.kind == "sum" else None for ch in plan.channels)
+    k = len(plan.channels)
+    if plan.split is None:
+        runs = [("plan", plan.prep, plan.resolved_stream(), plan.memory_budget)]
+    else:
+        attr = plan.split.attr
+        parts = plan.split_parts()
+        runs = [(f"key range {i} of {len(parts)} ({part.dicts[attr].size} keys of {attr})",
+                 part, None, None) for i, part in enumerate(parts)]
+    return [(label, choose_path(prep, k=k, memory_budget=budget, stream=stream, measured=cm))
+            for label, prep, stream, budget in runs]
+
+
+def check_paths(tag, label, plan, launches) -> list[str]:
+    """Print each run's ``torch path:`` line and check, through the
+    launches, that the run took ``choose_path``'s path, or the one that
+    ``mode=`` or ``.fused(True)`` pins: no hop kernel when every run is
+    dense, some when any is sparse.  Returns the paths."""
+    mode = plan.engine.mode
+    pin = mode if mode != "auto" else ("sparse" if plan.fused is True else None)
+    paths = []
+    for run, choice in run_paths(plan):
+        path = pin or choice.path
+        say(tag, f"{label}: {run}: torch path: {choice.path} — {choice.reason}; runs "
+                 f"{path}{' (pinned)' if pin else ''}")
+        paths.append(path)
+    hops = sum(launches[name] for name in HOP_KERNELS)
+    if "sparse" in paths:
+        check(hops > 0, f"{label}: a sparse run launched no hop kernel")
+    else:
+        check(hops == 0, f"{label}: a dense run launched hop kernels: {launches}")
+    return paths
+
+
+def check_launch_shapes(torch, tag, label, plan) -> None:
+    """Execute a fused plan once with a spy on ``ops.walk_plan`` and
+    ``ops.gather_plan`` and hold the launch shapes its ``fused_hop``
+    launches were given against what ``explain`` prints and V-KERN
+    checks (``plan.fused_runs()`` × ``hop_launch_shapes``), pass by
+    pass: per key range, per stream tile, MIN/MAX passes."""
+    from repro_torch.core.torch_engine import hop_launch_shapes
+    from repro_torch.kernels import ops
+
+    made = []
+    real = {"tile": ops.walk_plan, "gather": ops.gather_plan}
+
+    def spy(walk):
+        def wrapped(n, rows, d):
+            p = real[walk](n, rows, d)
+            made.append((walk, n, rows, d, bytes(p)))
+            return p
+
+        return wrapped
+
+    ops.walk_plan, ops.gather_plan = spy("tile"), spy("gather")
+    try:
+        plan.execute()
+        torch.cuda.synchronize()
+    finally:
+        ops.walk_plan, ops.gather_plan = real["tile"], real["gather"]
+    passes = []
+    for r in plan.fused_runs():
+        one = sorted((e["walk"], e["edges"], e["num_segments"], e["width"], bytes(e["plan"]))
+                     for e in hop_launch_shapes(r["prep"], r["k"], r["encoded"], r["domains"]))
+        passes.extend([one] * r["repeat"])
+    got, at = [], 0
+    for one in passes:
+        got.append(sorted(made[at:at + len(one)]))
+        at += len(one)
+    same = at == len(made) and got == passes
+    say(tag, f"check: {label}: {len(made)} fused_hop launch shapes made on the card in "
+             f"{len(passes)} passes equal fused_runs() x hop_launch_shapes: {same}")
+    check(same and made, f"{label}: the launch shapes explain prints are not the launched ones")
+
+
 # ----------------------------------------------------------------------
 # the split leg and the cyclic leg
 # ----------------------------------------------------------------------
@@ -1073,30 +1192,46 @@ def split_leg(torch, tag, args) -> dict:
     d = splan.split
     check(d is not None, "statistics chose no split plan on SKEWCHAIN")
     say(tag, f"split leg: {d.describe()}; roots {list(d.roots)}; ranges {list(d.ranges)}")
-    for name in ("segment_sum", "coo_spmm"):
-        check(split["launches"][name] > 0, f"split leg never launched {name}")
+    split["paths"] = check_paths(tag, "split leg", splan, split["launches"])
     uplan, ures, unsplit = drive(
         torch, tag, "split leg, stats(False)", lambda: Q.from_query(q).stats(False).plan(db)
     )
     check(uplan.split is None, "the stats(False) plan split")
+    unsplit["paths"] = check_paths(tag, "split leg, stats(False)", uplan, unsplit["launches"])
     same = same_result(sres, ures)
     say(tag, f"check: split leg: split = unsplit bit for bit: {same}; peak device memory "
              f"above resident {split['peak_above_resident_bytes']} B split vs "
              f"{unsplit['peak_above_resident_bytes']} B unsplit")
     check(same, "split result differs from the unsplit result")
+    pplan, pres, sparse = drive(
+        torch, tag, "split leg, mode=sparse",
+        lambda: Q.from_query(q).engine(TorchChannelEngine(mode="sparse")).plan(db),
+    )
+    sparse["paths"] = check_paths(tag, "split leg, mode=sparse", pplan, sparse["launches"])
+    ranges = len(pplan.split_parts())
+    same = same_result(sres, pres) and pplan.split == splan.split
+    plaunches = sparse["launches"]
+    say(tag, f"check: split leg, mode=sparse: {ranges} key ranges, launches {plaunches}; "
+             f"bit-identical to the default split plan: {same}")
+    check(same, "split leg: the sparse-pinned split result differs from the default one")
+    check(plaunches["segment_sum"] >= ranges and plaunches["coo_spmm"] >= ranges,
+          "split leg, mode=sparse: segment_sum or coo_spmm missed a key range")
     want = skew_total(db)
     got = sres.column("count").sum()
     say(tag, f"check: split leg: Σ count {got:.0f} vs numpy {want}")
     check(got == want and sres.num_rows > 0, "split leg: Σ count disagrees with numpy")
 
+    fplan = Q.from_query(q).fused(True).plan(db)
     ops.reset_launch_counts()
-    fres = Q.from_query(q).fused(True).plan(db).execute()
+    fres = fplan.execute()
     flaunches = ops.launch_counts()
+    check_paths(tag, "split leg, fused", fplan, flaunches)
     say(tag, f"check: split leg, fused: launches {flaunches}; bit-identical to unfused: "
              f"{same_result(sres, fres)}")
     check(same_result(sres, fres), "fused split result differs from the unfused one")
     check(flaunches["fused_hop"] > 0 and all(flaunches[k] == 0 for k in UNFUSED_KERNELS),
           "the fused split plan did not run on fused_hop alone")
+    check_launch_shapes(torch, tag, "split leg, fused", fplan)
 
     small, sq = skewed_chain_like(args.check_n, seed=args.seed)
     gplan = Q.from_query(sq).plan(small)
@@ -1106,9 +1241,11 @@ def split_leg(torch, tag, args) -> dict:
     say(tag, f"check: split leg: SKEWCHAIN n={args.check_n}: split {gplan.split.describe()}; "
              f"{cpu.num_rows} rows bit-identical to device='cpu': {same}")
     check(same, "split leg: cuda result differs from cpu result")
-    return {"split": split, "split, stats(False)": unsplit,
+    for p in (splan, uplan, pplan, fplan, gplan):
+        verified(tag, "split leg", p)
+    return {"split": split, "split, stats(False)": unsplit, "split, mode=sparse": sparse,
             "launches": {"split": split["launches"], "split, stats(False)": unsplit["launches"],
-                         "split, fused": flaunches}}
+                         "split, mode=sparse": plaunches, "split, fused": flaunches}}
 
 
 def cyclic_leg(torch, tag, args) -> dict:
@@ -1117,6 +1254,7 @@ def cyclic_leg(torch, tag, args) -> dict:
     ``scipy.sparse``, each card result against the CPU's."""
     from repro_torch.api import Q, TorchChannelEngine
     from repro_torch.data.queries import CYCLIC
+    from repro_torch.kernels import ops
 
     out = {"launches": {}}
     for name, n in CYCLIC_SIZES.items():
@@ -1137,7 +1275,7 @@ def cyclic_leg(torch, tag, args) -> dict:
                  f"{plan.prep.folded})")
         summary.update(ghd_seconds=secs, bag_rows=bags, bag_peak_bytes=g.bag_peak_bytes,
                        nodes=list(plan.prep.decomposition.nodes))
-        check(sum(summary["launches"].values()) > 0, f"{label} launched no kernel")
+        summary["paths"] = check_paths(tag, label, plan, summary["launches"])
         want = cyclic_counts(name, db)
         group = plan.group_display[0]
         got = dict(zip(res.column(group).tolist(), res.column("count").tolist()))
@@ -1163,10 +1301,259 @@ def cyclic_leg(torch, tag, args) -> dict:
         say(tag, f"check: {label}: n={CYCLIC_CHECK_N}: {cpu.num_rows} rows bit-identical to "
                  f"device='cpu': {same}")
         check(same and gpu.num_rows > 0, f"{label}: cuda result differs from cpu result")
+        splan = Q.from_query(q).engine(TorchChannelEngine(mode="sparse")).plan(db)
+        ops.reset_launch_counts()
+        sres = splan.execute()
+        torch.cuda.synchronize()
+        slaunches = ops.launch_counts()
+        check_paths(tag, f"{label}, mode=sparse", splan, slaunches)
+        same = same_result(res, sres)
+        say(tag, f"check: {label}, mode=sparse: launches {slaunches}; bit-identical to the "
+                 f"default plan: {same}")
+        check(same, f"{label}: the sparse-pinned result differs from the default plan's")
+        check(slaunches["segment_sum"] > 0, f"{label}, mode=sparse: no segment_sum launch")
+        for p in (plan, splan):
+            verified(tag, label, p)
         out[label] = summary
         out["launches"][label] = summary["launches"]
-        del plan, res
+        out["launches"][f"{label}, mode=sparse"] = slaunches
+        del plan, res, splan, sres
     return out
+
+
+DENSE_START_N = 600  # the catalog's golden scale
+DENSE_CHECK_N = 4800
+SWEEP_REPS = 5
+
+
+def tpch_db(n: int, seed: int):
+    """The catalog's TPCH at ``n`` lineitem rows plus an integer measure
+    ``lineitem.quantity`` in [1, 50], TPC-H's ``l_quantity``."""
+    import numpy as np
+
+    from repro_torch.data.queries import tpch_like
+    from repro_torch.relational.relation import Database
+
+    db, q = tpch_like(n, seed=seed)
+    cols = {r: dict(db[r].columns) for r in q.relations}
+    cols["lineitem"]["quantity"] = np.random.default_rng(seed + 1).integers(1, 51, n)
+    return Database.from_mapping(cols), cols, q
+
+
+def tpch_query(q, engine):
+    from repro_torch.api import Avg, Count, Max, Min, Q, Sum
+
+    m = "lineitem.quantity"
+    return (Q.over(*q.relations).group_by(*(f"{r}.{a}" for r, a in q.group_by))
+            .agg(n=Count(), s=Sum(m), a=Avg(m), lo=Min(m), hi=Max(m)).engine(engine))
+
+
+def tpch_totals(cols) -> tuple[int, int]:
+    """Σ COUNT and Σ SUM(quantity) of TPCH's chain join in numpy, without
+    the port: supplier and customer matches per key by bincount, carried
+    through orders to every lineitem row."""
+    import numpy as np
+
+    dom = 1 + max(int(c.max()) for rel in cols.values() for c in rel.values())
+    sup = np.bincount(cols["supplier"]["suppkey"], minlength=dom)
+    cust = np.bincount(cols["customer"]["custkey"], minlength=dom)
+    orders = np.bincount(cols["orders"]["orderkey"], minlength=dom,
+                         weights=cust[cols["orders"]["custkey"]]).astype(np.int64)
+    li = cols["lineitem"]
+    per_row = sup[li["suppkey"]] * orders[li["orderkey"]]
+    return int(per_row.sum()), int((per_row * li["quantity"]).sum())
+
+
+def dense_leg(torch, tag, args) -> dict:
+    """TPCH with its quantity bundle at the largest doubling of 600 rows
+    that ``choose_path`` still runs dense: the default plan against a
+    ``mode="sparse"`` plan on the same data."""
+    import math
+
+    import numpy as np
+
+    from repro_torch.api import TorchChannelEngine
+    from repro_torch.core.torch_engine import choose_path
+
+    series, n = [], DENSE_START_N
+    while True:
+        db, _, q = tpch_db(n, args.seed)
+        plan = tpch_query(q, "torch").plan(db)
+        (_, choice), = run_paths(plan)
+        series.append((n, choice.path, choice.reason))
+        if choice.path != "dense":
+            break
+        n *= 2
+    say(tag, f"dense leg: doubling series {series}")
+    check(len(series) > 1, "dense leg: TPCH is not dense even at 600 rows")
+    n = series[-2][0]
+    db, cols, q = tpch_db(n, args.seed)
+    say(tag, f"data: TPCH n={n} seed={args.seed}, lineitem.quantity in [1, 50]")
+    dplan, dres, dense = drive(torch, tag, "dense leg", lambda: tpch_query(q, "torch").plan(db))
+    elems = {r: math.prod(dplan.prep.dicts[a].size for a in e.attrs)
+             for r, e in dplan.prep.encoded.items()}
+    choice = choose_path(dplan.prep, k=len(dplan.channels), measured=tuple(
+        ch.measure[0] if ch.kind == "sum" else None for ch in dplan.channels))
+    say(tag, f"dense leg: relation tensors' elements {elems} (rows "
+             f"{ {r: e.num_rows for r, e in dplan.prep.encoded.items()} }); est dense peak "
+             f"{choice.dense_peak} B vs sparse peak {choice.sparse_peak} B")
+    dense.update(n=n, tensor_elems=elems, paths=check_paths(tag, "dense leg", dplan,
+                                                             dense["launches"]))
+    check(dense["paths"] == ["dense"], "dense leg: the default plan did not run dense")
+    check(dense["launches"]["segment_reduce"] > 0, "dense leg: MIN/MAX launched no segment_reduce")
+    splan, sres, sparse = drive(
+        torch, tag, "dense leg, mode=sparse",
+        lambda: tpch_query(q, TorchChannelEngine(mode="sparse")).plan(db),
+    )
+    sparse.update(n=n, paths=check_paths(tag, "dense leg, mode=sparse", splan,
+                                         sparse["launches"]))
+    same = same_result(dres, sres)
+    say(tag, f"check: dense leg: dense = sparse bit for bit: {same}; dense vs sparse: "
+             f"warm execute {dense['warm_execute_s'] * 1e3:.3f} vs "
+             f"{sparse['warm_execute_s'] * 1e3:.3f} ms, device busy "
+             f"{dense['device_busy_s'] * 1e3:.4f} vs {sparse['device_busy_s'] * 1e3:.4f} ms, "
+             f"idle share {dense['idle_share']:.4f} vs {sparse['idle_share']:.4f}, peak "
+             f"above resident {dense['peak_above_resident_bytes']} vs "
+             f"{sparse['peak_above_resident_bytes']} B")
+    check(same, "dense leg: the dense result differs from the sparse-pinned one")
+    want_n, want_s = tpch_totals(cols)
+    got_n, got_s = dres.column("n").sum(), dres.column("s").sum()
+    say(tag, f"check: dense leg: Σ count {got_n:.0f} vs numpy {want_n}; Σ sum {got_s:.0f} "
+             f"vs numpy {want_s}")
+    check(got_n == want_n and got_s == want_s and dres.num_rows > 0,
+          "dense leg: Σ count / Σ sum disagree with numpy")
+    for name in dres.agg_names:
+        check(bool(np.isfinite(dres.column(name)).all()), f"dense leg: non-finite {name}")
+
+    matmul = torch.backends.cuda.matmul
+    before = matmul.allow_tf32
+    matmul.allow_tf32 = True
+    try:
+        tres = tpch_query(q, "torch").plan(db).execute()
+        still = matmul.allow_tf32
+    finally:
+        matmul.allow_tf32 = before
+    same = same_result(dres, tres)
+    say(tag, f"check: dense leg: with allow_tf32 = True set globally: bit-identical "
+             f"{same}; allow_tf32 still True after the run: {still}")
+    check(same and still, "dense leg: a global TF32 setting changed the result or was lost")
+    tf32_terms(torch, tag, dplan, args.seed)
+
+    small, _, sq = tpch_db(DENSE_CHECK_N, args.seed)
+    gplan = tpch_query(sq, "torch").plan(small)
+    cplan = tpch_query(sq, TorchChannelEngine(device="cpu")).plan(small)
+    gpu, cpu = gplan.execute(), cplan.execute()
+    same = same_result(gpu, cpu)
+    say(tag, f"check: dense leg: TPCH n={DENSE_CHECK_N}: {cpu.num_rows} rows bit-identical "
+             f"to device='cpu': {same}")
+    check(same and gpu.num_rows > 0, "dense leg: cuda result differs from cpu result")
+    for p in (dplan, splan, gplan):
+        verified(tag, "dense leg", p)
+    dense["sweep"] = path_sweep(torch, tag, args.seed, [n for n, *_ in series] + [2 * series[-1][0]])
+    return {"dense": dense, "dense, mode=sparse": sparse,
+            "launches": {"dense": dense["launches"],
+                         "dense, mode=sparse": sparse["launches"]}}
+
+
+TF32_GEMM = 2048  # a square term that cuBLAS runs on TF32 tensor cores when let
+
+
+def tf32_terms(torch, tag, dplan, seed: int) -> None:
+    """A TF32 check that can fail: the dense leg's integer data multiply
+    exactly even in TF32 (11-bit significands), so each einsum term of
+    its program, and a (2048 × 2048) · (2048 × 2048) term, is contracted
+    on fractional operands of its shapes, with ``allow_tf32 = True`` set
+    globally.  Inside ``full_fp32_matmul`` ``contract_term`` must equal
+    its FP32 result (``allow_tf32 = False``) bit for bit; a bare
+    ``torch.einsum`` of the square term must differ from it, which shows
+    that TF32 was in force and the pin is what kept the bits."""
+    from repro_torch.core.torch_engine import (
+        build_dense_program,
+        contract_term,
+        dense_tensor,
+        full_fp32_matmul,
+    )
+
+    prep = dplan.prep
+    cm = tuple(ch.measure[0] if ch.kind == "sum" else None for ch in dplan.channels)
+    prog = build_dense_program(prep, "cuda")
+    shapes, results = [], {}
+    with full_fp32_matmul():
+        for rel, expr, children in prog.terms(cm):
+            operands = [dense_tensor(prep, rel, "cuda", cm)] + [results[c] for c in children]
+            results[rel] = contract_term(expr, operands)
+            shapes.append((rel, expr, [tuple(o.shape) for o in operands]))
+    shapes.append(("square", "ab,bc->ac", [(TF32_GEMM, TF32_GEMM)] * 2))
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    matmul = torch.backends.cuda.matmul
+    before = matmul.allow_tf32
+    pinned_ok, square_differs = True, False
+    try:
+        for rel, expr, dims in shapes:
+            operands = [torch.rand(d, generator=gen, device="cuda") + 0.5 for d in dims]
+            matmul.allow_tf32 = False
+            fp32 = contract_term(expr, operands)
+            matmul.allow_tf32 = True
+            bare = torch.einsum(expr, *operands)
+            with full_fp32_matmul():
+                pinned = contract_term(expr, operands)
+            still = matmul.allow_tf32
+            torch.cuda.synchronize()
+            same = torch.equal(pinned, fp32) and still
+            bare_err = float((bare - fp32).abs().max())
+            say(tag, f"check: dense leg: TF32 term {rel} {expr} {dims}: pinned contract_term "
+                     f"= FP32 bit for bit: {same}; bare torch.einsum under allow_tf32 = True "
+                     f"max |diff| {bare_err:.3e}")
+            pinned_ok = pinned_ok and same
+            square_differs = square_differs or (rel == "square" and bare_err > 0)
+    finally:
+        matmul.allow_tf32 = before
+    check(pinned_ok, "dense leg: a term under full_fp32_matmul differs from FP32 with TF32 on")
+    check(square_differs, "dense leg: TF32 changed no bit of the bare square term; the TF32 "
+                          "check cannot tell the pin from no pin")
+
+
+def path_sweep(torch, tag, seed: int, sizes: list[int]) -> list[dict]:
+    """Warm execute of each path, pinned, at each size of the dense leg's
+    doubling series and one doubling past the first sparse choice: the
+    median of ``SWEEP_REPS`` host-clock runs ending in a synchronise,
+    against what ``choose_path`` picks there."""
+    import statistics
+
+    from repro_torch.api import TorchChannelEngine
+
+    rows = []
+    for n in sizes:
+        db, _, q = tpch_db(n, seed)
+        (_, choice), = run_paths(tpch_query(q, "torch").plan(db))
+        row = {"n": n, "choice": choice.path}
+        for mode in ("dense", "sparse"):
+            plan = tpch_query(q, TorchChannelEngine(mode=mode)).plan(db)
+            plan.execute()  # cold: builds the relation tensors or the views
+            times = []
+            for _ in range(SWEEP_REPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                plan.execute()
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            row[f"{mode}_ms"] = statistics.median(times) * 1e3
+        row["faster"] = "dense" if row["dense_ms"] < row["sparse_ms"] else "sparse"
+        say(tag, f"dense leg: path sweep: TPCH n={n}: choose_path {choice.path}; warm "
+                 f"execute, median of {SWEEP_REPS}: dense {row['dense_ms']:.3f} ms, sparse "
+                 f"{row['sparse_ms']:.3f} ms; faster {row['faster']}")
+        rows.append(row)
+    return rows
+
+
+def explain_phase(torch, tag, seed: int) -> None:
+    """``explain(actuals=True)`` of a small plan on the card, its actual
+    per-node cardinalities from the card's COUNT pass."""
+    db, _, q = tpch_db(DENSE_START_N, seed)
+    plan = tpch_query(q, "torch").fused(True).plan(db)
+    for line in plan.explain(actuals=True).splitlines():
+        say(tag, f"explain: {line}")
+    verified(tag, "explain", plan)
 
 
 # ----------------------------------------------------------------------
@@ -1222,6 +1609,7 @@ def main() -> int:
         check(launches[name] > 0, f"main path never launched {name}")
     check(launches["fused_hop"] == 0, "the unfused main path launched fused_hop")
     check(launches["semiring_matmul"] == 0, "the main path launched semiring_matmul")
+    main["paths"] = check_paths(tag, "main path", plan, launches)
 
     # 3. fused path -------------------------------------------------------
     fplan, fres, fused = drive(
@@ -1240,6 +1628,10 @@ def main() -> int:
           "fused_hop launches differ from hops x passes x stream tiles")
     for name in UNFUSED_KERNELS + ("semiring_matmul",):
         check(flaunches[name] == 0, f"fused path launched {name}")
+    fused["paths"] = check_paths(tag, "fused path", fplan, flaunches)
+    check_launch_shapes(torch, tag, "fused path", fplan)
+    for p in (plan, fplan):
+        verified(tag, "main and fused paths", p)
 
     # 4. correctness -----------------------------------------------------
     want_n, want_s = chain_totals(cols)
@@ -1284,17 +1676,19 @@ def main() -> int:
     for name, errs in gather_phase(torch, tag).items():
         results[name]["max_abs_err"] = max([results[name]["max_abs_err"]] + errs)
 
-    # 6. split leg and 7. cyclic leg -------------------------------------
+    # 6. split leg, 7. cyclic leg, 8. dense leg, 9. explain --------------
     del plan, fplan, res, fres, captured
     torch.cuda.empty_cache()
     split = split_leg(torch, tag, args)
     cyclic = cyclic_leg(torch, tag, args)
+    dense = dense_leg(torch, tag, args)
+    explain_phase(torch, tag, args.seed)
 
     legs = {"main": launches, "fused": flaunches}
-    legs.update(split.pop("launches"))
-    legs.update(cyclic.pop("launches"))
+    for leg in (split, cyclic, dense):
+        legs.update(leg.pop("launches"))
     for label, summary in (("main path", main), ("fused path", fused), *split.items(),
-                           *cyclic.items()):
+                           *cyclic.items(), *dense.items()):
         say(tag, f"{label} summary: {json.dumps(summary)}")
     paths = {name: "main" for name in UNFUSED_KERNELS}
     paths.update(fused_hop="fused", semiring_matmul=None)

@@ -26,6 +26,12 @@ class AggSpec:
     def measure(self) -> tuple[str, str] | None:
         return None
 
+    def describe(self) -> str:
+        """Human-readable form used by ``Plan.explain()``."""
+        m = self.measure
+        inner = f"{m[0]}.{m[1]}" if m else "*"
+        return f"{self.kind.upper()}({inner})"
+
 
 @dataclass(frozen=True)
 class Count(AggSpec):

@@ -1,0 +1,18 @@
+"""Static checks of compiled plans (DESIGN.md §11): the plan-invariant
+verifier, exposed as ``Plan.verify()`` and as a ``REPRO_VERIFY=1``
+debug-mode assert inside ``compile_plan``."""
+from repro_torch.analysis.verify import (
+    Diagnostic,
+    PlanInvariantError,
+    verify_ghd_plan,
+    verify_plan,
+    verify_sparse_program,
+)
+
+__all__ = [
+    "Diagnostic",
+    "PlanInvariantError",
+    "verify_ghd_plan",
+    "verify_plan",
+    "verify_sparse_program",
+]

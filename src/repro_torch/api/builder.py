@@ -16,8 +16,7 @@ Every method returns a new immutable ``Q``; ``plan(db)`` compiles to a
 ``name__2``, ``name__3``, ...) and rename the alias's columns with
 ``.rename``; ``Q.from_query`` wraps a catalog ``JoinAggQuery``.  Port
 of the JAX package's ``api/builder.py``; ``.mesh`` and ``.maintain``
-raise :class:`UnsupportedPlanOption`.  The port has
-no dense path, so ``.fused(True)`` already runs on the sparse one.
+raise :class:`UnsupportedPlanOption`.
 """
 from __future__ import annotations
 
@@ -26,7 +25,7 @@ from typing import Callable, Mapping
 
 import numpy as np
 
-from repro_torch.aggregates.semiring import AggSpec
+from repro_torch.aggregates.semiring import AggSpec, Count
 from repro_torch.api.engines import TorchChannelEngine
 from repro_torch.api.plan import Plan, Predicate, compile_plan
 from repro_torch.core.operator import UnsupportedPlanOption
@@ -203,6 +202,10 @@ class Q:
                 )
         return replace(self, aggs=self.aggs + tuple(named.items()))
 
+    def count(self, name: str = "count") -> "Q":
+        """Shorthand for ``.agg(name=Count())``."""
+        return self.agg(**{name: Count()})
+
     # ------------------------------------------------------------------
     def engine(self, engine: str | TorchChannelEngine) -> "Q":
         """Pick the execution backend: ``"torch"`` (on CUDA) or an engine
@@ -227,8 +230,9 @@ class Q:
         """Run every decomposition-tree hop as one ``fused_hop`` kernel
         launch (gather → product → segment reduction, DESIGN.md §13);
         ``False`` pins the three-dispatch kernels even when
-        ``REPRO_FUSED`` is set.  Only fused-capable engines accept the
-        option."""
+        ``REPRO_FUSED`` is set.  ``True`` also pins the sparse path:
+        fused hops have no dense-einsum form.  Only fused-capable
+        engines accept the option."""
         return replace(self, fused_opt=bool(enabled))
 
     def stats(self, enabled: bool = True) -> "Q":

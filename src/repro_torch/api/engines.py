@@ -11,8 +11,9 @@ The planner compiles a query down to one :class:`Prepared` plus
 
 :class:`TorchChannelEngine` turns those into sparse :class:`EngineOutput`
 tiles on one device: CUDA unless the caller asks for the CPU.  It is the
-port of the sparse branch of the JAX package's ``JaxChannelEngine.run``
-and is registered under the name ``"torch"``.
+port of the JAX package's single-device ``JaxChannelEngine.run`` (the
+dense einsum program or the sparse kernel walk, chosen per run) and is
+registered under the name ``"torch"``.
 """
 from __future__ import annotations
 
@@ -22,7 +23,14 @@ import numpy as np
 import torch
 
 from repro_torch.core.prepare import Prepared
-from repro_torch.core.torch_engine import build_sparse_program
+from repro_torch.core.torch_engine import (
+    build_dense_program,
+    build_sparse_program,
+    choose_path,
+    require_device,
+)
+
+MODES = ("auto", "dense", "sparse")
 
 
 @dataclass(frozen=True)
@@ -109,42 +117,73 @@ def sparsify(
 
 
 class TorchChannelEngine:
-    """Sparse torch backend: :class:`~repro_torch.core.torch_engine.
-    SparseProgram` hops on the hand-written kernels over grouped-CSR
-    relations, group-axis stream tiles, MIN/MAX on the semiring kernel;
-    with ``fused`` every hop is one ``fused_hop`` launch.
+    """The torch backend on one device.
+
+    :func:`~repro_torch.core.torch_engine.choose_path` prices both paths
+    for every run, as the JAX package's engine does: the sparse
+    :class:`~repro_torch.core.torch_engine.SparseProgram` (hops on the
+    hand-written kernels over grouped-CSR relations, group-axis stream
+    tiles, MIN/MAX on the semiring kernel; with ``fused`` every hop is
+    one ``fused_hop`` launch) runs when a stream is requested or the
+    dense einsum program would cross its 2**24-cell cliff, its memory
+    budget or, by the statistics, be extreme-sparse; otherwise the
+    :class:`~repro_torch.core.torch_engine.DenseProgram` contracts the
+    COUNT/SUM channels.  A dense run's MIN/MAX come from
+    ``SparseProgram.run_minmax`` on the same device — ``segment_reduce``
+    hops, the float64 payloads the JAX package's host reachability pass
+    returns — so nothing of a run leaves the card before its result.
 
     ``device`` defaults to ``"cuda"``; a plan fails at compile time when
     no card is present.  ``TorchChannelEngine(device="cpu")`` runs the
-    same walk on the CPU, where every kernel wrapper takes its plain
-    PyTorch version.  Channel values are float32, exact to 2**24 per
-    partial product (DESIGN.md §2, §7); MIN/MAX walk payload ranks and
-    return the payloads themselves, in float64."""
+    same paths on the CPU, where every kernel wrapper takes its plain
+    PyTorch version.  ``mode`` pins the path: ``"auto"`` (the default)
+    follows the choice, ``"dense"`` or ``"sparse"`` override it.
+    Channel values are float32, exact to 2**24 per partial product
+    (DESIGN.md §2, §7)."""
 
     name = "torch"
     supports_streaming = True
     supports_fused = True
 
-    def __init__(self, device: str | torch.device = "cuda"):
+    def __init__(self, device: str | torch.device = "cuda", mode: str = "auto"):
+        if mode not in MODES:
+            raise ValueError(f"unknown mode {mode!r}; use one of {MODES}")
         self._device = torch.device(device)
+        self.mode = mode
 
     @property
     def device(self) -> torch.device:
         """The device to run on; raises when it is a card that is absent."""
-        if self._device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "engine 'torch' runs on CUDA and no CUDA device is available; "
-                'pass .engine(TorchChannelEngine(device="cpu")) to run on the CPU'
-            )
-        return self._device
+        return require_device(self._device)
 
-    def run(self, prep, channels, minmax, stream=None, fused=None):
+    def path(self, prep, channels, stream=None, memory_budget=None, fused=None) -> str:
+        """``"dense"`` or ``"sparse"``: the path :meth:`run` takes.  In
+        auto mode an explicit ``.fused(True)`` pins sparse — fused hops
+        have no dense-einsum form; ``REPRO_FUSED`` alone does not move
+        the choice."""
+        if self.mode != "auto":
+            return self.mode
+        cm = tuple(ch.measure[0] if ch.kind == "sum" else None for ch in channels)
+        choice = choose_path(
+            prep, k=len(channels), memory_budget=memory_budget, stream=stream,
+            measured=cm,
+        )
+        return "dense" if choice.path == "dense" and fused is not True else "sparse"
+
+    def run(self, prep, channels, minmax, stream=None, memory_budget=None, fused=None):
         """Contract all channels in one pass; one output per stream tile
         (``stream`` = ``(group attr, tile)``, as the planner resolved it).
-        ``fused`` True/False pins the fused hops, None follows
+        ``memory_budget`` is the dense program's budget in the path
+        choice; ``fused`` True/False pins the fused hops, None follows
         ``REPRO_FUSED``."""
         cm = tuple(ch.measure[0] if ch.kind == "sum" else None for ch in channels)
         prog = build_sparse_program(prep, cm, self.device, fused)
+        if self.path(prep, channels, stream, memory_budget, fused) == "dense":
+            if stream is not None:
+                raise ValueError("the dense program cannot tile a stream")
+            arr = build_dense_program(prep, self.device).run_channels(cm)
+            mm = {req: prog.run_minmax(req.kind, req.measure[0]) for req in minmax}
+            return [sparsify(prep, channels, arr, mm, None)]
         tiles = [(None, None, None)] if stream is None else prog.run_stream(*stream)
         outs = []
         for enc, domains, offsets in tiles:

@@ -19,6 +19,11 @@ single :class:`Plan` through three stages:
    derived at assembly), and MIN/MAX requests; all distributive channels
    run in a *single* contraction pass.
 
+``Plan.execute()`` returns a columnar :class:`AggResult`;
+``Plan.explain()`` renders the decisions, the dense-vs-sparse path choice
+among them; ``Plan.verify()`` checks the plan's structural invariants
+(``repro_torch.analysis.verify``).
+
 Port of the JAX package's ``api/plan.py``, fused hops included
 (``Q.fused``); meshes and incremental maintenance raise
 :class:`UnsupportedPlanOption`.
@@ -26,6 +31,7 @@ Port of the JAX package's ``api/plan.py``, fused hops included
 from __future__ import annotations
 
 import math
+import os
 from dataclasses import dataclass, field
 from typing import Callable
 
@@ -43,13 +49,24 @@ from repro_torch.api.engines import (
 from repro_torch.core.operator import (
     DEFAULT_MEMORY_BUDGET,
     UnsupportedPlanOption,
+    node_message_bytes,
     peak_message_bytes,
 )
 from repro_torch.core.prepare import Prepared, encode_query, finish_prepare
 from repro_torch.core.query import JoinAggQuery, resolve_schema
+from repro_torch.core.torch_engine import (
+    choose_path,
+    hop_launch_shapes,
+    stream_tiles,
+)
 from repro_torch.ghd.rewrite import compile_ghd, is_cyclic_query
-from repro_torch.planner.cost import plan_cost
-from repro_torch.relational.relation import Database, Relation
+from repro_torch.kernels.ops import fused_enabled
+from repro_torch.planner.cost import (
+    actual_node_cards,
+    node_card_estimates,
+    plan_cost,
+)
+from repro_torch.relational.relation import Database, Relation, estimate_prepare_peak
 
 COPY_SUFFIX = "__grp"
 
@@ -81,6 +98,28 @@ class AggResult:
     def column(self, name: str) -> np.ndarray:
         return self.relation.columns[name]
 
+    def group_tuples(self) -> list[tuple]:
+        cols = [self.relation.columns[g] for g in self.group_names]
+        return [tuple(c[i] for c in cols) for i in range(self.num_rows)]
+
+    def to_dict(self, agg: str | None = None) -> dict[tuple, float]:
+        """``{group values: value}`` dict for one aggregate (the only one
+        when ``agg`` is None): COUNT/SUM/AVG drop exact-zero values;
+        MIN/MAX keep every joined group, zeros included."""
+        if agg is None:
+            if len(self.agg_names) != 1:
+                raise ValueError(f"result has aggregates {self.agg_names}; name one")
+            agg = self.agg_names[0]
+        vals = self.relation.columns[agg]
+        keep_zero = self.agg_kinds[agg] in ("min", "max")
+        out: dict[tuple, float] = {}
+        for key, v in zip(self.group_tuples(), vals):
+            v = float(v)
+            if v == 0.0 and not keep_zero:
+                continue
+            out[key] = v
+        return out
+
     def __repr__(self) -> str:
         return (
             f"AggResult({self.num_rows} groups × "
@@ -90,8 +129,10 @@ class AggResult:
 
 @dataclass
 class Plan:
-    """A compiled logical plan, ready to execute."""
+    """A compiled logical plan, ready to execute, explain or verify."""
 
+    db: Database  # effective database (aliases + predicates + copies)
+    query: JoinAggQuery  # rewritten query (primary aggregate)
     aggs: tuple[tuple[str, AggSpec], ...]
     group_display: tuple[str, ...]
     engine: TorchChannelEngine
@@ -114,6 +155,8 @@ class Plan:
     # False when the spec disabled statistics-driven planning (byte
     # heuristic only)
     stats_enabled: bool = True
+    # why each rejected candidate root failed, for explain()
+    root_notes: tuple[str, ...] = ()
     # the split plan's per-range Prepared set, built on the first
     # execute and kept, so warm executes reuse each range's device views
     _split_parts: "list[Prepared] | None" = field(
@@ -163,24 +206,32 @@ class Plan:
         shrink = int(math.ceil(peak / budget))
         return (attr, max(1, dom // shrink))
 
+    def split_parts(self) -> "list[Prepared]":
+        """The split plan's per-range ``Prepared`` set, built on first use
+        and kept, so warm executes reuse each range's device views."""
+        if self._split_parts is None:
+            from repro_torch.planner.split import split_parts
+
+            self._split_parts = split_parts(self.prep, self.split)
+        return self._split_parts
+
     def outputs(self) -> list[EngineOutput]:
         """The engine's sparse outputs for every channel and MIN/MAX
         request: one per stream tile, or for a split plan the per-range
         partials merged into one."""
         if self.split is not None:
-            from repro_torch.planner.split import execute_split, split_parts
+            from repro_torch.planner.split import execute_split
 
-            if self._split_parts is None:
-                self._split_parts = split_parts(self.prep, self.split)
             return execute_split(
-                self._split_parts, self.engine, self.channels,
+                self.split_parts(), self.engine, self.channels,
                 len(self.prep.group_attrs), self.fused,
             )
         kwargs = {}
         if getattr(self.engine, "supports_fused", False):
             kwargs["fused"] = self.fused
         return self.engine.run(
-            self.prep, self.channels, self.minmax, self.resolved_stream(), **kwargs
+            self.prep, self.channels, self.minmax, self.resolved_stream(),
+            memory_budget=self.memory_budget, **kwargs,
         )
 
     def execute(self) -> AggResult:
@@ -193,6 +244,211 @@ class Plan:
             "incremental maintenance is not ported to repro_torch; use the "
             "JAX package's repro.api for maintain()"
         )
+
+    # ------------------------------------------------------------------
+    def verify(self, strict: bool = True) -> list:
+        """Check every declared structural invariant of this compiled
+        plan (DESIGN.md §11): decomposition-tree running intersection,
+        encoded codes, semiring-channel wiring (AVG's SUM/COUNT pairing
+        included), exact disjoint split key-range partitions, the fused
+        hops' launch shapes and accumulator-overflow headroom at
+        sketch-estimated cardinalities.
+
+        Returns the (empty, when sound) list of
+        :class:`~repro_torch.analysis.verify.Diagnostic` findings;
+        ``strict=True`` (default) raises
+        :class:`~repro_torch.analysis.verify.PlanInvariantError` on any.
+        Runs inside :func:`compile_plan` when ``REPRO_VERIFY=1``."""
+        from repro_torch.analysis.verify import PlanInvariantError, verify_plan
+
+        diags = verify_plan(self)
+        if strict and diags:
+            raise PlanInvariantError(diags)
+        return diags
+
+    # ------------------------------------------------------------------
+    def explain(self, actuals: bool = False) -> str:
+        """Human-readable plan: strategy, root, stats, rewrites, the
+        dense-vs-sparse path, the fused hops' launch shapes, per-node
+        peaks with estimated cardinalities.  ``actuals=True`` also runs
+        one COUNT pass on the plan's device and renders the measured
+        per-node message cardinalities next to the estimates
+        (golden/bench scales only — it allocates the dense messages)."""
+        prep = self.prep
+        lines = [
+            f"Plan: JOIN-AGG over {len(self.query.relations)} relations "
+            f"-> {len(self.group_display)} group attrs "
+            f"(engine={self.engine.name})"
+        ]
+        if self.cyclic:
+            g = self.ghd_plan
+            lines.append(
+                f"strategy: GHD (cyclic) — {len(g.ghd.order)} bags, "
+                f"est bag peak {_fmt_bytes(g.bag_peak_bytes)}; derived "
+                f"acyclic tree root={prep.decomposition.root}, "
+                f"est peak message {_fmt_bytes(self.message_peak)}"
+            )
+        else:
+            lines.append(
+                f"strategy: acyclic contraction, "
+                f"root={prep.decomposition.root}, "
+                f"est peak message {_fmt_bytes(self.message_peak)}"
+            )
+        stream = self.resolved_stream()
+        if stream is not None:
+            lines.append(
+                f"stream: tile group attr {stream[0]!r} × {stream[1]} "
+                f"(memory budget "
+                f"{_fmt_bytes(self.memory_budget or DEFAULT_MEMORY_BUDGET)})"
+            )
+        sources = [self.db[r] for r in self.query.relations]
+        lines.append(
+            "storage: whole-column, est prepare peak "
+            f"{_fmt_bytes(estimate_prepare_peak(sources))}"
+        )
+        for rname, src in zip(self.query.relations, sources):
+            lines.append(f"  {rname}: {src.storage_kind} ({src.num_rows} rows)")
+        if not self.stats_enabled:
+            lines.append("stats: disabled (byte-heuristic planning)")
+        else:
+            st = prep.stats
+            lines.append(
+                f"stats: generation {st.generation}, "
+                f"{len(st.relations)} relation(s) sketched, "
+                f"{len(st.fanouts)} sampled fanout(s)"
+            )
+            lines.extend(f"  {t}" for t in st.summary_lines())
+            if self.split is not None:
+                lines.append(f"split: {self.split.describe()}")
+                for (lo, hi), root in zip(self.split.ranges, self.split.roots):
+                    lines.append(f"  [{lo},{hi}) root={root}")
+            elif not self.cyclic:
+                lines.append("split: none (no qualifying skew)")
+        lines.extend(self._explain_path(stream))
+        lines.extend(self._explain_kernels())
+        lines.append(
+            f"aggregates ({len(self.channels)} semiring channel(s), "
+            f"{len(self.minmax)} min/max request(s), one pass):"
+        )
+        for name, agg in self.aggs:
+            lines.append(f"  {name} = {agg.describe()}")
+        if self.rewrite_notes:
+            lines.append("rewrites:")
+            lines.extend(f"  {note}" for note in self.rewrite_notes)
+        if self.root_notes:
+            lines.append("rejected roots:")
+            lines.extend(f"  {note}" for note in self.root_notes)
+        cards = acts = None
+        if self.stats_enabled:
+            cards = node_card_estimates(prep, prep.stats)
+            if actuals:
+                acts = actual_node_cards(prep, self.engine.device)
+        lines.append("tree:")
+        lines.extend("  " + t for t in _render_tree(prep, cards, acts))
+        if prep.folded:
+            folds = ", ".join(f"{f}->{prep.fold_hosts[f]}" for f in prep.folded)
+            lines.append(f"  folded: {folds}")
+        return "\n".join(lines)
+
+    def _explain_path(self, stream) -> list[str]:
+        """Dense-vs-sparse choice + per-node byte estimates."""
+        choice = choose_path(
+            self.prep,
+            k=max(len(self.channels), 1),
+            memory_budget=self.memory_budget,
+            stream=stream,
+            measured=tuple(
+                ch.measure[0] for ch in self.channels if ch.kind == "sum" and ch.measure
+            ),
+            stats=self.prep.stats if self.stats_enabled else None,
+        )
+        lines = [
+            f"torch path: {choice.path} — {choice.reason}; "
+            f"est dense peak {_fmt_bytes(choice.dense_peak)} "
+            f"vs sparse peak {_fmt_bytes(choice.sparse_peak)}"
+        ]
+        mode = getattr(self.engine, "mode", "auto")
+        if mode != "auto" and mode != choice.path:
+            lines.append(f"  pinned: {mode} (engine mode={mode!r})")
+        elif choice.path == "dense" and self.fused is True:
+            lines.append(
+                "  pinned: sparse (.fused(True) — fused hop megakernels "
+                "have no dense-einsum form)"
+            )
+        for rel in choice.dense_node_bytes:
+            lines.append(
+                f"  {rel}: dense {_fmt_bytes(choice.dense_node_bytes[rel])} "
+                f"/ sparse {_fmt_bytes(choice.sparse_node_bytes[rel])}"
+            )
+        return lines
+
+    def fused_runs(self) -> list[dict]:
+        """Every pass that ``execute()`` runs on the fused path, in order:
+        per key range of a split plan (its own ``Prepared``), per stream
+        tile (the tile's relations and domains), the ``k``-channel pass,
+        then the MIN/MAX passes (``k`` = 1, one per request, alike).
+        Entries hold ``run`` (a label, "" for the one run of a plain
+        plan), ``pass`` ("channels" | "min/max"), ``repeat`` (passes of
+        that entry), ``k``, ``prep``, ``encoded`` and ``domains`` (None
+        = the ``Prepared``'s own); :func:`~repro_torch.core.torch_engine.
+        hop_launch_shapes` of each gives its launches' shapes."""
+        if self.split is not None:
+            parts = self.split_parts()
+            attr = self.split.attr
+            runs = [(f"key range {i} of {len(parts)} ({p.dicts[attr].size} keys of "
+                     f"{attr})", p) for i, p in enumerate(parts)]
+        else:
+            runs = [("", self.prep)]
+        stream = self.resolved_stream()
+        out: list[dict] = []
+        for label, prep in runs:
+            tiles = [(label, None, None)]
+            if stream is not None:
+                found = list(stream_tiles(prep, *stream))
+                tiles = [
+                    (f"stream tile {i} of {len(found)} ({stream[0]} from "
+                     f"{offsets[stream[0]]})", enc, domains)
+                    for i, (enc, domains, offsets) in enumerate(found)
+                ]
+            for tile, enc, domains in tiles:
+                passes = [("channels", 1, max(len(self.channels), 1))]
+                if self.minmax and self.split is None:
+                    passes.append(("min/max", len(self.minmax), 1))
+                out.extend(
+                    {"run": tile, "pass": kind, "repeat": repeat, "k": k,
+                     "prep": prep, "encoded": enc, "domains": domains}
+                    for kind, repeat, k in passes
+                )
+        return out
+
+    def _explain_kernels(self) -> list[str]:
+        """Per-hop launch shapes of every fused pass (when fused hops are
+        on; :meth:`fused_runs`), from
+        :func:`~repro_torch.core.torch_engine.hop_launch_shapes` —
+        computed from the plan's sizes alone, so the same on every
+        machine.  A plan of one run and one pass lists its hops; others
+        head each pass with its run and kind."""
+        if not fused_enabled(self.fused):
+            return []
+        lines = [
+            "kernels: fused hop (gather+product+scatter in one launch; "
+            "launch shapes of ops.walk_plan / ops.gather_plan)"
+        ]
+        runs = self.fused_runs()
+        for r in runs:
+            indent = "  "
+            if len(runs) > 1:
+                head = ", ".join(x for x in (r["run"], f"{r['pass']} pass") if x)
+                times = f" x{r['repeat']}" if r["repeat"] > 1 else ""
+                lines.append(f"  {head} (k={r['k']}){times}:")
+                indent = "    "
+            for e in hop_launch_shapes(r["prep"], r["k"], r["encoded"], r["domains"]):
+                shape = repr(e["plan"]) if e["plan"] is not None else e["error"]
+                lines.append(
+                    f"{indent}{e['rel']}: {e['walk']} walk {shape}  edges={e['edges']}  "
+                    f"segs={e['num_segments']}  width={e['width']}  acc={e['acc_dtype']}"
+                )
+        return lines
 
     def __repr__(self) -> str:
         kind = "ghd" if self.cyclic else "acyclic"
@@ -255,6 +511,7 @@ def compile_plan(spec, db: Database) -> Plan:
 
     stats_on = bool(spec.stats_opt)
     ghd_plan = None
+    root_notes: tuple[str, ...] = ()
     if cyclic:
         ghd_plan = compile_ghd(query0, edb, measures=measures)
         prep = ghd_plan.prepared
@@ -265,7 +522,7 @@ def compile_plan(spec, db: Database) -> Plan:
             return prep.measure_moves.get(rel, rel)
 
     else:
-        prep = _best_root(query0, edb, measures, use_stats=stats_on)
+        prep, root_notes = _best_root(query0, edb, measures, use_stats=stats_on)
 
         def resolve_rel(rel: str) -> str:
             return prep.measure_moves.get(rel, rel)
@@ -285,7 +542,9 @@ def compile_plan(spec, db: Database) -> Plan:
         budget = spec.budget if spec.budget is not None else DEFAULT_MEMORY_BUDGET
         if split is not None and split.est_split_peak > budget:
             split = None  # the split cannot fit either; stream instead
-    return Plan(
+    plan = Plan(
+        db=edb,
+        query=query0,
         aggs=aggs,
         group_display=group_display,
         engine=engine,
@@ -301,7 +560,11 @@ def compile_plan(spec, db: Database) -> Plan:
         ghd_plan=ghd_plan,
         split=split,
         stats_enabled=stats_on,
+        root_notes=root_notes,
     )
+    if os.environ.get("REPRO_VERIFY", "") not in ("", "0"):
+        plan.verify()  # debug-mode assert (DESIGN.md §11)
+    return plan
 
 
 def _apply_aliases(spec, db: Database, notes: list[str]) -> Database:
@@ -401,13 +664,13 @@ def _best_root(
     db: Database,
     measures: dict[str, str],
     use_stats: bool = True,
-) -> Prepared:
+) -> tuple[Prepared, tuple[str, ...]]:
     """Cost-based root search: encode once, fold/decompose per candidate
     group-relation root, rank by the statistics-refined cost model
     (:func:`repro_torch.planner.cost.plan_cost`) — or the raw dense-bytes
     heuristic when ``use_stats`` is off; the first candidate wins ties.
-    Raises with every rejected root's reason when no candidate is
-    valid."""
+    Every rejected root's reason is kept for ``explain()`` and for the
+    error raised when no candidate is valid."""
     schema = resolve_schema(query, db)
     dicts, encoded = encode_query(query, db, schema, measures=measures)
     best: tuple[Prepared, tuple] | None = None
@@ -436,7 +699,7 @@ def _best_root(
     if best is None:
         detail = "; ".join(failures) if failures else "no candidates"
         raise ValueError(f"no valid group-relation root ({detail})")
-    return best[0]
+    return best[0], tuple(failures)
 
 
 def _channelize(aggs, resolve_rel):
@@ -468,6 +731,43 @@ def _channelize(aggs, resolve_rel):
 def _display_names(group_attrs) -> tuple[str, ...]:
     attrs = [a for _, a in group_attrs]
     return tuple(a if attrs.count(a) == 1 else f"{r}.{a}" for r, a in group_attrs)
+
+
+def _fmt_bytes(n: int) -> str:
+    for unit in ("B", "KiB", "MiB", "GiB"):
+        if n < 1024 or unit == "GiB":
+            return f"{n:.0f} {unit}" if unit == "B" else f"{n:.1f} {unit}"
+        n /= 1024
+    raise AssertionError
+
+
+def _render_tree(
+    prep: Prepared,
+    cards: dict[str, float] | None = None,
+    actuals: dict[str, int] | None = None,
+) -> list[str]:
+    sizes = node_message_bytes(prep)
+    deco = prep.decomposition
+
+    def annotate(rel: str) -> str:
+        text = f"{rel}  msg {_fmt_bytes(sizes[rel])}"
+        if cards is not None:
+            text += f"  est {cards[rel]:.0f} rows"
+            if actuals is not None:
+                text += f" / actual {actuals[rel]} rows"
+        return text
+
+    lines = [annotate(deco.root).replace("  msg", " (root)  msg", 1)]
+
+    def walk(rel: str, prefix: str) -> None:
+        kids = deco.nodes[rel].children
+        for i, c in enumerate(kids):
+            last = i == len(kids) - 1
+            lines.append(prefix + ("└─ " if last else "├─ ") + annotate(c))
+            walk(c, prefix + ("   " if last else "│  "))
+
+    walk(deco.root, "")
+    return lines
 
 
 def _assemble(plan: Plan, outputs: list[EngineOutput]) -> AggResult:

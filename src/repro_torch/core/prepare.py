@@ -100,6 +100,11 @@ class Prepared:
         # engine-owned memo of the sorted distinct MIN/MAX payloads the
         # walk ranks against, keyed by (device, relation, kind)
         self.payload_values: dict = {}
+        # False for a split plan's key-range part: its dense relation
+        # tensors are built per run and dropped, so a split holds one
+        # range's tensors at a time (holding every range's would undo
+        # the peak the split exists to cut)
+        self.memo_dense = True
         # lazily collected statistics; None until the planner (or a
         # caller) first touches .stats, so paths that never consult the
         # cost model pay nothing for them

@@ -1,32 +1,44 @@
-"""Sparse execution of the JOIN-AGG contraction on the card (DESIGN.md §7).
+"""The JOIN-AGG contraction on the card: two physical paths and the
+choice between them (DESIGN.md §2, §7).
 
-Port of the sparse half of the JAX package's ``core/jax_engine.py``
-(``_CsrHopMixin``, ``_KernelChannelEngine``, ``_MinMaxKernelEngine``,
-``SparseProgram``, ``build_sparse_program``).  Relations stay in
-grouped-CSR coordinate form and every decomposition-tree hop runs on the
-hand-written kernels, with the same routing as the JAX engine:
+Port of the JAX package's ``core/jax_engine.py``.
 
-* single-child hop with channel-uniform weights → ``coo_spmm``, the child
-  message as the dense operand (its ``k`` channels ride the columns);
-* leaf / multi-child / measure-weighted hop → the per-edge
-  channel-diagonal product of gathered child message rows (plain tensor
-  code), reduced with ``segment_sum``;
-* MIN/MAX → ``(min, +)`` / ``(max, +)`` semiring hops on
-  ``segment_reduce``;
-* fused (``Q.fused(True)`` or ``REPRO_FUSED``) → every hop, sum or
-  MIN/MAX, is one ``fused_hop`` launch: no edge chunks, no edge-sized
-  product (DESIGN.md §13).
+* **dense** — every relation becomes a float32 multiplicity tensor over
+  its attr domains, built on the engine's device from the pre-aggregated
+  COO rows and memoized on the ``Prepared``; the decomposition tree
+  contracts as one ``torch.einsum`` term per node (:class:`DenseProgram`).
+  Fast at small domains, but the per-relation ``Π|dom(attrs)|`` tensors
+  are the intermediate blowup JOIN-AGG exists to avoid.
+* **sparse** — relations stay in grouped-CSR coordinate form and every
+  hop runs on the hand-written kernels, with the JAX engine's routing:
 
-What lives on the device: each grouped-CSR view (sorted keys, permuted
-codes and weights), moved once per ``Prepared`` or stream tile, and every
-message of the walk.  No dense relation tensor is ever built; peak
-memory is the largest message, and group-axis stream tiles bound even
-that.  The JAX engine's ``EDGE_BUCKET`` padding (static shapes for jit)
-and its numpy fallback for ``≥ 2**31`` segments are gone: the kernels
-index in int64.
+  - single-child hop with channel-uniform weights → ``coo_spmm``, the
+    child message as the dense operand (its ``k`` channels ride the
+    columns);
+  - leaf / multi-child / measure-weighted hop → the per-edge
+    channel-diagonal product of gathered child message rows (plain
+    tensor code), reduced with ``segment_sum``;
+  - MIN/MAX → ``(min, +)`` / ``(max, +)`` semiring hops on
+    ``segment_reduce``;
+  - fused (``Q.fused(True)`` or ``REPRO_FUSED``) → every hop, sum or
+    MIN/MAX, is one ``fused_hop`` launch: no edge chunks, no edge-sized
+    product (DESIGN.md §13).
+
+  What lives on the device: each grouped-CSR view (sorted keys, permuted
+  codes and weights), moved once per ``Prepared`` or stream tile, and
+  every message of the walk; peak memory is the largest message, and
+  group-axis stream tiles bound even that.  The JAX engine's
+  ``EDGE_BUCKET`` padding (static shapes for jit) and its numpy fallback
+  for ``≥ 2**31`` segments are gone: the kernels index in int64.
+
+:func:`choose_path` prices both paths per node and picks one as the JAX
+package's ``choose_jax_path`` does; :func:`execute_torch` is the
+single-aggregate entry.  Counts are exact in float32 up to 2**24 per
+partial product on both paths.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 from dataclasses import dataclass, field
@@ -35,13 +47,334 @@ from typing import Iterator
 import numpy as np
 import torch
 
-from repro_torch.core.prepare import CSRView, Prepared, csr_restrict, grouped_csr
+from repro_torch.core.operator import DEFAULT_MEMORY_BUDGET, node_message_bytes
+from repro_torch.core.prepare import (
+    CSRView,
+    Prepared,
+    csr_restrict,
+    grouped_csr,
+    prepare,
+)
+from repro_torch.core.query import JoinAggQuery
 from repro_torch.core.tensor_engine import ChannelTensorEngine, TensorEngine
+from repro_torch.kernels import ops
 from repro_torch.kernels.coo_spmm import coo_spmm
-from repro_torch.kernels.fused_hop import fused_hop
+from repro_torch.kernels.fused_hop import fused_hop, gathers_one_child
 from repro_torch.kernels.ops import fused_enabled
 from repro_torch.kernels.segment_reduce import segment_reduce
 from repro_torch.kernels.segment_sum import segment_sum
+from repro_torch.relational.relation import Database
+
+
+def require_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; raises when it is a card that is
+    absent (nothing falls back to the CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "engine 'torch' runs on CUDA and no CUDA device is available; "
+            'pass .engine(TorchChannelEngine(device="cpu")) to run on the CPU'
+        )
+    return device
+
+
+# ----------------------------------------------------------------------
+# the dense einsum program
+# ----------------------------------------------------------------------
+
+MAX_DENSE_ELEMS = 1 << 26
+# a single relation tensor beyond this many elements pushes the dense
+# einsum path over its memory cliff; auto mode switches to sparse
+DENSE_PROMOTE_ELEMS = 1 << 24
+
+
+def _axis_letters(prep: Prepared) -> dict[str, str]:
+    letters = "abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ"
+    attrs = sorted({a for attrs in prep.schema.relevant.values() for a in attrs})
+    if len(attrs) > len(letters):
+        raise ValueError("too many attributes for einsum letters")
+    return {a: letters[i] for i, a in enumerate(attrs)}
+
+
+def dense_plan(prep: Prepared) -> tuple[tuple, str]:
+    """Post-order einsum plan ``((rel, expr, child rels), ...)`` and the
+    root: each node's term contracts its relation tensor with its
+    children's messages into the attrs shared with its parent, then the
+    subtree's group attrs in canonical order."""
+    ax = _axis_letters(prep)
+    deco = prep.decomposition
+    canonical = [attr for _, attr in prep.group_attrs]
+    plan: list[tuple[str, str, tuple[str, ...]]] = []
+
+    def subtree(rel: str, parent: str | None) -> str:
+        er = prep.encoded[rel]
+        exprs = ["".join(ax[a] for a in er.attrs)]
+        gattrs = [prep.schema.group_of[rel]] if rel in prep.schema.group_of else []
+        children = tuple(deco.nodes[rel].children)
+        for child in children:
+            cexpr = subtree(child, rel)
+            exprs.append(cexpr)
+            gattrs.extend(
+                a for a in canonical if ax[a] in cexpr and a not in gattrs
+            )
+        if parent is None:
+            up: list[str] = []
+        else:
+            up = sorted(set(er.attrs) & set(prep.encoded[parent].attrs))
+        out_attrs = list(up) + [a for a in canonical if a in gattrs]
+        out_axes = "".join(ax[a] for a in out_attrs)
+        plan.append((rel, ",".join(exprs) + "->" + out_axes, children))
+        return out_axes
+
+    subtree(deco.root, None)
+    return tuple(plan), deco.root
+
+
+def _channelize_plan(
+    plan: tuple, root: str, z_flags: dict[str, bool]
+) -> tuple[tuple, bool]:
+    """Add a leading batch axis ``Z`` to every einsum term whose tensor (or
+    subtree message) carries per-channel weights.
+
+    ``Z`` as a batch axis gives exactly the diagonal semantics a channel
+    needs: channel ``c`` of the output combines channel ``c`` of every
+    channelized operand — k independent scalar programs fused into one
+    einsum (DESIGN.md §6).
+    """
+    carries: dict[str, bool] = {}
+    out_plan = []
+    for rel, expr, children in plan:
+        ins, out = expr.split("->")
+        if "Z" in expr:
+            raise ValueError("einsum axis letters exhausted (Z is reserved)")
+        terms = ins.split(",")
+        flags = [z_flags.get(rel, False)] + [carries[c] for c in children]
+        carry = any(flags)
+        if carry:
+            terms = [("Z" + t) if fl else t for t, fl in zip(terms, flags)]
+            out = "Z" + out
+        carries[rel] = carry
+        out_plan.append((rel, ",".join(terms) + "->" + out, children))
+    return tuple(out_plan), carries[root]
+
+
+def contract_term(expr: str, operands: list[torch.Tensor]) -> torch.Tensor:
+    """``torch.einsum(expr, *operands)`` contracted pairwise, left to
+    right: each step keeps only the axes a later operand or the output
+    still needs.  ``torch.einsum`` orders three or more operands by
+    ``opt_einsum`` where that package is installed and left to right
+    where it is not; a fixed pairwise order gives every machine the same
+    intermediates, peak memory and float rounding."""
+    ins, out = expr.split("->")
+    terms = ins.split(",")
+    acc, acc_axes = operands[0], terms[0]
+    for i in range(1, len(terms)):
+        if i == len(terms) - 1:
+            axes = out
+        else:
+            need = set(out).union(*terms[i + 1:])
+            axes = "".join(dict.fromkeys(a for a in acc_axes + terms[i] if a in need))
+        acc = torch.einsum(f"{acc_axes},{terms[i]}->{axes}", acc, operands[i])
+        acc_axes = axes
+    if len(terms) == 1:
+        acc = torch.einsum(f"{acc_axes}->{out}", acc)
+    return acc
+
+
+@contextlib.contextmanager
+def full_fp32_matmul():
+    """Run the enclosed products in full FP32, then restore the caller's
+    setting: float32 counts are exact below 2**24 only without TF32.
+    Callers that set TF32 through the per-backend ``fp32_precision``
+    switch are restored through it (reading the process-wide precision
+    then raises)."""
+    try:
+        saved = torch.get_float32_matmul_precision()
+    except RuntimeError:
+        matmul = torch.backends.cuda.matmul
+        saved = matmul.fp32_precision
+        matmul.fp32_precision = "ieee"
+        try:
+            yield
+        finally:
+            matmul.fp32_precision = saved
+        return
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(saved)
+
+
+def _scatter(prep: Prepared, rel: str, values: np.ndarray, device) -> torch.Tensor:
+    """``rel``'s per-row ``values`` in a dense float32 tensor over its attr
+    domains on ``device``.  The relation's grouped-CSR view keyed on all
+    its attrs holds each row's row-major position, ascending: where those
+    positions are unique (pre-aggregation makes them so) one indexed
+    store places every value; otherwise ``segment_sum`` reduces the rows
+    of each position in that fixed order, without atomics, so the same
+    rows give the same bits on every run."""
+    er = prep.encoded[rel]
+    dims = tuple(prep.dicts[a].size for a in er.attrs)
+    elems = math.prod(dims)
+    if elems > MAX_DENSE_ELEMS:
+        raise MemoryError(
+            f"dense tensor for {rel} would have {elems} elems; use the "
+            "sparse path"
+        )
+    flat = torch.zeros(elems, dtype=torch.float32, device=device)
+    if er.num_rows == 0:
+        return flat.reshape(dims)
+    view = prep.csr_view(rel, er.attrs)
+    keys = torch.from_numpy(view.keys).to(device)
+    vals = torch.from_numpy(
+        np.ascontiguousarray(values[view.order], dtype=np.float32)
+    ).to(device)
+    if bool(np.all(view.keys[1:] != view.keys[:-1])):
+        flat[keys] = vals
+    else:
+        flat = segment_sum(vals.reshape(-1, 1), keys, elems).reshape(-1)
+    return flat.reshape(dims)
+
+
+def dense_tensor(
+    prep: Prepared, rel: str, device, channel_measures: tuple = ()
+) -> torch.Tensor:
+    """``rel``'s dense float32 tensor on ``device``: its multiplicities,
+    or, when ``channel_measures`` names it, a leading channel axis whose
+    channel ``c`` carries the ``sum`` payload where ``channel_measures[c]
+    == rel`` and the multiplicities elsewhere.  Memoized on the
+    ``Prepared`` beside the sparse path's device views, so a warm
+    execute only contracts; a split plan's key-range part
+    (``memo_dense`` False) builds it per run instead."""
+    layout = tuple(channel_measures) if rel in channel_measures else ()
+    key = ("dense", str(device), rel, layout)
+    memo = prep.device_views
+    if key in memo:
+        return memo[key]
+    er = prep.encoded[rel]
+    tensor = _scatter(prep, rel, er.count, device)
+    if layout:
+        pay = _scatter(prep, rel, er.payloads["sum"], device)
+        tensor = torch.stack([pay if m == rel else tensor for m in layout])
+    if prep.memo_dense:
+        memo[key] = tensor
+    return tensor
+
+
+@dataclass
+class DenseProgram:
+    """The einsum message-passing program of one ``Prepared`` on
+    ``device``: :func:`dense_plan`'s terms, each contracted by
+    :func:`contract_term` in full FP32."""
+
+    prep: Prepared
+    plan: tuple
+    root: str
+    device: torch.device
+
+    def terms(self, channel_measures: tuple[str | None, ...]) -> tuple:
+        """The pass's ``(rel, einsum expr, child rels)`` terms in post
+        order: :func:`dense_plan`'s, with a leading channel axis ``Z``
+        on every term a measure relation's channels reach."""
+        z_rels = {r for r in channel_measures if r is not None}
+        if not z_rels:
+            return self.plan
+        return _channelize_plan(self.plan, self.root, {r: True for r in z_rels})[0]
+
+    def run_channels(self, channel_measures: tuple[str | None, ...]) -> torch.Tensor:
+        """One pass for ``k`` COUNT/SUM channels (entry ``c`` names the
+        relation whose ``sum`` payload rides channel ``c``, None =
+        COUNT); ``(*group_dims, k)`` float32 on the device.  Measure
+        relations carry a channel axis ``Z`` through every term above
+        them; an all-COUNT bundle runs one scalar program."""
+        k = len(channel_measures)
+        z_rels = {r for r in channel_measures if r is not None}
+        tensors = {
+            r: dense_tensor(self.prep, r, self.device, channel_measures)
+            for r in self.prep.encoded
+        }
+        results: dict[str, torch.Tensor] = {}
+        with full_fp32_matmul():
+            for rel, expr, children in self.terms(channel_measures):
+                results[rel] = contract_term(
+                    expr, [tensors[rel]] + [results[c] for c in children]
+                )
+        arr = results[self.root]
+        if not z_rels:
+            return arr.unsqueeze(-1).expand(arr.shape + (k,))
+        return arr.movedim(0, -1)
+
+
+def build_dense_program(prep: Prepared, device) -> DenseProgram:
+    """Bind ``Prepared`` + device into a :class:`DenseProgram`."""
+    plan, root = dense_plan(prep)
+    return DenseProgram(prep, plan, root, torch.device(device))
+
+
+def _decode(
+    prep: Prepared, arr: torch.Tensor, support: torch.Tensor | None = None
+) -> dict[tuple, float]:
+    """``{group values: value}`` over the ``support`` cells (default: the
+    nonzero ones) of a dense group-axes result."""
+    support = arr != 0 if support is None else support
+    idx = torch.nonzero(support).cpu().numpy()
+    vals = arr[support].cpu().numpy()
+    cols = [
+        prep.dicts[attr].decode(idx[:, i])
+        for i, (_, attr) in enumerate(prep.group_attrs)
+    ]
+    return {tuple(c[i] for c in cols): float(v) for i, v in enumerate(vals)}
+
+
+def execute_torch(
+    query: JoinAggQuery,
+    db: Database,
+    prep: Prepared | None = None,
+    mode: str = "auto",
+    device="cuda",
+    memory_budget: int | None = None,
+) -> dict[tuple, float]:
+    """Single-aggregate execution on ``device``.
+
+    ``mode``: ``"auto"`` (:func:`choose_path`), ``"dense"`` (einsum;
+    COUNT/SUM only) or ``"sparse"`` (the kernels over grouped-CSR
+    relations; COUNT/SUM/MIN/MAX).  MIN/MAX always run sparse: the dense
+    einsum has no ``(min, +)`` form."""
+    device = require_device(device)
+    if prep is None:
+        prep = prepare(query, db)
+    query = prep.query  # fold may re-point the aggregate's measure relation
+    kind = query.agg.kind
+    if kind not in ("count", "sum", "min", "max"):
+        raise NotImplementedError(
+            "torch engine: COUNT/SUM/MIN/MAX (AVG assembles on the planner)"
+        )
+    if mode == "auto":
+        if kind in ("min", "max"):
+            mode = "sparse"
+        else:
+            mode = choose_path(prep, memory_budget=memory_budget).path
+    measure = query.agg.measure[0] if kind == "sum" else None
+    if mode == "dense":
+        if kind not in ("count", "sum"):
+            raise NotImplementedError("torch dense mode: COUNT/SUM only")
+        arr = build_dense_program(prep, device).run_channels((measure,))
+        return _decode(prep, arr[..., 0])
+    if mode == "sparse":
+        prog = build_sparse_program(prep, (measure,), device)
+        arr = prog.run_channels()[..., 0]
+        if kind in ("count", "sum"):
+            return _decode(prep, arr)
+        # MIN/MAX: the COUNT channel is the support (a zero can be a
+        # genuine MIN/MAX value, so joined groups are kept by count)
+        return _decode(prep, prog.run_minmax(kind, query.agg.measure[0]), arr > 0)
+    raise ValueError(f"unknown mode {mode!r}; use 'auto', 'dense' or 'sparse'")
+
+
+# ----------------------------------------------------------------------
+# the sparse program
+# ----------------------------------------------------------------------
 
 # the general hop's per-edge product materializes (edges × width·k)
 # floats; the edge axis is chunked so that temporary stays within this
@@ -375,16 +708,22 @@ class SparseProgram:
         return torch.where(reached, values[1][out.long()], 0.0)
 
     def run_stream(self, attr: str, tile: int):
-        """Yield ``(encoded, domains, offsets)`` per group-axis row tile;
-        relations are sliced through their grouped-CSR views, re-based to
-        the tile-local code range."""
-        total = self.prep.dicts[attr].size
-        for lo in range(0, total, tile):
-            hi = min(lo + tile, total)
-            enc = csr_restrict(self.prep, attr, lo, hi)
-            domains = {a: self.prep.dicts[a].size for a in self.prep.dicts}
-            domains[attr] = hi - lo
-            yield enc, domains, {attr: lo}
+        """Yield ``(encoded, domains, offsets)`` per group-axis row tile
+        (:func:`stream_tiles`)."""
+        return stream_tiles(self.prep, attr, tile)
+
+
+def stream_tiles(prep: Prepared, attr: str, tile: int):
+    """Yield ``(encoded, domains, offsets)`` per row tile of group attr
+    ``attr``; relations are sliced through their grouped-CSR views,
+    re-based to the tile-local code range."""
+    total = prep.dicts[attr].size
+    for lo in range(0, total, tile):
+        hi = min(lo + tile, total)
+        enc = csr_restrict(prep, attr, lo, hi)
+        domains = {a: prep.dicts[a].size for a in prep.dicts}
+        domains[attr] = hi - lo
+        yield enc, domains, {attr: lo}
 
 
 def build_sparse_program(
@@ -396,3 +735,183 @@ def build_sparse_program(
     """Bind ``Prepared`` + channel spec + device (+ the fused-hop option)
     into a :class:`SparseProgram`."""
     return SparseProgram(prep, tuple(channel_measures), torch.device(device), fused)
+
+
+# ----------------------------------------------------------------------
+# the launch shape of each fused hop
+# ----------------------------------------------------------------------
+
+
+def hop_launch_shapes(
+    prep: Prepared, k: int = 1, encoded=None, domains: dict[str, int] | None = None
+) -> list[dict]:
+    """Per-hop launch shapes of one fused pass of ``k`` channels over
+    ``prep`` (or a stream tile's ``encoded`` relations and ``domains``),
+    in tree order (root first; the walk launches children first): each
+    hop's ``fused_hop`` launch takes :func:`ops.gather_plan` (one child,
+    rows of 32 floats or more) or :func:`ops.walk_plan` for its edges
+    into ``(num_segments, width·k)``.  Entries hold ``rel``, ``walk`` ("gather" | "tile"),
+    ``edges``, ``num_segments``, ``width`` (floats per output row),
+    ``plan`` (None where the launch shape cannot be made, ``error`` then
+    says why) and ``acc_dtype``.  Hops with no output row launch nothing
+    and have no entry.  ``Plan.fused_runs()`` names every pass of an
+    execute; ``Plan.explain()`` renders their shapes and the verifier
+    checks them."""
+    deco = prep.decomposition
+    group_of = prep.schema.group_of
+    encoded = prep.encoded if encoded is None else encoded
+
+    def dom(a: str) -> int:
+        return domains[a] if domains is not None else prep.dicts[a].size
+
+    def group_width(rel: str) -> int:
+        g = group_of.get(rel)
+        width = dom(g) if g else 1
+        for c in deco.nodes[rel].children:
+            width *= group_width(c)
+        return width
+
+    out: list[dict] = []
+    for rel in deco.order:
+        node = deco.nodes[rel]
+        er = encoded[rel]
+        up: tuple[str, ...] = ()
+        if node.parent is not None:
+            up = tuple(sorted(set(er.attrs) & set(encoded[node.parent].attrs)))
+        own_g = group_of.get(rel)
+        knum = math.prod(dom(a) for a in up + ((own_g,) if own_g else ()))
+        d = math.prod(group_width(c) for c in node.children) * k
+        if knum < 1 or d < 1:
+            continue
+        walk = "gather" if gathers_one_child(len(node.children), d) else "tile"
+        entry = {
+            "rel": rel, "walk": walk, "edges": er.num_rows, "num_segments": knum,
+            "width": d, "plan": None, "error": None, "acc_dtype": "float32",
+        }
+        try:
+            make = ops.gather_plan if walk == "gather" else ops.walk_plan
+            entry["plan"] = make(er.num_rows, knum, d)
+        except ValueError as e:
+            entry["error"] = str(e)
+        out.append(entry)
+    return out
+
+
+# ----------------------------------------------------------------------
+# cost-based dense-vs-sparse path choice
+# ----------------------------------------------------------------------
+
+
+@dataclass
+class PathChoice:
+    """Outcome of :func:`choose_path`, rendered by ``Plan.explain()``."""
+
+    path: str  # "dense" | "sparse"
+    reason: str
+    dense_node_bytes: dict[str, int] = field(default_factory=dict)
+    sparse_node_bytes: dict[str, int] = field(default_factory=dict)
+
+    @property
+    def dense_peak(self) -> int:
+        # the einsum program holds every relation tensor at once
+        return sum(self.dense_node_bytes.values())
+
+    @property
+    def sparse_peak(self) -> int:
+        return max(self.sparse_node_bytes.values(), default=0)
+
+
+def choose_path(
+    prep: Prepared,
+    k: int = 1,
+    memory_budget: int | None = None,
+    stream: tuple[str, int] | None = None,
+    measured: tuple[str | None, ...] = (),
+    stats=None,
+) -> PathChoice:
+    """Estimate per-node dense-vs-sparse peak bytes and pick the path, as
+    the JAX package's ``choose_jax_path`` does on one device.
+
+    Dense cost per node: the f32 relation tensor over its attr domains
+    (×k only for ``measured`` relations — the dense channel program only
+    k-stacks the measure tensors, everything else keeps one tensor) plus
+    the f32 einsum message (``node_message_bytes`` re-scaled; messages
+    carry the channel axis only when a measure channelizes the program).
+    Sparse cost per node: the CSR edge arrays plus the f32 k-channel
+    message.  Sparse wins when an explicit ``stream`` is set (dense
+    cannot tile), when any dense tensor crosses the 2^24 element cliff,
+    when the dense program exceeds the memory budget, or when
+    statistics (``stats``, defaulting to the plan's collection when one
+    was materialized) estimate a large dense tensor to be
+    extreme-sparse.
+    """
+    if stats is None:
+        stats = prep._stats_cache
+    budget = DEFAULT_MEMORY_BUDGET if memory_budget is None else memory_budget
+    measured_set = {m for m in measured if m}
+    dense_msg_k = k if measured_set else 1  # all-COUNT: one scalar einsum
+    msg = node_message_bytes(prep)  # 8 bytes/elem estimates
+    dense_nodes: dict[str, int] = {}
+    sparse_nodes: dict[str, int] = {}
+    over_cliff: str | None = None
+    for rel, er in prep.encoded.items():
+        elems = 1
+        for a in er.attrs:
+            elems *= prep.dicts[a].size
+        if elems > DENSE_PROMOTE_ELEMS and over_cliff is None:
+            over_cliff = rel
+        msg_f32 = msg[rel] // 2
+        tensor_k = k if rel in measured_set else 1
+        dense_nodes[rel] = 4 * elems * tensor_k + msg_f32 * dense_msg_k
+        edge_bytes = er.codes.nbytes + 4 * k * er.num_rows
+        sparse_nodes[rel] = edge_bytes + msg_f32 * k
+    choice = PathChoice("dense", "", dense_nodes, sparse_nodes)
+    if stream is not None:
+        choice.path = "sparse"
+        choice.reason = f"stream tiles over {stream[0]!r} (dense cannot tile)"
+    elif over_cliff is not None:
+        choice.path = "sparse"
+        choice.reason = f"dense tensor for {over_cliff!r} exceeds 2^24 elements"
+    elif choice.dense_peak > budget:
+        choice.path = "sparse"
+        choice.reason = (
+            f"dense program needs {choice.dense_peak} B > budget {budget} B"
+        )
+    elif (sparse := _extreme_sparsity(prep, stats)) is not None:
+        choice.path = "sparse"
+        choice.reason = (
+            f"stats: dense tensor for {sparse[0]!r} is extreme-sparse "
+            f"(est occupancy {sparse[1]:.2e})"
+        )
+    else:
+        choice.reason = (
+            f"dense program fits ({choice.dense_peak} B ≤ budget {budget} B)"
+        )
+    return choice
+
+
+# dense tensors this large with occupancy this low waste both the
+# materialization and the einsum FLOPs; the CSR program touches only edges
+SPARSITY_MIN_ELEMS = 1 << 20
+SPARSITY_MAX_OCCUPANCY = 1e-3
+
+
+def _extreme_sparsity(prep: Prepared, stats) -> tuple[str, float] | None:
+    """Largest relation whose dense tensor's estimated occupancy (weighted
+    rows / dense cells) is below ``SPARSITY_MAX_OCCUPANCY`` — ``None``
+    when statistics are absent or no tensor qualifies."""
+    if stats is None:
+        return None
+    worst: tuple[str, float] | None = None
+    for rel, er in prep.encoded.items():
+        elems = 1
+        for a in er.attrs:
+            elems *= prep.dicts[a].size
+        if elems < SPARSITY_MIN_ELEMS:
+            continue
+        rs = stats.relations.get(rel)
+        rows = rs.rows if rs is not None else er.num_rows
+        occ = max(rows, 1) / elems
+        if occ < SPARSITY_MAX_OCCUPANCY and (worst is None or occ < worst[1]):
+            worst = (rel, occ)
+    return worst

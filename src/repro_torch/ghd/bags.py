@@ -23,12 +23,10 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from repro_torch.core.torch_engine import MAX_DENSE_ELEMS
 from repro_torch.ghd.hypertree import Bag
 from repro_torch.relational.encoding import EncodedRelation, reduce_grouped
 
-# the JAX package's dense-path element cap, kept as a literal: the port
-# has no dense path, and a test holds the two values equal
-MAX_DENSE_ELEMS = 1 << 26
 ROW_BLOCK = 65536  # probe-side rows joined per block (bounds temp memory)
 
 

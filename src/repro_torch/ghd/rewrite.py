@@ -70,6 +70,9 @@ class GHDPlan:
     # host seconds of each compile stage: "encode", "build_ghd", "bags"
     # (materialization) and "finish_prepare" (fold, decompose, root)
     seconds: dict[str, float]
+    # input relation -> its relevant attrs (the hypergraph the GHD
+    # covers), kept for the verifier's cover check
+    edges: dict[str, frozenset[str]]
 
 
 def _effective_domains(
@@ -263,4 +266,5 @@ def compile_ghd(
         bag_peak_bytes=bag_peak,
         measure_bags=measure_bag,
         seconds=seconds,
+        edges=edges,
     )

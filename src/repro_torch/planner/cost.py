@@ -11,19 +11,26 @@ cells are ever nonzero.  This module adds the sparse side of the ledger:
   attr), and a fanout-chained subtree join-row estimate (sampled
   pairwise selectivities composed along tree edges).
 
+* :func:`actual_node_cards` — *measured* nonzero message cardinalities
+  from one COUNT pass of the sparse walk on the plan's device, for
+  ``explain(actuals=True)``.
+
 * :func:`plan_cost` — the root-ranking key: per node, the dense bytes
   plus an 8-byte work term per estimated nonzero.  Ranked
   lexicographically ``(peak, total)``; on uniform data the dense term
   dominates and the ranking matches the byte heuristic, while
   skew/selectivity shifts the work term.
 
-Copy of the JAX package's ``planner/cost.py`` without the measured
-cardinalities and q-error of its ``explain(actuals=True)``.
+Copy of the JAX package's ``planner/cost.py`` without its q-error
+report.
 """
 from __future__ import annotations
 
+import torch
+
 from repro_torch.core.operator import node_message_bytes
 from repro_torch.core.prepare import Prepared
+from repro_torch.core.torch_engine import _KernelChannelEngine
 from repro_torch.stats.collect import Statistics
 
 
@@ -128,3 +135,31 @@ def plan_cost(prep: Prepared, stats: Statistics) -> tuple[float, float]:
     cards = node_card_estimates(prep, stats)
     refined = {r: dense[r] + 8.0 * cards[r] for r in dense}
     return (max(refined.values()), sum(refined.values()))
+
+
+# ----------------------------------------------------------------------
+# measured cardinalities (explain --actuals)
+# ----------------------------------------------------------------------
+
+
+class _CardRecorder(_KernelChannelEngine):
+    """COUNT pass of the sparse walk that records each node's message
+    cells > 0: a COUNT cell is positive iff some joined tuple reaches it,
+    so these are the cells the JAX package's boolean pass finds."""
+
+    def __init__(self, prep: Prepared, device):
+        super().__init__(prep, (None,), device)
+        self.cards: dict[str, int] = {}
+
+    def contract_rows(self, rel, parent, view, weights, child_msgs):
+        msg = super().contract_rows(rel, parent, view, weights, child_msgs)
+        self.cards[rel] = int(torch.count_nonzero(msg.array > 0))
+        return msg
+
+
+def actual_node_cards(prep: Prepared, device) -> dict[str, int]:
+    """Measured nonzero message cardinality per node (one COUNT pass on
+    ``device`` — dense messages, so keep to golden/bench scales)."""
+    rec = _CardRecorder(prep, device)
+    rec.run()
+    return rec.cards

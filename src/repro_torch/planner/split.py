@@ -204,7 +204,7 @@ def _split_prepared(
 ) -> Prepared:
     dicts = dict(prep.dicts)
     dicts[attr] = Dictionary(attr, prep.dicts[attr].values[lo:hi])
-    return Prepared(
+    part = Prepared(
         prep.query,
         prep.schema,
         dicts,
@@ -214,6 +214,8 @@ def _split_prepared(
         dict(prep.fold_hosts),
         dict(prep.measure_moves),
     )
+    part.memo_dense = False
+    return part
 
 
 def split_parts(prep: Prepared, decision: SplitDecision) -> list[Prepared]:

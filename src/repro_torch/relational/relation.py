@@ -8,7 +8,8 @@ of the JAX package's ``relational/relation.py``; the planner's rewrites
 :meth:`Relation.with_column` directly, which is what the JAX package's
 ``rename_source``/``filter_source``/``copy_column_source`` do for an
 in-memory relation.  The disk-backed ``RelationSource`` path is not
-ported.
+ported, so every relation's ``storage_kind`` is ``"memory"`` and
+:func:`estimate_prepare_peak` knows the whole-column mode only.
 """
 from __future__ import annotations
 
@@ -24,6 +25,8 @@ class Relation:
 
     name: str
     columns: dict[str, np.ndarray]
+
+    storage_kind = "memory"  # for explain(); no disk-backed tier is ported
 
     def __post_init__(self) -> None:
         lengths = {len(col) for col in self.columns.values()}
@@ -71,6 +74,12 @@ class Relation:
         cols = dict(self.columns)
         cols[attr] = np.asarray(values)
         return Relation(self.name, cols)
+
+
+def estimate_prepare_peak(relations) -> int:
+    """Estimated prepare-time peak bytes for ``Plan.explain()``: the
+    whole-column mode materializes every encoded column at once."""
+    return sum(8 * max(len(r.attrs), 1) * r.num_rows for r in relations)
 
 
 @dataclass

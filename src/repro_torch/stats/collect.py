@@ -14,7 +14,8 @@ set once and produces a :class:`Statistics` object:
 
 Copy of the JAX package's ``stats/collect.py`` for in-memory encodings
 (one chunk per relation, as the JAX package scans them), without its
-incremental-maintenance updates and its ``explain`` rendering.  The
+incremental-maintenance updates (``generation`` stays 0 until they are
+ported).  The
 fanout sampler draws from the same seeded generator in the same order,
 so both packages collect the same statistics.
 """
@@ -46,6 +47,9 @@ class ColumnStats:
     def est_distinct(self) -> float:
         return float(min(max(self.distinct.estimate(), 1.0), self.domain))
 
+    def max_share(self) -> float:
+        return self.heavy.max_share()
+
 
 @dataclass
 class RelationStats:
@@ -63,6 +67,7 @@ class Statistics:
     # (left rel, right rel) -> avg matching right tuples per left tuple,
     # over the relations' full shared-attr set
     fanouts: dict[tuple[str, str], float]
+    generation: int = 0
     sample: int = DEFAULT_FANOUT_SAMPLE
     kmv_k: int = DEFAULT_KMV_K
     hh_m: int = DEFAULT_HH_M
@@ -75,6 +80,10 @@ class Statistics:
         cs = self.col(rel, attr)
         return cs.est_distinct if cs is not None else default
 
+    def max_share(self, rel: str, attr: str) -> float:
+        cs = self.col(rel, attr)
+        return cs.max_share() if cs is not None else 0.0
+
     def heavy_keys(
         self, rel: str, attr: str, min_share: float
     ) -> list[tuple[int, float]]:
@@ -83,6 +92,22 @@ class Statistics:
 
     def fanout(self, left: str, right: str) -> float | None:
         return self.fanouts.get((left, right))
+
+    def summary_lines(self) -> list[str]:
+        """Compact per-relation rendering for ``Plan.explain()``."""
+        lines = []
+        for rel in sorted(self.relations):
+            rs = self.relations[rel]
+            cols = []
+            for attr in sorted(rs.cols):
+                cs = rs.cols[attr]
+                frag = f"{attr}≈{cs.est_distinct:.0f} distinct"
+                share = cs.max_share()
+                if share >= 0.05:
+                    frag += f" (top share {share:.2f})"
+                cols.append(frag)
+            lines.append(f"{rel}: {rs.rows} rows; " + ", ".join(cols))
+        return lines
 
 
 def _relation_stats(

@@ -125,6 +125,11 @@ class HeavyHitterSketch:
         ]
         return sorted(out, key=lambda kv: (-kv[1], kv[0]))
 
+    def max_share(self) -> float:
+        if not self.counts or not self.n:
+            return 0.0
+        return max(self.counts.values()) / self.n
+
     def __repr__(self) -> str:
         return (
             f"HeavyHitterSketch(m={self.m}, n={self.n}, "

@@ -10,6 +10,11 @@ cannot run on the installed JAX, and its own contract (DESIGN.md §13) is
 that fused hops equal the three-dispatch path bit for bit.  Every result
 column must be bit-identical: measures are integer-valued, so every
 float32 sum is exact.
+
+Tests that mean the sparse walk pin it with ``mode="sparse"`` and run a
+second case in the default ``mode="auto"``, which takes the path
+``choose_path`` picks (dense at these sizes unless a stream is set) —
+the path ``engine("jax")`` takes (``tests/test_torch_dense.py``).
 """
 import dataclasses
 import math
@@ -37,6 +42,7 @@ from repro_torch.api import (
     UnsupportedPlanOption,
 )
 from repro_torch.core import torch_engine
+from repro_torch.core.torch_engine import choose_path
 from repro_torch.data import synth as port_synth
 from repro_torch.kernels import ops
 from repro_torch.relational.relation import Database
@@ -66,10 +72,12 @@ def _build(q, relations, groups, aggs, where=(), stream=None, renames=()):
 
 
 def _run_all(
-    cols, relations, groups, measure, where=(), stream=None, renames=(), fused=None
+    cols, relations, groups, measure, where=(), stream=None, renames=(), fused=None,
+    mode="auto",
 ):
     """Plan and execute on jax, tensor and the port (with ``.fused(fused)``
-    unless None); return the three results and the port's plan."""
+    unless None, on the CPU engine in ``mode``); return the three results
+    and the port's plan."""
     jdb = JDatabase.from_mapping(cols)
     out = {}
     for name in ("jax", "tensor"):
@@ -78,8 +86,34 @@ def _run_all(
     q = _build(Q, relations, groups, _bundle(measure, PORT), where, stream, renames)
     if fused is not None:
         q = q.fused(fused)
-    plan = q.engine(CPU).plan(Database.from_mapping(cols))
+    plan = q.engine(TorchChannelEngine(device="cpu", mode=mode)).plan(
+        Database.from_mapping(cols)
+    )
     return {k: p.execute() for k, p in out.items()}, plan.execute(), plan, out["jax"]
+
+
+def _taken_path(plan) -> str:
+    return plan.engine.path(
+        plan.prep, plan.channels, plan.resolved_stream(), plan.memory_budget, plan.fused
+    )
+
+
+def _check_mode(plan, mode: str, streamed: bool = False) -> None:
+    """``mode="sparse"`` takes the sparse walk; ``"auto"`` the path
+    ``choose_path`` picks — dense here unless the plan streams."""
+    taken = _taken_path(plan)
+    if mode == "sparse":
+        assert taken == "sparse"
+        return
+    cm = tuple(ch.measure[0] if ch.kind == "sum" else None for ch in plan.channels)
+    choice = choose_path(
+        plan.prep, k=len(cm), memory_budget=plan.memory_budget,
+        stream=plan.resolved_stream(), measured=cm,
+    )
+    assert taken == choice.path == ("sparse" if streamed else "dense"), choice.reason
+
+
+MODES = pytest.mark.parametrize("mode", ["sparse", "auto"])
 
 
 def _assert_identical(ref, got):
@@ -118,12 +152,16 @@ def _tile_stream(cols, groups, tiles):
     return (attr, -(-dom // tiles))
 
 
+@MODES
 @pytest.mark.parametrize("tiles", [None, 3])
 @pytest.mark.parametrize("name,n", [("C1", 3000), ("S1", 3000), ("B1", 2000)])
-def test_synthetic_bundle_bit_identical(name, n, tiles):
+def test_synthetic_bundle_bit_identical(name, n, tiles, mode):
     cols, relations, groups, measure = _synth_cols(name, n)
     stream = _tile_stream(cols, groups, tiles)
-    refs, got, plan, jplan = _run_all(cols, relations, groups, measure, stream=stream)
+    refs, got, plan, jplan = _run_all(
+        cols, relations, groups, measure, stream=stream, mode=mode
+    )
+    _check_mode(plan, mode, streamed=stream is not None)
     assert plan.prep.decomposition.root == jplan.prep.decomposition.root
     assert got.num_rows > 0
     _assert_identical(refs["jax"], got)
@@ -148,12 +186,14 @@ def _quickstart_cols(n: int = 2000) -> dict:
         (("R1.j", "R3.g2"), ("g2", 11)),  # R1.j joins R2, three stream tiles
     ],
 )
-def test_quickstart_where_and_joining_group_attr(groups, stream):
+@MODES
+def test_quickstart_where_and_joining_group_attr(groups, stream, mode):
     cols = _quickstart_cols()
     refs, got, plan, _ = _run_all(
         cols, ("R1", "R2", "R3"), groups, "R2.m", where=[("R2", "m", ">", 5)],
-        stream=stream,
+        stream=stream, mode=mode,
     )
+    _check_mode(plan, mode, streamed=stream is not None)
     assert any(note.startswith("where R2") for note in plan.rewrite_notes)
     if groups[1] == "R2.k" or groups[0] == "R1.j":
         assert any(note.startswith("copy group attr") for note in plan.rewrite_notes)
@@ -161,36 +201,46 @@ def test_quickstart_where_and_joining_group_attr(groups, stream):
     _assert_identical(refs["tensor"], got)
 
 
-def test_self_join_aliases_bit_identical():
+@MODES
+def test_self_join_aliases_bit_identical(mode):
     rng = np.random.default_rng(4)
     cols = {"Items": {"basket": rng.integers(0, 60, 800),
                       "item": rng.integers(0, 25, 800),
                       "m": rng.integers(0, 9, 800)}}
     relations = (("I1", "Items"), ("I2", "Items"))
     renames = (("I1", {"item": "i1"}), ("I2", {"item": "i2", "m": "m2"}))
-    refs, got, _, _ = _run_all(
-        cols, relations, ("I1.i1", "I2.i2"), "I2.m2", renames=renames,
+    refs, got, plan, _ = _run_all(
+        cols, relations, ("I1.i1", "I2.i2"), "I2.m2", renames=renames, mode=mode,
     )
+    _check_mode(plan, mode)
     _assert_identical(refs["jax"], got)
     _assert_identical(refs["tensor"], got)
 
 
-def test_auto_stream_from_memory_budget_matches_unstreamed():
+@MODES
+def test_auto_stream_from_memory_budget_matches_unstreamed(mode):
     cols, relations, groups, measure = _synth_cols("C1", 3000)
-    base = _build(Q, relations, groups, _bundle(measure, PORT)).engine(CPU)
+    base = _build(Q, relations, groups, _bundle(measure, PORT)).engine(
+        TorchChannelEngine(device="cpu", mode=mode)
+    )
     db = Database.from_mapping(cols)
     whole = base.plan(db)
     tiled = base.memory_budget(whole.message_peak // 3).plan(db)
+    _check_mode(whole, mode)
+    _check_mode(tiled, mode, streamed=True)
     assert whole.resolved_stream() is None
     attr, tile = tiled.resolved_stream()
     assert tile < tiled.prep.dicts[attr].size
     _assert_identical(whole.execute(), tiled.execute())
 
 
-def test_edge_chunks_split_runs_without_changing_results(monkeypatch):
+@MODES
+def test_edge_chunks_split_runs_without_changing_results(monkeypatch, mode):
     """A tiny gather bound forces the general and MIN/MAX hops through
     many key-range chunks of the 1024-edge minimum; R3's three p1 keys
-    carry runs longer than that, so runs are split across chunks."""
+    carry runs longer than that, so runs are split across chunks.  The
+    dense path (``auto``) contracts the channels without chunks; its
+    MIN/MAX passes still walk them."""
     rng = np.random.default_rng(5)
     n, big = 300, 6000  # small ends keep every sum below 2**24
     cols = {
@@ -201,7 +251,8 @@ def test_edge_chunks_split_runs_without_changing_results(monkeypatch):
         "R4": {"p2": rng.integers(0, 3000, 3000), "g2": rng.integers(0, 20, 3000)},
     }
     relations, groups = ("R1", "R2", "R3", "R4"), ("R1.g1", "R4.g2")
-    refs, want, _, _ = _run_all(cols, relations, groups, "R3.m")
+    refs, want, plan, _ = _run_all(cols, relations, groups, "R3.m", mode=mode)
+    _check_mode(plan, mode)
     _assert_identical(refs["jax"], want)
     _assert_identical(refs["tensor"], want)
     monkeypatch.setattr(torch_engine, "_REF_GATHER_BYTES", 1)
@@ -214,7 +265,7 @@ def test_edge_chunks_split_runs_without_changing_results(monkeypatch):
         return iter(out)
 
     monkeypatch.setattr(torch_engine, "key_chunks", spy)
-    q = _build(Q, relations, groups, _bundle("R3.m", PORT)).engine(CPU)
+    q = _build(Q, relations, groups, _bundle("R3.m", PORT)).engine(plan.engine)
     got = q.plan(Database.from_mapping(cols)).execute()
     assert max(len(c) for c in chunks) > 2
     assert any(shared for c in chunks for *_, shared in c)
@@ -238,10 +289,13 @@ def test_key_chunks_tile_the_key_range(chunk):
     assert list(torch_engine.key_chunks(keys[:0], 4, 3)) == [(0, 0, 0, 4, False)]
 
 
-def test_main_path_routes_hops_to_all_three_kernels(monkeypatch):
+@MODES
+def test_main_path_routes_hops_to_all_three_kernels(monkeypatch, mode):
     """C1 with a SUM/MIN/MAX bundle on R3 runs leaf and measure-weighted
     hops on segment_sum, single-child uniform hops on coo_spmm and the
-    MIN/MAX passes on segment_reduce — as the JAX engine routes them."""
+    MIN/MAX passes on segment_reduce — as the JAX engine routes them.
+    On the dense path (``auto``) the einsum contracts the channels and
+    only the MIN/MAX passes launch, on segment_reduce."""
     calls = {"segment_sum": 0, "coo_spmm": 0, "segment_reduce": 0}
     for name in calls:
         fn = getattr(torch_engine, name)
@@ -252,22 +306,41 @@ def test_main_path_routes_hops_to_all_three_kernels(monkeypatch):
 
         monkeypatch.setattr(torch_engine, name, counting)
     cols, relations, groups, measure = _synth_cols("C1", 2000)
-    _build(Q, relations, groups, _bundle(measure, PORT)).engine(CPU).execute(cols)
-    assert all(v > 0 for v in calls.values()), calls
+    engine = TorchChannelEngine(device="cpu", mode=mode)
+    plan = _build(Q, relations, groups, _bundle(measure, PORT)).engine(engine).plan(cols)
+    _check_mode(plan, mode)
+    plan.execute()
+    if mode == "sparse":
+        assert all(v > 0 for v in calls.values()), calls
+    else:
+        assert calls["segment_sum"] == calls["coo_spmm"] == 0, calls
+        assert calls["segment_reduce"] > 0, calls
 
 
-def test_messages_and_views_stay_on_the_engine_device():
+@MODES
+def test_messages_and_views_stay_on_the_engine_device(mode):
+    """Grouped-CSR views (and, on the dense path, relation tensors) are
+    moved to the engine's device once and reused by the next execute."""
     cols, relations, groups, measure = _synth_cols("S1", 1000)
-    plan = _build(Q, relations, groups, _bundle(measure, PORT)).engine(CPU).plan(cols)
+    engine = TorchChannelEngine(device="cpu", mode=mode)
+    plan = _build(Q, relations, groups, _bundle(measure, PORT)).engine(engine).plan(cols)
+    _check_mode(plan, mode)
     plan.execute()
     views = plan.prep.device_views
     assert views, "no grouped-CSR view was moved to the device"
-    for view in views.values():
+    dense = {k: v for k, v in views.items() if k[0] == "dense"}
+    assert bool(dense) == (mode == "auto")
+    assert sorted(k[2] for k in dense) == sorted(plan.prep.encoded) * bool(dense)
+    for key, view in views.items():
+        if key[0] == "dense":
+            assert view.device == torch.device("cpu") and view.dtype == torch.float32
+            continue
         assert view.keys.device == torch.device("cpu")
         assert bool(torch.all(view.keys[1:] >= view.keys[:-1]))
-    n_views = len(views)
-    plan.execute()  # a second execute reuses every view
-    assert len(plan.prep.device_views) == n_views
+    before = dict(views)
+    plan.execute()  # a second execute reuses every view and tensor
+    assert plan.prep.device_views.keys() == before.keys()
+    assert all(plan.prep.device_views[k] is v for k, v in before.items())
 
 
 def test_cyclic_query_and_unported_options_raise():
@@ -418,15 +491,18 @@ def test_fused_option_routes_every_hop_to_one_fused_launch(monkeypatch, fused):
         assert all(calls[n] > 0 for n in ("segment_sum", "coo_spmm", "segment_reduce"))
 
 
-def test_fused_env_switch(monkeypatch):
+@MODES
+def test_fused_env_switch(monkeypatch, mode):
     """``REPRO_FUSED=1`` turns fused hops on for plans that did not pin a
-    choice; an explicit ``.fused(False)`` still wins."""
+    choice; an explicit ``.fused(False)`` still wins.  On the dense path
+    (``auto``) it does not move the choice: no hop runs fused."""
     assert ops.fused_enabled(True) is True
     assert ops.fused_enabled(False) is False
     monkeypatch.delenv("REPRO_FUSED", raising=False)
     assert ops.fused_enabled(None) is False
     calls = _count_kernel_calls(monkeypatch)
-    q = Q.over("R1", "R2", "R3").group_by("R1.g1", "R3.g2").agg(n=Count()).engine(CPU)
+    engine = TorchChannelEngine(device="cpu", mode=mode)
+    q = Q.over("R1", "R2", "R3").group_by("R1.g1", "R3.g2").agg(n=Count()).engine(engine)
     cols = _quickstart_cols(300)
     q.execute(cols)
     assert calls["fused_hop"] == 0
@@ -434,8 +510,10 @@ def test_fused_env_switch(monkeypatch):
     assert ops.fused_enabled(None) is True
     want = q.fused(False).execute(cols)
     assert calls["fused_hop"] == 0
-    got = q.execute(cols)
-    assert calls["fused_hop"] == 3
+    plan = q.plan(cols)
+    _check_mode(plan, mode)
+    got = plan.execute()
+    assert calls["fused_hop"] == (3 if mode == "sparse" else 0)
     _assert_identical(want, got)
 
 

@@ -32,6 +32,7 @@ from repro_torch.api import (
     TorchChannelEngine,
     UnsupportedPlanOption,
 )
+from repro_torch.core import torch_engine
 from repro_torch.core.query import resolve_schema
 from repro_torch.ghd import bags, compile_ghd, is_cyclic_query, verify_ghd
 from test_torch_planner import CATALOG, assert_identical, catalog, with_column
@@ -51,6 +52,7 @@ MEASURED = {
 
 def test_max_dense_elems_matches_the_reference():
     assert bags.MAX_DENSE_ELEMS == JAX_MAX_DENSE_ELEMS == jbags.MAX_DENSE_ELEMS
+    assert bags.MAX_DENSE_ELEMS is torch_engine.MAX_DENSE_ELEMS
 
 
 @pytest.mark.parametrize("name", CATALOG)
@@ -106,10 +108,14 @@ def _bundle(qcls, api, q, rel):
     ).agg(n=count(), s=total(m), a=avg(m), lo=lo(m), hi=hi(m))
 
 
+@pytest.mark.parametrize("mode", ["sparse", "auto"])
 @pytest.mark.parametrize("stats", [True, False])
 @pytest.mark.parametrize("fused", [None, True])
 @pytest.mark.parametrize("name", CYCLIC)
-def test_cyclic_bundle_bit_identical(name, fused, stats):
+def test_cyclic_bundle_bit_identical(name, fused, stats, mode):
+    """The bundle on the sparse walk (pinned) and on the path the plan
+    chooses (``auto``: dense at these sizes, sparse under ``.fused(True)``)
+    against both JAX engines."""
     rel, n, high = MEASURED[name]
     jdb, jq, db, q = catalog(name, n)
     m = np.random.default_rng(11).integers(0, high, jdb[rel].num_rows)
@@ -117,7 +123,7 @@ def test_cyclic_bundle_bit_identical(name, fused, stats):
     pq = _bundle(Q, (Count, Sum, Avg, Min, Max), q, rel).stats(stats)
     if fused is not None:
         pq = pq.fused(fused)
-    plan = pq.engine(CPU).plan(db)
+    plan = pq.engine(TorchChannelEngine(device="cpu", mode=mode)).plan(db)
     assert plan.cyclic and plan.split is None
     got = plan.execute()
     assert got.num_rows > 0 and got.column("s").max() < 2**24

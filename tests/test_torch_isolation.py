@@ -1,8 +1,8 @@
 """The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
-neither JAX nor the JAX package ``repro`` (an acyclic, a split and a
-cyclic query are answered with both refused), and the port's default
-engine refuses to run without a CUDA card instead of quietly using the
-CPU."""
+neither JAX nor the JAX package ``repro`` (an acyclic, a split, a cyclic
+and a dense-path query are answered, explained and verified with both
+refused), and the port's default engine refuses to run without a CUDA
+card instead of quietly using the CPU."""
 import ast
 import json
 import os
@@ -54,11 +54,20 @@ sdb, sq = skewed_chain_like(2000, seed=0)
 split = Q.from_query(sq).engine(cpu).plan(sdb)
 tdb, tq = triangle_like(800, seed=0)
 cyclic = Q.from_query(tq).engine(cpu).plan(tdb)
+dense = (
+    Q.over("R1", "R2").group_by("R1.g1", "R2.g2")
+    .agg(n=Count(), s=Sum("R2.m"), lo=Min("R2.m")).engine(cpu).plan(db)
+)
+explained = dense.explain(actuals=True) + cyclic.explain(actuals=True)
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in {"jax", "jaxlib", "repro"})
 print(json.dumps({"rows": res.num_rows, "n": float(res.column("n").sum()),
                   "split": split.split is not None,
                   "split_rows": split.execute().num_rows,
                   "cyclic": cyclic.cyclic, "cyclic_rows": cyclic.execute().num_rows,
+                  "dense": dense.engine.path(dense.prep, dense.channels),
+                  "dense_rows": dense.execute().num_rows,
+                  "explained": "torch path: dense" in explained,
+                  "findings": len(dense.verify(strict=False) + cyclic.verify(strict=False)),
                   "loaded": loaded}))
 """
 
@@ -80,6 +89,8 @@ def test_port_answers_a_query_with_jax_and_repro_refused():
     assert out["rows"] > 0 and out["n"] > 0
     assert out["split"] and out["split_rows"] > 0
     assert out["cyclic"] and out["cyclic_rows"] > 0
+    assert out["dense"] == "dense" and out["dense_rows"] > 0
+    assert out["explained"] and out["findings"] == 0
 
 
 def _imported_modules(path: Path) -> list[str]:
@@ -101,6 +112,12 @@ def _imported_modules(path: Path) -> list[str]:
 def test_no_source_imports_jax_or_repro(path):
     bad = [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN]
     assert bad == [], f"{path} imports {bad}"
+
+
+def test_the_scan_covers_every_port_package():
+    scanned = {p.parent.name for p in PORT.rglob("*.py")}
+    packages = {p.parent.name for p in PORT.rglob("__init__.py")}
+    assert {"analysis", "api", "core", "kernels", "planner"} <= packages == scanned
 
 
 def test_torch_engine_raises_without_cuda(monkeypatch):

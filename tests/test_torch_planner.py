@@ -10,6 +10,9 @@ of the chosen plan, the root and the split must be the same.  Results
 of split plans are held bit for bit against ``engine("jax")`` (CPU auto
 mode, its plain kernels) and ``engine("tensor")``: the measures are
 integers, so every float32 partial and every float64 merge is exact.
+Tests that mean the sparse walk pin it (``mode="sparse"``) beside a case
+in the default ``mode="auto"``, which runs each key range of a split
+plan on the path ``choose_path`` picks for it (dense at these sizes).
 """
 import numpy as np
 import pytest
@@ -33,6 +36,7 @@ from repro_torch.planner.cost import node_card_estimates, plan_cost
 from repro_torch.relational.relation import Database
 
 CPU = TorchChannelEngine(device="cpu")
+MODES = pytest.mark.parametrize("mode", ["sparse", "auto"])
 SYNTH = ("C1", "S1", "B1")
 GENERATORS = {**jqueries.REAL, **jqueries.SKEWED, **jqueries.CYCLIC}
 CATALOG = SYNTH + tuple(GENERATORS)
@@ -149,16 +153,18 @@ def _skew_bundle(qcls, api, fused, stats):
     return q.fused(fused) if fused is not None else q
 
 
+@MODES
 @pytest.mark.parametrize("stats", [True, False])
 @pytest.mark.parametrize("fused", [None, True])
-def test_split_results_bit_identical(fused, stats):
+def test_split_results_bit_identical(fused, stats, mode):
     """SKEWCHAIN with COUNT/SUM/AVG of an integer measure (MIN/MAX would
     turn the split off), unfused and fused, split (statistics on) or
     not: equal bit for bit to engine("jax") and engine("tensor")."""
     jdb, _, db, _ = catalog("SKEWCHAIN", 3000)
     m = np.random.default_rng(5).integers(0, 50, 3000)
     jdb, db = with_column(jdb, db, "R2", "m", m)
-    plan = _skew_bundle(Q, (Count, Sum, Avg), fused, stats).engine(CPU).plan(db)
+    engine = TorchChannelEngine(device="cpu", mode=mode)
+    plan = _skew_bundle(Q, (Count, Sum, Avg), fused, stats).engine(engine).plan(db)
     assert (plan.split is not None) is stats
     got = plan.execute()
     assert got.num_rows > 0
@@ -168,19 +174,28 @@ def test_split_results_bit_identical(fused, stats):
         assert_identical(jplan.execute(), got)
 
 
-def test_split_parts_built_once_and_reused():
+@MODES
+def test_split_parts_built_once_and_reused(mode):
     """The per-range ``Prepared`` set is built on the first execute and
-    kept: a warm execute uploads no view and gives the same bits."""
+    kept: a warm execute uploads no view (sparse) and gives the same
+    bits.  A range's dense relation tensors (auto: every range runs
+    dense) are built per run and dropped, so the split holds one
+    range's tensors at a time."""
     _, _, db, q = catalog("SKEWCHAIN", 3000)
-    plan = Q.from_query(q).engine(CPU).plan(db)
+    plan = Q.from_query(q).engine(TorchChannelEngine(device="cpu", mode=mode)).plan(db)
     first = plan.execute()
     parts = plan._split_parts
     assert 1 < len(parts) <= plan.split.num_splits
-    views = [len(p.device_views) for p in parts]
-    assert all(views)
+    want = "dense" if mode == "auto" else "sparse"
+    assert all(plan.engine.path(p, plan.channels) == want for p in parts)
+    views = [dict(p.device_views) for p in parts]
+    assert not any(k[0] == "dense" for v in views for k in v)
+    assert all(views) if mode == "sparse" else not any(views)
     second = plan.execute()
     assert plan._split_parts is parts
-    assert [len(p.device_views) for p in parts] == views
+    for p, before in zip(parts, views):
+        assert p.device_views.keys() == before.keys()
+        assert all(p.device_views[k] is v for k, v in before.items())
     assert_identical(first, second)
     unsplit = Q.from_query(q).engine(CPU).stats(False).plan(db).execute()
     assert_identical(unsplit, first)
@@ -211,11 +226,12 @@ def test_split_over_budget_falls_back_like_the_reference():
 FRACTIONAL_RTOL = 1e-5
 
 
+@MODES
 @pytest.mark.parametrize("name,rel,minmax", [
     ("IMDB", "E1", True),  # the bundle with MIN/MAX, unsplit
     ("SKEWCHAIN", "R2", False),  # COUNT/SUM/AVG: a split plan
 ])
-def test_fractional_measure_sum_within_tolerance(name, rel, minmax):
+def test_fractional_measure_sum_within_tolerance(name, rel, minmax, mode):
     jdb, jq, db, q = catalog(name, 3000)
     m = np.random.default_rng(9).uniform(0.0, 7.0, jdb[rel].num_rows)
     jdb, db = with_column(jdb, db, rel, "m", m)
@@ -228,7 +244,8 @@ def test_fractional_measure_sum_within_tolerance(name, rel, minmax):
             aggs.update(lo=lo(f"{rel}.m"), hi=hi(f"{rel}.m"))
         return qcls.over(*q.relations).group_by(*groups).agg(**aggs)
 
-    plan = bundle((Count, Sum, Avg, Min, Max), Q).engine(CPU).plan(db)
+    engine = TorchChannelEngine(device="cpu", mode=mode)
+    plan = bundle((Count, Sum, Avg, Min, Max), Q).engine(engine).plan(db)
     assert (plan.split is not None) is (not minmax)
     got = plan.execute()
     for engine in ("jax", "tensor"):
