@@ -74,7 +74,26 @@ Run from the root of a checkout on a machine with a CUDA card.  It
 9. prints ``plan.explain(actuals=True)`` of TPCH at 600 rows on the card
    and checks that ``verify()`` finds no broken invariant in any leg's
    plan (V-OVERFLOW, an estimate the legs' exact count checks settle,
-   is printed).
+   is printed);
+10. drives the maintain leg: Table VIII's B2 star (``data/synth.py``) at
+   ``--n`` rows per relation with an integer measure on R2, a COUNT
+   handle through ``Q.maintain(db)`` and a COUNT/SUM/AVG bundle through
+   ``Plan.maintain()``, both caching their messages on the card, through
+   inserts of 1, 10, 100, 1,000 and 10,000 rows into R2, a delete of
+   1,000 present R2 tuples, an insert into the leaf R3 that grows two
+   domains and an insert into the root R1.  After each batch both
+   handles equal a from-scratch execute on the card bit for bit and Σ
+   COUNT equals numpy's; per batch and handle it prints refresh and
+   full-recompute ms and their ratio, ``delta_rows``,
+   ``rows_rescanned``, ``peak_delta_bytes``, the device peak above
+   resident, the launches and the device→host syncs of the refresh
+   (only ``segment_sum`` and ``coo_spmm`` may launch).  The largest
+   batch is then deleted, its launches captured and held against the
+   plain versions (``maintain_kernels``), and inserted again under the
+   profiler (idle share); a MIN handle takes a delete (the
+   non-invertible fallback, on ``segment_reduce``); and at
+   ``--check-n`` the same sequence runs on card and ``device="cpu"``
+   handles, bit for bit.
 
 Every leg prints its ``torch path:`` line — per key range for the split
 leg — and checks the path each run took against ``choose_path``: a dense
@@ -83,7 +102,8 @@ sparse one does.
 
 The last three lines of standard output are the card's name and power
 limit, one JSON object of per-kernel numbers (with each kernel's launches
-in every leg), and ``{"ok": true, "device": {...}}``.  Any failed check
+in every leg, the maintain leg's refreshes summed under ``maintain``),
+and ``{"ok": true, "device": {...}}``.  Any failed check
 exits non-zero.
 """
 from __future__ import annotations
@@ -550,7 +570,7 @@ def gather_phase(torch, tag) -> dict[str, list[float]]:
     return errs
 
 
-def segment_regime(torch, tag, name, label, launch):
+def segment_regime(torch, tag, name, label, launch, path="main path"):
     """One captured ``segment_sum`` / ``segment_reduce`` launch: held
     against its plain version with ``out=`` at the launch's own alignment,
     and timed beside the plain version, the library call and the bound."""
@@ -580,7 +600,7 @@ def segment_regime(torch, tag, name, label, launch):
             return torch.full((s, d), ident, device=dev).scatter_reduce_(
                 0, index, data, red, include_self=True
             )
-    err = compare(torch, tag, name, f"main path, {label}", kernel, plain, args, out=out)
+    err = compare(torch, tag, name, f"{path}, {label}", kernel, plain, args, out=out)
     b, by = bound(n * d * 4 + n * 8 + s * d * 4, n * d)
     row = dict(
         shapes={"data": [n, d], "segment_ids": [n], "num_segments": s,
@@ -1557,6 +1577,335 @@ def explain_phase(torch, tag, seed: int) -> None:
 
 
 # ----------------------------------------------------------------------
+# the maintain leg
+# ----------------------------------------------------------------------
+
+MAINTAIN_SIZES = (1, 10, 100, 1000, 10000)  # Table VIII's inserts into R2
+MAINTAIN_DELETE = 1000  # present R2 tuples deleted after them
+MAINTAIN_SIDE = 100  # rows of the R3 (leaf, growing) and R1 (root) inserts
+
+
+def b2_cols(n: int, seed: int):
+    """Table VIII's B2 star (``data/synth.py``) at ``n`` rows per relation
+    with an integer measure ``m`` in [1, 40] on R2; its columns and query."""
+    import numpy as np
+
+    from repro_torch.data import synth
+
+    db, q = synth.make("B2", n, seed=seed)
+    cols = {r: dict(db[r].columns) for r in q.relations}
+    cols["R2"]["m"] = np.random.default_rng(seed + 3).integers(1, 41, n)
+    return cols, q
+
+
+def b2_total(cols) -> int:
+    """Σ COUNT of the B2 join R1(g1,j) ⋈ R2(j,b) ⋈ R3(b,g2) ⋈ R4(b,g3),
+    counted in numpy without the port: R3 and R4 rows per b, R2 weighted
+    per j, summed over R1 (integers below 2**53, exact in float64)."""
+    import numpy as np
+
+    bdom = 1 + max(int(cols[r]["b"].max()) for r in ("R2", "R3", "R4"))
+    jdom = 1 + max(int(cols[r]["j"].max()) for r in ("R1", "R2"))
+    per_b = (np.bincount(cols["R3"]["b"], minlength=bdom)
+             * np.bincount(cols["R4"]["b"], minlength=bdom))
+    w2 = np.bincount(cols["R2"]["j"], weights=per_b[cols["R2"]["b"]], minlength=jdom)
+    return int(w2[cols["R1"]["j"]].sum())
+
+
+def b2_bundle(engine):
+    """COUNT, SUM and AVG of R2.m over B2, grouped as Table VIII groups."""
+    from repro_torch.api import Avg, Count, Q, Sum
+
+    return (Q.over("R1", "R2", "R3", "R4").group_by("R1.g1", "R3.g2", "R4.g3")
+            .agg(n=Count(), s=Sum("R2.m"), a=Avg("R2.m")).engine(engine))
+
+
+def b2_batches(cols, seed: int) -> list:
+    """The leg's batches ``(label, op, rel, columns)``: Table VIII's five
+    insert sizes into R2 (its value ranges), a delete of the first
+    ``MAINTAIN_DELETE`` R2 tuples, an insert into the leaf R3 with 10 new
+    b values and only new g2 values (both domains grow), and an insert
+    into the root R1."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 17)
+    jdom = 1 + int(cols["R2"]["j"].max())
+    bdom = 1 + max(int(cols[r]["b"].max()) for r in ("R2", "R3", "R4"))
+    gdom = 1 + int(cols["R3"]["g2"].max())
+    out = [(f"insert {k} into R2", "insert", "R2",
+            {"j": rng.integers(0, jdom, k), "b": rng.integers(0, bdom, k),
+             "m": rng.integers(1, 41, k)}) for k in MAINTAIN_SIZES]
+    out.append((f"delete {MAINTAIN_DELETE} from R2", "delete", "R2",
+                {a: c[:MAINTAIN_DELETE].copy() for a, c in cols["R2"].items()}))
+    k = MAINTAIN_SIDE
+    out.append((f"insert {k} into R3, new b and g2", "insert", "R3",
+                {"b": np.concatenate([rng.integers(0, bdom, k - 10), bdom + np.arange(10)]),
+                 "g2": gdom + rng.integers(0, 2, k)}))
+    out.append((f"insert {k} into R1 (root)", "insert", "R1",
+                {"g1": rng.integers(0, gdom, k), "j": rng.integers(0, jdom, k)}))
+    return out
+
+
+def mirrored(cols, op: str, rel: str, batch):
+    """The host's copy of the columns after a batch.  Deletes here are a
+    contiguous block of rows: the first ones, or the block that the
+    ``MAINTAIN_SIZES[-1]`` insert appended (found by its rows)."""
+    import numpy as np
+
+    out = {r: dict(c) for r, c in cols.items()}
+    cur = cols[rel]
+    if op == "insert":
+        out[rel] = {a: np.concatenate([c, np.asarray(batch[a])]) for a, c in cur.items()}
+        return out
+    k = len(next(iter(batch.values())))
+    starts = np.flatnonzero(np.logical_and.reduce([c == batch[a][0] for a, c in cur.items()]))
+    lo = next(int(i) for i in starts
+              if all(np.array_equal(c[i:i + k], batch[a]) for a, c in cur.items()))
+    out[rel] = {a: np.concatenate([c[:lo], c[lo + k:]]) for a, c in cur.items()}
+    return out
+
+
+def handle_stats(handle) -> dict:
+    """A handle's refresh counters; a bundle's summed over its handles
+    (``peak_delta_bytes`` their largest)."""
+    stats = getattr(handle, "handles", {"": handle})
+    keys = ("delta_rows", "rows_rescanned", "fallback_recomputes", "host_syncs")
+    out = {k: sum(getattr(h.stats, k) for h in stats.values()) for k in keys}
+    out["peak_delta_bytes"] = max(h.stats.peak_delta_bytes for h in stats.values())
+    return out
+
+
+def timed_refresh(torch, handle, op: str, rel: str, batch) -> dict:
+    """One refresh with the launch counts set to 0 just before it and read
+    just after: host ms ending in a synchronise, launches, the handle's
+    counters for this refresh and the device peak above what was
+    allocated before it."""
+    from repro_torch.kernels import ops
+
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    before = handle_stats(handle)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    getattr(handle, op)(rel, batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = ops.launch_counts()
+    after = handle_stats(handle)
+    row = {k: after[k] - before[k] for k in after if k != "peak_delta_bytes"}
+    row.update(ms=ms, launches=launches, peak_delta_bytes=after["peak_delta_bytes"],
+               peak_above_resident_bytes=torch.cuda.max_memory_allocated() - resident)
+    return row
+
+
+def from_scratch(torch, q, cols):
+    """The port's answer on ``cols`` with nothing kept: plan and execute
+    on the card, timed (host clock ending in a synchronise)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plan = q.plan(cols)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    res = plan.execute()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return res, (t2 - t0) * 1e3, (t2 - t1) * 1e3
+
+
+def maintain_leg(torch, tag, args) -> dict:
+    """B2 at ``--n`` (Table VIII) maintained on the card: a COUNT handle
+    through ``Q.maintain(db)`` and a COUNT/SUM/AVG bundle through
+    ``Plan.maintain()`` take the batches of :func:`b2_batches`; after
+    each, both equal a from-scratch execute on the card bit for bit and
+    Σ COUNT equals numpy's.  Then the largest batch is deleted (its
+    launches captured and held against the plain versions) and inserted
+    again under the profiler, a MIN handle takes a delete (the
+    non-invertible fallback), and at ``--check-n`` the same sequence runs
+    on the card and on the CPU, bit for bit."""
+    import numpy as np
+
+    from repro_torch.api import Min, Q
+    from repro_torch.incremental import MaintainedJoinAgg
+
+    cols, q = b2_cols(args.n, args.seed)
+    say(tag, f"data: B2 n={args.n} seed={args.seed}, R2.m in [1, 40]")
+    count_q = Q.from_query(q)
+    t0 = time.perf_counter()
+    counter = count_q.maintain(cols)
+    torch.cuda.synchronize()
+    count_build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bundle = b2_bundle("torch").plan(cols).maintain()
+    torch.cuda.synchronize()
+    bundle_build = time.perf_counter() - t0
+    check(isinstance(counter, MaintainedJoinAgg), "Q.maintain did not return a raw handle")
+    caches = counter.caches["count"].msgs
+    say(tag, f"maintain leg: COUNT handle (Q.maintain) built in {count_build:.3f} s, bundle "
+             f"(Plan.maintain, {len(bundle.handles)} handles) in {bundle_build:.3f} s; root "
+             f"{counter.prep.decomposition.root}; domains "
+             f"{ {a: d.size for a, d in counter.dicts.items()} }; cached messages "
+             f"{ {r: tuple(m.array.shape) for r, m in caches.items()} }; device memory "
+             f"allocated {torch.cuda.memory_allocated()} B")
+
+    def checked(label, cols):
+        fresh_c, c_full, c_exec = from_scratch(torch, count_q, cols)
+        fresh_b, b_full, b_exec = from_scratch(torch, b2_bundle("torch"), cols)
+        want = b2_total(cols)
+        ok_c = counter.result() == fresh_c.to_dict()
+        ok_b = same_result(bundle.result(), fresh_b)
+        total = fresh_b.column("n").sum()
+        say(tag, f"check: maintain leg, {label}: COUNT handle = fresh execute bit for bit: "
+                 f"{ok_c}; bundle = fresh execute bit for bit: {ok_b} ({fresh_b.num_rows} "
+                 f"groups); Σ count {total:.0f} vs numpy {want}")
+        check(ok_c and ok_b, f"maintain leg, {label}: a handle differs from a fresh execute")
+        check(total == want and sum(counter.result().values()) == want,
+              f"maintain leg, {label}: Σ count disagrees with numpy")
+        for name in fresh_b.agg_names:
+            check(bool(np.isfinite(fresh_b.column(name)).all()), f"maintain leg: non-finite {name}")
+        return {"count": (c_full, c_exec), "bundle": (b_full, b_exec)}
+
+    checked("as built", cols)
+    totals: dict[str, int] = {}
+    rows = []
+    batches = b2_batches(cols, args.seed)
+    for label, op, rel, batch in batches:
+        row = {"batch": label}
+        for name, handle in (("count", counter), ("bundle", bundle)):
+            r = timed_refresh(torch, handle, op, rel, batch)
+            row[name] = r
+            for kernel, c in r["launches"].items():
+                totals[kernel] = totals.get(kernel, 0) + c
+        cols = mirrored(cols, op, rel, batch)
+        full = checked(label, cols)
+        for name in ("count", "bundle"):
+            r = row[name]
+            r.update(full_ms=full[name][0], full_execute_ms=full[name][1],
+                     full_over_refresh=full[name][0] / r["ms"])
+            say(tag, f"maintain leg, {label}, {name}: refresh {r['ms']:.3f} ms vs full "
+                     f"recompute {r['full_ms']:.3f} ms (of it execute "
+                     f"{r['full_execute_ms']:.3f} ms), ratio {r['full_over_refresh']:.2f}; "
+                     f"delta_rows {r['delta_rows']}, rows_rescanned {r['rows_rescanned']}, "
+                     f"fallback_recomputes {r['fallback_recomputes']}, peak_delta_bytes "
+                     f"{r['peak_delta_bytes']}; device peak above resident "
+                     f"{r['peak_above_resident_bytes']} B; launches {r['launches']}; "
+                     f"device->host syncs {r['host_syncs']}")
+            check(r["fallback_recomputes"] == 0, f"maintain leg, {label}: a fallback ran")
+            check(r["launches"]["fused_hop"] == 0 and r["launches"]["segment_reduce"] == 0
+                  and r["launches"]["semiring_matmul"] == 0,
+                  f"maintain leg, {label}: a refresh launched a kernel off its path")
+        rows.append(row)
+    say(tag, f"maintain leg: launches of every refresh together: {totals}")
+    check(totals["segment_sum"] > 0 and totals["coo_spmm"] > 0,
+          "maintain leg: the refreshes never launched segment_sum or coo_spmm")
+
+    # the largest batch once more: deleted (launches captured), inserted
+    # again under the profiler
+    big = batches[len(MAINTAIN_SIZES) - 1][3]
+    captured = capture_launches(lambda: bundle.delete("R2", big), main_path_key)
+    counter.delete("R2", big)
+    cols = mirrored(cols, "delete", "R2", big)
+    checked(f"delete the {MAINTAIN_SIZES[-1]} rows again", cols)
+    profiles = {}
+    for name, handle in (("count", counter), ("bundle", bundle)):
+        wall, busy, top = idle_share(torch, lambda h=handle: h.insert("R2", big))
+        profiles[name] = {"wall_s": wall, "device_busy_s": busy, "idle_share": 1 - busy / wall}
+        say(tag, f"profile: maintain leg, {name}, insert {MAINTAIN_SIZES[-1]} into R2 again: "
+                 f"{wall:.3f} s wall, device busy {busy:.4f} s, idle share "
+                 f"{1 - busy / wall:.3f}")
+        for op_name, ms, cnt in top[:8]:
+            say(tag, f"profile: {ms:10.3f} ms x{cnt:<6d} {op_name[:140]}")
+    cols = mirrored(cols, "insert", "R2", big)
+    checked(f"insert the {MAINTAIN_SIZES[-1]} rows again", cols)
+
+    # MIN through a delete: the non-invertible fallback
+    min_q = (Q.over("R1", "R2", "R3", "R4").group_by("R1.g1", "R3.g2", "R4.g3")
+             .agg(lo=Min("R2.m")))
+    t0 = time.perf_counter()
+    low = min_q.maintain(cols)
+    torch.cuda.synchronize()
+    min_build = time.perf_counter() - t0
+    gone = {a: c[:MAINTAIN_DELETE].copy() for a, c in cols["R2"].items()}
+    r = timed_refresh(torch, low, "delete", "R2", gone)
+    cols = mirrored(cols, "delete", "R2", gone)
+    fresh, full_ms, _ = from_scratch(torch, min_q, cols)
+    same = low.result() == fresh.to_dict()
+    say(tag, f"maintain leg, MIN handle: built in {min_build:.3f} s; delete "
+             f"{MAINTAIN_DELETE} from R2: refresh {r['ms']:.3f} ms (fallback recomputes "
+             f"{r['fallback_recomputes']}) vs full recompute {full_ms:.3f} ms; launches "
+             f"{r['launches']}; = fresh execute bit for bit: {same}")
+    check(same and r["fallback_recomputes"] == 1, "maintain leg: the MIN fallback is wrong")
+    check(r["launches"]["segment_reduce"] > 0, "maintain leg: the MIN recompute ran no segment_reduce")
+    del counter, bundle, low
+    torch.cuda.empty_cache()
+    maintain_cpu_check(torch, tag, args)
+    return {"maintain": {"count_build_s": count_build, "bundle_build_s": bundle_build,
+                         "min_build_s": min_build, "batches": rows, "profiles": profiles,
+                         "min_delete": r},
+            "captured": captured,
+            "launches": {"maintain": totals, "maintain, MIN fallback": r["launches"]}}
+
+
+def maintain_cpu_check(torch, tag, args) -> None:
+    """The leg's batch sequence at ``--check-n`` on a card handle and a
+    ``device="cpu"`` handle, COUNT and the bundle: equal bit for bit
+    after every batch."""
+    from repro_torch.api import Q, TorchChannelEngine
+
+    cpu = TorchChannelEngine(device="cpu")
+    cols, q = b2_cols(args.check_n, args.seed)
+    pairs = {
+        "count": (Q.from_query(q).maintain(cols), Q.from_query(q).engine(cpu).maintain(cols)),
+        "bundle": (b2_bundle("torch").maintain(cols), b2_bundle(cpu).maintain(cols)),
+    }
+    for label, op, rel, batch in [("as built", None, None, None)] + b2_batches(cols, args.seed):
+        same = True
+        for gpu, host in pairs.values():
+            if op is not None:
+                getattr(gpu, op)(rel, batch)
+                getattr(host, op)(rel, batch)
+            a, b = gpu.result(), host.result()
+            same = same and (a == b if isinstance(a, dict) else same_result(a, b))
+        say(tag, f"check: maintain leg: B2 n={args.check_n}, {label}: card handles = "
+                 f"device='cpu' handles bit for bit: {same}")
+        check(same, f"maintain leg, n={args.check_n}, {label}: cuda differs from cpu")
+
+
+def maintain_kernels(torch, tag, captured) -> dict:
+    """The largest refresh's ``segment_sum`` and ``coo_spmm`` launches (the
+    leg's own shapes) against their plain versions, tolerance 0, and
+    timed beside the plain version, the library call and the bound."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.coo_spmm import coo_spmm
+
+    seg = [lc for key, lc in captured.items() if isinstance(key, tuple) and key[0] == "segment_sum"]
+    check(seg and "coo_spmm" in captured, "maintain leg: no segment_sum or coo_spmm captured")
+    out = {"segment_sum": segment_regime(
+        torch, tag, "segment_sum", "largest refresh launch",
+        max(seg, key=lambda lc: lc.size), path="maintain leg")}
+    lc = captured["coo_spmm"]
+    rows, cols, vals, dense, s = lc.args
+    err = compare(torch, tag, "coo_spmm", "maintain leg, largest refresh launch", coo_spmm,
+                  ref.coo_spmm, lc.args)
+    nnz, (kdense, w) = rows.shape[0], dense.shape
+    used = int(torch.unique(cols).numel())
+    b, by = bound(nnz * 20 + used * w * 4 + s * w * 4, 2 * nnz * w)
+    row = dict(
+        shapes={"rows": [nnz], "dense": [kdense, w], "num_rows": s, "dense_rows_used": used},
+        launches=lc.count, walk=repr(ops.gather_plan(nnz, s, w)), max_abs_err=err,
+        ms=time_ms(torch, lambda: coo_spmm(rows, cols, vals, dense, s)),
+        plain_ms=time_ms(torch, lambda: ref.coo_spmm(rows, cols, vals, dense, s), reps=3),
+        library_ms=csr_spmm_ms(torch, rows, cols, vals, dense, s),
+        bound_ms=b, bound_by=by,
+    )
+    say(tag, f"kernels: coo_spmm [maintain leg] at {row['shapes']}: {row['ms']:.4f} ms, "
+             f"bound {b:.4f} ms by {by}, plain {row['plain_ms']:.4f} ms, library "
+             f"torch.sparse.mm {row['library_ms']:.4f} ms; {row['walk']}")
+    out["coo_spmm"] = row
+    return out
+
+
+# ----------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1684,11 +2033,18 @@ def main() -> int:
     dense = dense_leg(torch, tag, args)
     explain_phase(torch, tag, args.seed)
 
+    # 10. maintain leg -----------------------------------------------------
+    torch.cuda.empty_cache()
+    maintain = maintain_leg(torch, tag, args)
+    for name, row in maintain_kernels(torch, tag, maintain.pop("captured")).items():
+        results[name]["max_abs_err"] = max(results[name]["max_abs_err"], row["max_abs_err"])
+        results[name]["maintain"] = row
+
     legs = {"main": launches, "fused": flaunches}
-    for leg in (split, cyclic, dense):
+    for leg in (split, cyclic, dense, maintain):
         legs.update(leg.pop("launches"))
     for label, summary in (("main path", main), ("fused path", fused), *split.items(),
-                           *cyclic.items(), *dense.items()):
+                           *cyclic.items(), *dense.items(), *maintain.items()):
         say(tag, f"{label} summary: {json.dumps(summary)}")
     paths = {name: "main" for name in UNFUSED_KERNELS}
     paths.update(fused_hop="fused", semiring_matmul=None)
@@ -1710,6 +2066,8 @@ def main() -> int:
             entry.update(regimes=r["regimes"], launches_by_width=r["launches_by_width"])
         if name == "coo_spmm":
             entry.update(walk=r["walk"])
+        if "maintain" in r:
+            entry.update(maintain=r["maintain"])
         if name == "fused_hop":
             entry.update(three_dispatch_ms=r["three_dispatch_ms"], library=r["library"],
                          hops=r["hops"], walk=r["walk"])

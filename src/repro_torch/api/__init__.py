@@ -11,6 +11,9 @@
         .plan(db)
         .execute()
     )
+
+``.maintain(db)`` in place of ``.plan(db)`` returns a handle whose
+``insert``/``delete`` refresh the result along the dirty root-path only.
 """
 from repro_torch.aggregates.semiring import AggSpec, Avg, Count, Max, Min, Sum
 from repro_torch.api.builder import Q
@@ -21,6 +24,7 @@ from repro_torch.api.engines import (
     TorchChannelEngine,
     resolve_engine,
 )
+from repro_torch.api.maintain import MaintainedPlan
 from repro_torch.api.plan import AggResult, Plan, compile_plan
 from repro_torch.core.operator import UnsupportedPlanOption
 
@@ -31,6 +35,7 @@ __all__ = [
     "Channel",
     "Count",
     "EngineOutput",
+    "MaintainedPlan",
     "Max",
     "Min",
     "MinMaxRequest",

@@ -15,8 +15,8 @@ Every method returns a new immutable ``Q``; ``plan(db)`` compiles to a
 "Source")`` tuples (or repeat a bare name — occurrences auto-alias as
 ``name__2``, ``name__3``, ...) and rename the alias's columns with
 ``.rename``; ``Q.from_query`` wraps a catalog ``JoinAggQuery``.  Port
-of the JAX package's ``api/builder.py``; ``.mesh`` and ``.maintain``
-raise :class:`UnsupportedPlanOption`.
+of the JAX package's ``api/builder.py``; ``.mesh`` raises
+:class:`UnsupportedPlanOption`.
 """
 from __future__ import annotations
 
@@ -242,9 +242,11 @@ class Q:
         return replace(self, stats_opt=bool(enabled))
 
     def maintain(self, db):
-        raise UnsupportedPlanOption(
-            "incremental maintenance is not ported to repro_torch"
-        )
+        """Maintenance handle without paying for the physical stage: the
+        incremental maintainer prepares its own growable state, so root
+        search / GHD bag materialization are skipped (logical rewrites
+        and option validation still run)."""
+        return compile_plan(self, _as_database(db), physical=False).maintain()
 
     # ------------------------------------------------------------------
     def plan(self, db) -> Plan:

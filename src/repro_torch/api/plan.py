@@ -22,11 +22,11 @@ single :class:`Plan` through three stages:
 ``Plan.execute()`` returns a columnar :class:`AggResult`;
 ``Plan.explain()`` renders the decisions, the dense-vs-sparse path choice
 among them; ``Plan.verify()`` checks the plan's structural invariants
-(``repro_torch.analysis.verify``).
+(``repro_torch.analysis.verify``); ``Plan.maintain()`` hands the same
+query to the incremental maintainer (``repro_torch.incremental``).
 
 Port of the JAX package's ``api/plan.py``, fused hops included
-(``Q.fused``); meshes and incremental maintenance raise
-:class:`UnsupportedPlanOption`.
+(``Q.fused``); meshes raise :class:`UnsupportedPlanOption`.
 """
 from __future__ import annotations
 
@@ -129,14 +129,15 @@ class AggResult:
 
 @dataclass
 class Plan:
-    """A compiled logical plan, ready to execute, explain or verify."""
+    """A compiled logical plan, ready to execute, explain, verify or
+    maintain."""
 
     db: Database  # effective database (aliases + predicates + copies)
     query: JoinAggQuery  # rewritten query (primary aggregate)
     aggs: tuple[tuple[str, AggSpec], ...]
     group_display: tuple[str, ...]
     engine: TorchChannelEngine
-    prep: Prepared
+    prep: Prepared | None  # None only for maintenance-only compiles
     channels: tuple[Channel, ...]
     minmax: tuple[MinMaxRequest, ...]
     assemble: dict[str, tuple]  # agg name -> assembly recipe
@@ -157,14 +158,25 @@ class Plan:
     stats_enabled: bool = True
     # why each rejected candidate root failed, for explain()
     root_notes: tuple[str, ...] = ()
+    # the Q builder that produced this plan (maintain() replays its
+    # aliases, renames and predicates on every delta batch)
+    spec: "object | None" = None
     # the split plan's per-range Prepared set, built on the first
     # execute and kept, so warm executes reuse each range's device views
     _split_parts: "list[Prepared] | None" = field(
         default=None, init=False, repr=False
     )
 
+    def _require_physical(self) -> None:
+        if self.prep is None:
+            raise RuntimeError(
+                "this Plan was compiled for maintenance only (physical stage "
+                "skipped); use Q.plan(db) for execute()/explain()"
+            )
+
     @property
     def message_peak(self) -> int:
+        self._require_physical()
         return peak_message_bytes(self.prep)
 
     @property
@@ -181,6 +193,7 @@ class Plan:
     @property
     def stats(self):
         """Collected statistics (lazy; see ``Prepared.stats``)."""
+        self._require_physical()
         return self.prep.stats
 
     def resolved_stream(self) -> tuple[str, int] | None:
@@ -219,6 +232,7 @@ class Plan:
         """The engine's sparse outputs for every channel and MIN/MAX
         request: one per stream tile, or for a split plan the per-range
         partials merged into one."""
+        self._require_physical()
         if self.split is not None:
             from repro_torch.planner.split import execute_split
 
@@ -240,10 +254,44 @@ class Plan:
         return _assemble(self, self.outputs())
 
     def maintain(self):
-        raise UnsupportedPlanOption(
-            "incremental maintenance is not ported to repro_torch; use the "
-            "JAX package's repro.api for maintain()"
+        """Incremental-maintenance handle(s) for this plan's query, their
+        caches on the plan engine's device.
+
+        Single-aggregate plans return a raw
+        :class:`~repro_torch.incremental.maintained.MaintainedJoinAgg` when
+        no logical rewrite is in play; otherwise a
+        :class:`~repro_torch.api.maintain.MaintainedPlan` wrapper applies
+        the plan's alias/predicate/copy rewrites to every delta batch and
+        fans deltas out to one maintained handle per named aggregate.
+        """
+        from repro_torch.api.maintain import MaintainedPlan, raw_handle
+
+        if self.stream is not None or self.memory_budget is not None:
+            raise UnsupportedPlanOption(
+                "maintain() does not support stream/memory_budget options"
+            )
+        if len(self.aggs) == 1 and not self._needs_delta_rewrite():
+            return raw_handle(self)
+        return MaintainedPlan(self)
+
+    def _needs_delta_rewrite(self) -> bool:
+        spec = self.spec
+        return bool(
+            spec.predicates
+            or any(n != s for n, s in spec.relations)
+            or any(m for _, m in spec.renames)
+            or self._group_copies()
         )
+
+    def _group_copies(self) -> dict[str, tuple[str, str]]:
+        """relation -> (source attr, copy attr) for planner-made copies."""
+        out = {}
+        for (rel, attr), (_, attr0) in zip(
+            self.query.group_by, self.spec.group_attrs
+        ):
+            if attr != attr0:
+                out[rel] = (attr0, attr)
+        return out
 
     # ------------------------------------------------------------------
     def verify(self, strict: bool = True) -> list:
@@ -259,6 +307,7 @@ class Plan:
         ``strict=True`` (default) raises
         :class:`~repro_torch.analysis.verify.PlanInvariantError` on any.
         Runs inside :func:`compile_plan` when ``REPRO_VERIFY=1``."""
+        self._require_physical()
         from repro_torch.analysis.verify import PlanInvariantError, verify_plan
 
         diags = verify_plan(self)
@@ -274,6 +323,7 @@ class Plan:
         one COUNT pass on the plan's device and renders the measured
         per-node message cardinalities next to the estimates
         (golden/bench scales only — it allocates the dense messages)."""
+        self._require_physical()
         prep = self.prep
         lines = [
             f"Plan: JOIN-AGG over {len(self.query.relations)} relations "
@@ -392,6 +442,7 @@ class Plan:
         that entry), ``k``, ``prep``, ``encoded`` and ``domains`` (None
         = the ``Prepared``'s own); :func:`~repro_torch.core.torch_engine.
         hop_launch_shapes` of each gives its launches' shapes."""
+        self._require_physical()
         if self.split is not None:
             parts = self.split_parts()
             attr = self.split.attr
@@ -452,9 +503,10 @@ class Plan:
 
     def __repr__(self) -> str:
         kind = "ghd" if self.cyclic else "acyclic"
+        root = None if self.prep is None else self.prep.decomposition.root
         return (
             f"Plan({kind}, engine={self.engine.name}, "
-            f"root={self.prep.decomposition.root}, "
+            f"root={root}, "
             f"aggs={[n for n, _ in self.aggs]})"
         )
 
@@ -464,8 +516,15 @@ class Plan:
 # ----------------------------------------------------------------------
 
 
-def compile_plan(spec, db: Database) -> Plan:
-    """Compile a builder spec against ``db`` into a :class:`Plan`."""
+def compile_plan(spec, db: Database, physical: bool = True) -> Plan:
+    """Compile a builder spec against ``db`` into a :class:`Plan`.
+
+    ``physical=False`` runs every logical stage (rewrites, validation,
+    option checks) but skips root search / GHD compilation and
+    channelization — the maintenance path (``Q.maintain``), where the
+    incremental maintainer builds its own growable prepared state and a
+    full ``Prepared`` would be thrown away.
+    """
     if not spec.relations:
         raise ValueError("query has no relations; start with Q.over(...)")
     if not spec.group_attrs:
@@ -510,6 +569,14 @@ def compile_plan(spec, db: Database) -> Plan:
         raise ValueError(f"aggregate names collide with group columns: {sorted(clash)}")
 
     stats_on = bool(spec.stats_opt)
+    if not physical:
+        return Plan(
+            db=edb, query=query0, aggs=aggs, group_display=group_display,
+            engine=engine, prep=None, channels=(), minmax=(), assemble={},
+            rewrite_notes=tuple(notes), memory_budget=spec.budget,
+            stream=spec.stream_opt, fused=spec.fused_opt, cyclic=cyclic,
+            stats_enabled=stats_on, spec=spec,
+        )
     ghd_plan = None
     root_notes: tuple[str, ...] = ()
     if cyclic:
@@ -561,6 +628,7 @@ def compile_plan(spec, db: Database) -> Plan:
         split=split,
         stats_enabled=stats_on,
         root_notes=root_notes,
+        spec=spec,
     )
     if os.environ.get("REPRO_VERIFY", "") not in ("", "0"):
         plan.verify()  # debug-mode assert (DESIGN.md §11)

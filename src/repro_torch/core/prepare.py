@@ -12,10 +12,11 @@
 5. the query decomposition tree with attribute splitting.
 
 Copy of the JAX package's ``core/prepare.py`` without its out-of-core
-view build and its growable dictionaries.  Statistics are collected
-lazily (:attr:`Prepared.stats`).  The torch engine moves each
-grouped-CSR view to the device once and memoizes it in
-:attr:`Prepared.device_views`.
+view build.  Statistics are collected lazily (:attr:`Prepared.stats`).
+The torch engine moves each grouped-CSR view to the device once and
+memoizes it in :attr:`Prepared.device_views`; the incremental maintainer
+drops a relation's memos when a delta changes it
+(:meth:`Prepared.forget`).
 """
 from __future__ import annotations
 
@@ -127,6 +128,25 @@ class Prepared:
     @property
     def group_attrs(self) -> tuple[tuple[str, str], ...]:
         return self.schema.group_attrs
+
+    def forget(self, rels) -> None:
+        """Drop every memo built from the encodings of ``rels``: host and
+        device grouped-CSR views (with the weights uploaded beside
+        them), dense relation tensors and MIN/MAX payload values.  The
+        incremental maintainer calls it for each relation a delta
+        changed, or whose dictionary grew (its raveled keys and tensor
+        shapes are stale then); every other relation keeps its memos."""
+        rels = set(rels)
+        # _csr_cache keys: (rel, key attrs); device_views keys: (device,
+        # rel, key attrs) or ("dense", device, rel, layout);
+        # payload_values keys: (device, rel, kind)
+        for memo, rel_of in (
+            (self._csr_cache, lambda k: k[0]),
+            (self.device_views, lambda k: k[2] if k[0] == "dense" else k[1]),
+            (self.payload_values, lambda k: k[1]),
+        ):
+            for key in [k for k in memo if rel_of(k) in rels]:
+                del memo[key]
 
     def csr_view(self, rel: str, key_attrs: tuple[str, ...]) -> CSRView:
         """Memoized grouped-CSR view of an encoded relation (DESIGN.md §7).
@@ -333,12 +353,14 @@ def encode_query(
     query: JoinAggQuery,
     db: Database,
     schema: QuerySchema,
+    growable: bool = False,
     measures: dict[str, str] | None = None,
 ) -> tuple[dict[str, Dictionary], dict[str, EncodedRelation]]:
-    """Front half of :func:`prepare`: shared dictionaries + encoded relations."""
+    """Front half of :func:`prepare`: shared dictionaries + encoded
+    relations (``growable`` as in :func:`prepare`)."""
     all_attrs = {a for attrs in schema.relevant.values() for a in attrs}
     rels = [db[r] for r in query.relations]
-    dicts = build_dictionaries(rels, all_attrs)
+    dicts = build_dictionaries(rels, all_attrs, growable=growable)
     measures = query_measures(query, measures)
     encoded = {
         rname: encode_relation(
@@ -422,9 +444,18 @@ def prepare(
     query: JoinAggQuery,
     db: Database,
     root: str | None = None,
+    growable: bool = False,
     measures: dict[str, str] | None = None,
 ) -> Prepared:
-    """Resolve, encode, fold and decompose ``query`` over ``db``."""
+    """Resolve, encode, fold and decompose ``query`` over ``db``.
+
+    ``growable=True`` builds
+    :class:`~repro_torch.relational.encoding.GrowableDictionary` encoders so the
+    result can be maintained under inserts/deletes
+    (``repro_torch.incremental``): new attribute values append codes and
+    domains only ever grow."""
     schema = resolve_schema(query, db)
-    dicts, encoded = encode_query(query, db, schema, measures=measures)
+    dicts, encoded = encode_query(
+        query, db, schema, growable=growable, measures=measures
+    )
     return finish_prepare(query, schema, dicts, encoded, root=root, measures=measures)

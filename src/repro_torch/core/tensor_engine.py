@@ -10,11 +10,12 @@ the exact analogue of the paper's c-pair lists.
 
 Port of the walk in the JAX package's ``core/tensor_engine.py``
 (``Message``, ``TensorEngine.contract_rows``/``message``/``run``,
-``ChannelTensorEngine``, ``channel_weight_matrices``).  Here every hop
-reads its relation through a device-resident grouped-CSR view keyed on
-the hop's output key, and every message is a tensor on the engine's
-device; the subclasses in ``torch_engine.py`` supply the views, the
-weights and the hop itself (:meth:`TensorEngine._contract_block`).
+``ChannelTensorEngine``, ``channel_weight_matrices``,
+``_decode_result``).  Here every hop reads its relation through a
+device-resident grouped-CSR view keyed on the hop's output key, and
+every message is a tensor on the engine's device; the subclasses in
+``torch_engine.py`` supply the views, the weights and the hop itself
+(:meth:`TensorEngine._contract_block`).
 """
 from __future__ import annotations
 
@@ -214,3 +215,18 @@ def channel_weight_matrices(
         ]
         over[rel] = np.stack([np.asarray(c, dtype) for c in cols], axis=1)
     return over
+
+
+def _decode_result(
+    prep: Prepared, arr: torch.Tensor, support: torch.Tensor | None = None
+) -> dict[tuple, float]:
+    """``{group values: value}`` over the ``support`` cells (default: the
+    nonzero ones) of a dense group-axes result on any device."""
+    support = arr != 0 if support is None else support
+    idx = torch.nonzero(support).cpu().numpy()
+    vals = arr[support].cpu().numpy()
+    cols = [
+        prep.dicts[attr].decode(idx[:, i])
+        for i, (_, attr) in enumerate(prep.group_attrs)
+    ]
+    return {tuple(c[i] for c in cols): float(v) for i, v in enumerate(vals)}

@@ -56,7 +56,11 @@ from repro_torch.core.prepare import (
     prepare,
 )
 from repro_torch.core.query import JoinAggQuery
-from repro_torch.core.tensor_engine import ChannelTensorEngine, TensorEngine
+from repro_torch.core.tensor_engine import (
+    ChannelTensorEngine,
+    TensorEngine,
+    _decode_result,
+)
 from repro_torch.kernels import ops
 from repro_torch.kernels.coo_spmm import coo_spmm
 from repro_torch.kernels.fused_hop import fused_hop, gathers_one_child
@@ -312,21 +316,6 @@ def build_dense_program(prep: Prepared, device) -> DenseProgram:
     return DenseProgram(prep, plan, root, torch.device(device))
 
 
-def _decode(
-    prep: Prepared, arr: torch.Tensor, support: torch.Tensor | None = None
-) -> dict[tuple, float]:
-    """``{group values: value}`` over the ``support`` cells (default: the
-    nonzero ones) of a dense group-axes result."""
-    support = arr != 0 if support is None else support
-    idx = torch.nonzero(support).cpu().numpy()
-    vals = arr[support].cpu().numpy()
-    cols = [
-        prep.dicts[attr].decode(idx[:, i])
-        for i, (_, attr) in enumerate(prep.group_attrs)
-    ]
-    return {tuple(c[i] for c in cols): float(v) for i, v in enumerate(vals)}
-
-
 def execute_torch(
     query: JoinAggQuery,
     db: Database,
@@ -360,15 +349,15 @@ def execute_torch(
         if kind not in ("count", "sum"):
             raise NotImplementedError("torch dense mode: COUNT/SUM only")
         arr = build_dense_program(prep, device).run_channels((measure,))
-        return _decode(prep, arr[..., 0])
+        return _decode_result(prep, arr[..., 0])
     if mode == "sparse":
         prog = build_sparse_program(prep, (measure,), device)
         arr = prog.run_channels()[..., 0]
         if kind in ("count", "sum"):
-            return _decode(prep, arr)
+            return _decode_result(prep, arr)
         # MIN/MAX: the COUNT channel is the support (a zero can be a
         # genuine MIN/MAX value, so joined groups are kept by count)
-        return _decode(prep, prog.run_minmax(kind, query.agg.measure[0]), arr > 0)
+        return _decode_result(prep, prog.run_minmax(kind, query.agg.measure[0]), arr > 0)
     raise ValueError(f"unknown mode {mode!r}; use 'auto', 'dense' or 'sparse'")
 
 

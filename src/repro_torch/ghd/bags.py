@@ -14,8 +14,9 @@ materialized bag stays a (codes, count, payloads) triple exactly like the
 acyclic pipeline's :class:`EncodedRelation`.  Peak working-set bytes are
 tracked per bag and folded into the plan's estimated peak.
 
-Copy of the JAX package's ``ghd/bags.py``: host numpy, as there.  The
-bag tables leave out the source lists its incremental maintainer reads.
+Copy of the JAX package's ``ghd/bags.py``: host numpy, as there.  Each
+bag table lists its source relations, which the incremental maintainer
+reads to find the bags a delta makes dirty.
 """
 from __future__ import annotations
 
@@ -192,6 +193,11 @@ class BagTable:
     count: np.ndarray
     payloads: dict[str, np.ndarray]
     peak_bytes: int  # working-set high-water mark during materialization
+    # every input relation whose tuples influenced this bag (assigned
+    # relations + filler projections) — the incremental maintainer
+    # invalidates exactly the bags whose sources a delta touches
+    # (DESIGN.md §4); a relation not listed here cannot change the bag
+    sources: tuple[str, ...] = ()
 
     @property
     def num_rows(self) -> int:
@@ -212,6 +218,7 @@ def materialize_bag(
     """Join the bag's factors and pre-aggregate onto ``out_attrs``."""
     budget = BagJoinBudget(cap_rows)
     factors = [factor_from_encoded(encoded[r]) for r in bag.relations]
+    sources = list(bag.relations)
 
     covered: set[str] = set()
     for f in factors:
@@ -234,6 +241,7 @@ def materialize_bag(
             if not gain:
                 continue
             factors.append(filler_factor(er, take))
+            sources.append(r)
             covered |= set(take)
             missing = [a for a in out_attrs if a not in covered]
             if not missing:
@@ -258,5 +266,5 @@ def materialize_bag(
     budget.charge(acc.nbytes() + out.nbytes())  # both alive during aggregation
     return BagTable(
         bag.name, out.attrs, out.codes, out.count, out.payloads,
-        budget.peak_bytes,
+        budget.peak_bytes, tuple(dict.fromkeys(sources)),
     )

@@ -16,9 +16,11 @@ lifts the acyclic pipeline's "group attrs must not join" restriction for
 cyclic inputs — e.g. counting 4-cycles *per vertex* works out of the box.
 
 Copy of the JAX package's ``ghd/rewrite.py`` without the decoded bag
-database and the incremental-maintenance state of its ``GHDPlan``; bag
-materialization stays on the host, as there, and the plan records how
-long each stage of the compile took.
+database; bag materialization stays on the host, as there, and the plan
+records how long each stage of the compile took.  The ``GHDPlan`` keeps
+the pre-fold derived inputs the incremental maintainer re-finishes after
+re-materializing the bags a delta made dirty
+(:meth:`GHDPlan.invalidated_bags`).
 """
 from __future__ import annotations
 
@@ -73,6 +75,20 @@ class GHDPlan:
     # input relation -> its relevant attrs (the hypergraph the GHD
     # covers), kept for the verifier's cover check
     edges: dict[str, frozenset[str]]
+    # pre-fold derived pipeline inputs, kept so the incremental
+    # maintainer can re-finish_prepare after re-materializing dirty bags
+    derived_schema: QuerySchema
+    derived_dicts: dict[str, Dictionary]
+    bag_out_attrs: dict[str, tuple[str, ...]]
+
+    def invalidated_bags(self, rel: str) -> list[str]:
+        """Bags whose materialization a delta on input relation ``rel``
+        can change (assigned relations and filler sources alike) — the
+        dirty set; every other bag table is reusable verbatim."""
+        return [
+            b for b in self.ghd.order
+            if rel in self.bag_tables[b].sources
+        ]
 
 
 def _effective_domains(
@@ -108,21 +124,29 @@ def compile_ghd(
     root: str | None = None,
     cap_rows: int = MAX_DENSE_ELEMS,
     measures: dict[str, str] | None = None,
+    schema: QuerySchema | None = None,
+    dicts: dict[str, Dictionary] | None = None,
+    encoded: dict[str, EncodedRelation] | None = None,
 ) -> GHDPlan:
     """Compile a (cyclic) query down to the acyclic JOIN-AGG pipeline.
 
     ``measures`` widens the measure set to a whole multi-aggregate bundle
     (DESIGN.md §6); each measure relation's payloads ride into its
     covering bag.  ``cap_rows`` bounds the tuples any bag join may
-    materialize (``MemoryError`` beyond it).
+    materialize (``MemoryError`` beyond it).  ``schema``/``dicts``/
+    ``encoded`` let a caller that already holds the encoded input state
+    (the incremental maintainer, which keeps it live under deltas) skip
+    re-encoding the database.
     """
     if not query.group_by:
         raise ValueError("query needs at least one group-by attribute")
     seconds: dict[str, float] = {}
     t0 = time.perf_counter()
     measures = query_measures(query, measures)
-    schema = resolve_schema(query, db, allow_group_join_attrs=True)
-    dicts, encoded = encode_query(query, db, schema, measures=measures)
+    if schema is None:
+        schema = resolve_schema(query, db, allow_group_join_attrs=True)
+    if dicts is None or encoded is None:
+        dicts, encoded = encode_query(query, db, schema, measures=measures)
     seconds["encode"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
@@ -177,6 +201,7 @@ def compile_ghd(
     t0 = time.perf_counter()
     bag_tables: dict[str, BagTable] = {}
     relevant_d: dict[str, tuple[str, ...]] = {}
+    bag_out_attrs: dict[str, tuple[str, ...]] = {}
     for b in ghd.order:
         bag = ghd.bags[b]
         gattr = group_attr_of_bag.get(b)
@@ -189,6 +214,7 @@ def compile_ghd(
                 f"bag {b!r} shares no attrs with the rest of the query "
                 "(cross product: unsupported)"
             )
+        bag_out_attrs[b] = out_attrs
         bt = materialize_bag(bag, encoded, out_attrs, cap_rows=cap_rows)
         if gattr in copy_src:
             bt = _append_copy_column(bt, copy_src[gattr], gattr)
@@ -267,4 +293,7 @@ def compile_ghd(
         measure_bags=measure_bag,
         seconds=seconds,
         edges=edges,
+        derived_schema=schema_d,
+        derived_dicts=dicts_d,
+        bag_out_attrs=bag_out_attrs,
     )

@@ -6,7 +6,7 @@ code **is** a node id in the paper's data graph).  Codes are dense int64
 in ``[0, |domain|)``; ``Dictionary.values`` maps codes back to values.
 
 Copy of the JAX package's ``relational/encoding.py`` without its
-external-sort (chunk-streaming) branch and its growable dictionaries.
+external-sort (chunk-streaming) branch.
 """
 from __future__ import annotations
 
@@ -40,18 +40,57 @@ class Dictionary:
         return self.values[np.asarray(codes)]
 
 
+class GrowableDictionary(Dictionary):
+    """A :class:`Dictionary` whose domain grows monotonically.
+
+    Unknown values passed to :meth:`encode` with ``grow=True`` are
+    *appended* to the value table, so existing codes never move — every
+    cached message / result tensor indexed by old codes stays valid and
+    only needs zero-padding on the grown axes (DESIGN.md §4).  Values are
+    therefore sorted only within the initial segment; lookups go through
+    a maintained sort permutation instead of assuming global order.
+    """
+
+    def __init__(self, attr: str, values: np.ndarray):
+        super().__init__(attr, np.asarray(values))
+        self._order = np.argsort(self.values, kind="stable")
+
+    def encode(self, col: np.ndarray, grow: bool = False) -> np.ndarray:
+        col = np.asarray(col)
+        if self.size:
+            sv = self.values[self._order]
+            pos = np.clip(np.searchsorted(sv, col), 0, self.size - 1)
+            hit = sv[pos] == col
+        else:
+            pos = np.zeros(len(col), dtype=np.int64)
+            hit = np.zeros(len(col), dtype=bool)
+        if bool(np.all(hit)):
+            return self._order[pos].astype(np.int64)
+        if not grow:
+            raise ValueError(f"attr {self.attr!r}: values outside dictionary")
+        new_vals = np.unique(col[~hit])
+        self.values = (
+            np.concatenate([self.values, new_vals]) if self.size else new_vals
+        )
+        self._order = np.argsort(self.values, kind="stable")
+        return self.encode(col)
+
+
 def build_dictionaries(
-    relations: Iterable[Relation], attrs: Iterable[str]
+    relations: Iterable[Relation], attrs: Iterable[str], growable: bool = False
 ) -> dict[str, Dictionary]:
-    """One shared dictionary per attribute name across all relations."""
+    """One shared dictionary per attribute name across all relations;
+    ``growable`` builds :class:`GrowableDictionary` encoders (the
+    incremental maintainer's)."""
     relations = list(relations)
+    cls = GrowableDictionary if growable else Dictionary
     out: dict[str, Dictionary] = {}
     for attr in attrs:
         carriers = [r for r in relations if attr in r.attrs]
         if not carriers:
             raise KeyError(f"attr {attr!r} not present in any relation")
         parts = [np.asarray(r.columns[attr]) for r in carriers]
-        out[attr] = Dictionary(attr, np.unique(np.concatenate(parts)))
+        out[attr] = cls(attr, np.unique(np.concatenate(parts)))
     return out
 
 

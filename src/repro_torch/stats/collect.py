@@ -12,16 +12,19 @@ set once and produces a :class:`Statistics` object:
   (weighted) tuple of the left one, the pairwise join selectivity the
   cost model chains along decomposition-tree edges.
 
+Incremental maintenance keeps a materialized collection current:
+:meth:`Statistics.apply_insert` merges an insert delta's sketches in,
+:meth:`Statistics.refresh_relation` recollects a relation after a
+delete, and both bump ``generation``.
+
 Copy of the JAX package's ``stats/collect.py`` for in-memory encodings
-(one chunk per relation, as the JAX package scans them), without its
-incremental-maintenance updates (``generation`` stays 0 until they are
-ported).  The
-fanout sampler draws from the same seeded generator in the same order,
-so both packages collect the same statistics.
+(one chunk per relation, as the JAX package scans them).  The fanout
+sampler draws from the same seeded generator in the same order, so both
+packages collect the same statistics.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 
@@ -71,6 +74,7 @@ class Statistics:
     sample: int = DEFAULT_FANOUT_SAMPLE
     kmv_k: int = DEFAULT_KMV_K
     hh_m: int = DEFAULT_HH_M
+    _dicts: dict[str, Dictionary] = field(default_factory=dict, repr=False)
 
     def col(self, rel: str, attr: str) -> ColumnStats | None:
         rs = self.relations.get(rel)
@@ -92,6 +96,39 @@ class Statistics:
 
     def fanout(self, left: str, right: str) -> float | None:
         return self.fanouts.get((left, right))
+
+    def apply_insert(self, rel: str, delta: EncodedRelation) -> None:
+        """Merge an insert delta's sketches into ``rel``'s stats.
+
+        Mergeability is the point: the delta is sketched alone and
+        merged in, never rescanning the base relation.  Fanouts are left
+        as collected (sampled estimates age gracefully; ``generation``
+        still invalidates any cached plan built on them)."""
+        rs = self.relations.get(rel)
+        if rs is None:
+            return
+        dstats = _relation_stats(delta, self._dicts, self.kmv_k, self.hh_m)
+        rs.rows += dstats.rows
+        rs.num_rows += dstats.num_rows
+        for attr, dcol in dstats.cols.items():
+            cur = rs.cols.get(attr)
+            if cur is None:
+                rs.cols[attr] = dcol
+                continue
+            rs.cols[attr] = ColumnStats(
+                attr=attr,
+                rows=rs.rows,
+                domain=max(cur.domain, dcol.domain),
+                distinct=cur.distinct.merge(dcol.distinct),
+                heavy=cur.heavy.merge(dcol.heavy),
+            )
+        self.generation += 1
+
+    def refresh_relation(self, rel: str, er: EncodedRelation) -> None:
+        """Recollect one relation from its current encoding (deletes
+        cannot be subtracted from sketches)."""
+        self.relations[rel] = _relation_stats(er, self._dicts, self.kmv_k, self.hh_m)
+        self.generation += 1
 
     def summary_lines(self) -> list[str]:
         """Compact per-relation rendering for ``Plan.explain()``."""
@@ -197,4 +234,5 @@ def collect_statistics(
         sample=sample,
         kmv_k=kmv_k,
         hh_m=hh_m,
+        _dicts=dict(dicts),
     )

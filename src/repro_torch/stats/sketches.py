@@ -1,6 +1,8 @@
 """Streaming sketches for the statistics layer (DESIGN.md §10).
 
-Two bounded-memory sketches, both numpy only:
+Two bounded-memory sketches, both numpy only and mergeable, so the
+incremental maintainer can fold insert deltas in without rescanning
+base relations:
 
 * :class:`DistinctSketch` — KMV (k-minimum-values) distinct counting
   over ``splitmix64`` hashes.  Exact while fewer than ``k`` distinct
@@ -14,9 +16,8 @@ Two bounded-memory sketches, both numpy only:
   above ``n/(m+1)`` is guaranteed retained, and estimates satisfy
   ``true - err <= est <= true``.
 
-Copy of the JAX package's ``stats/sketches.py`` without the merge,
-state and per-key methods that its incremental maintainer and plan
-verifier use.
+Copy of the JAX package's ``stats/sketches.py`` without the state and
+per-key methods that its plan verifier uses.
 """
 from __future__ import annotations
 
@@ -50,6 +51,13 @@ class DistinctSketch:
         h = np.unique(splitmix64(values))
         self._hashes = np.union1d(self._hashes, h)[: self.k]
         return self
+
+    def merge(self, other: "DistinctSketch") -> "DistinctSketch":
+        if other.k != self.k:
+            raise ValueError(f"cannot merge KMV k={self.k} with k={other.k}")
+        out = DistinctSketch(self.k)
+        out._hashes = np.union1d(self._hashes, other._hashes)[: self.k]
+        return out
 
     @property
     def is_exact(self) -> bool:
@@ -110,6 +118,18 @@ class HeavyHitterSketch:
         cut = sorted(self.counts.values(), reverse=True)[self.m]
         self.counts = {k: c - cut for k, c in self.counts.items() if c > cut}
         self.err += cut
+
+    def merge(self, other: "HeavyHitterSketch") -> "HeavyHitterSketch":
+        if other.m != self.m:
+            raise ValueError(f"cannot merge MG m={self.m} with m={other.m}")
+        out = HeavyHitterSketch(self.m)
+        out.n = self.n + other.n
+        out.err = self.err + other.err
+        out.counts = dict(self.counts)
+        for k, c in other.counts.items():
+            out.counts[k] = out.counts.get(k, 0) + c
+        out._trim()
+        return out
 
     def heavy(self, min_share: float) -> list[tuple[int, float]]:
         """Keys with estimated share >= ``min_share``, heaviest first.

@@ -345,7 +345,8 @@ def test_messages_and_views_stay_on_the_engine_device(mode):
 
 def test_cyclic_query_and_unported_options_raise():
     """The triangle is answered (through the GHD compiler) as the JAX
-    package answers it; meshes and maintenance still raise."""
+    package answers it; meshes still raise, and maintenance, ported
+    since, returns handles that answer as ``execute()`` does."""
     rng = np.random.default_rng(2)
     tri = {
         "E1": {"a": rng.integers(0, 9, 50), "b": rng.integers(0, 9, 50)},
@@ -364,12 +365,10 @@ def test_cyclic_query_and_unported_options_raise():
     _assert_identical(want, got)
     with pytest.raises(UnsupportedPlanOption):
         q.mesh(2)
-    with pytest.raises(UnsupportedPlanOption):
-        q.maintain(tri)
+    assert q.maintain(tri).result() == got.to_dict()
     cols = _quickstart_cols(200)
     plan = Q.over("R1", "R2", "R3").group_by("R1.g1").engine(CPU).plan(cols)
-    with pytest.raises(UnsupportedPlanOption):
-        plan.maintain()
+    assert plan.maintain().result() == plan.execute().to_dict()
 
 
 # ----------------------------------------------------------------------

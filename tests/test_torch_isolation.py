@@ -1,7 +1,7 @@
 """The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
 neither JAX nor the JAX package ``repro`` (an acyclic, a split, a cyclic
-and a dense-path query are answered, explained and verified with both
-refused), and the port's default engine refuses to run without a CUDA
+and a dense-path query are answered, explained and verified, and a
+maintained bundle takes an insert, with both refused), and the port's default engine refuses to run without a CUDA
 card instead of quietly using the CPU."""
 import ast
 import json
@@ -59,6 +59,12 @@ dense = (
     .agg(n=Count(), s=Sum("R2.m"), lo=Min("R2.m")).engine(cpu).plan(db)
 )
 explained = dense.explain(actuals=True) + cyclic.explain(actuals=True)
+handle = (
+    Q.over("R1", "R2").group_by("R1.g1", "R2.g2").agg(n=Count(), s=Sum("R2.m"))
+    .engine(cpu).maintain(db)
+)
+maintained = handle.insert("R2", {"j": np.array([1, 2]), "g2": np.array([0, 4]),
+                                  "m": np.array([3, 5])})
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in {"jax", "jaxlib", "repro"})
 print(json.dumps({"rows": res.num_rows, "n": float(res.column("n").sum()),
                   "split": split.split is not None,
@@ -68,6 +74,7 @@ print(json.dumps({"rows": res.num_rows, "n": float(res.column("n").sum()),
                   "dense_rows": dense.execute().num_rows,
                   "explained": "torch path: dense" in explained,
                   "findings": len(dense.verify(strict=False) + cyclic.verify(strict=False)),
+                  "maintained_n": float(maintained.column("n").sum()),
                   "loaded": loaded}))
 """
 
@@ -91,6 +98,7 @@ def test_port_answers_a_query_with_jax_and_repro_refused():
     assert out["cyclic"] and out["cyclic_rows"] > 0
     assert out["dense"] == "dense" and out["dense_rows"] > 0
     assert out["explained"] and out["findings"] == 0
+    assert out["maintained_n"] > out["n"]  # the insert joined
 
 
 def _imported_modules(path: Path) -> list[str]:
@@ -117,7 +125,7 @@ def test_no_source_imports_jax_or_repro(path):
 def test_the_scan_covers_every_port_package():
     scanned = {p.parent.name for p in PORT.rglob("*.py")}
     packages = {p.parent.name for p in PORT.rglob("__init__.py")}
-    assert {"analysis", "api", "core", "kernels", "planner"} <= packages == scanned
+    assert {"analysis", "api", "core", "incremental", "kernels", "planner"} <= packages == scanned
 
 
 def test_torch_engine_raises_without_cuda(monkeypatch):
