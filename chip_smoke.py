@@ -2,6 +2,7 @@
 """Smoke test of the repro_torch port on one NVIDIA card.
 
     python3 chip_smoke.py [--n 500000] [--check-n 20000] [--seed 0]
+                          [--storage-n 5000000]
 
 Run from the root of a checkout on a machine with a CUDA card.  It
 
@@ -93,7 +94,29 @@ Run from the root of a checkout on a machine with a CUDA card.  It
    profiler (idle share); a MIN handle takes a delete (the
    non-invertible fallback, on ``segment_reduce``); and at
    ``--check-n`` the same sequence runs on card and ``device="cpu"``
-   handles, bit for bit.
+   handles, bit for bit;
+11. drives the storage leg, the repo's Table XIV on the card: its
+   measured chain R1(g1, p0), R2(p0, p1, m), R3(p1, g2) at
+   ``--storage-n`` rows per relation (join domains n / 50, group domains
+   32) is written with ``write_database`` to a temporary directory
+   (removed at the end) and mounted with ``open_database``.  It prints
+   the write and open seconds; prepare's seconds and host peak
+   (tracemalloc) mounted, with chunk_rows
+   ``max(4096, n / 25)``, and in memory, and fails unless the mounted
+   peak is below twice the largest column; the Table XIV query,
+   SUM(R2.m) by R1.g1 and R3.g2, planned and executed mounted and in
+   memory, bit for bit, with the first execute's host peak; the storage
+   smoke bundle (COUNT, SUM, MIN, MAX, AVG) on the mounted database
+   driven as in 2 (``segment_sum``, ``coo_spmm`` and ``segment_reduce``
+   must launch), its ``coo_spmm`` launch also held at tolerance 0 on
+   exact operands at the same rows and columns (``spmm_exact_check``);
+   Σ COUNT and Σ SUM against numpy in int64 (exact below
+   2**24, within ``count_rtol`` above); ``verify()`` clean, V-STORE-CSR
+   included; and at ``--check-n`` the mounted bundle with forced tiny
+   chunks (the k-way merge), with ``.fused(True)``, on the CPU and with
+   the default chunk, each bit-identical to the in-memory run, and a
+   ``Q.maintain`` handle over the mounted database equal to one over the
+   in-memory twin through three 100-row R2 inserts.
 
 Every leg prints its ``torch path:`` line — per key range for the split
 leg — and checks the path each run took against ``choose_path``: a dense
@@ -110,6 +133,7 @@ from __future__ import annotations
 
 import argparse
 import cProfile
+import gc
 import json
 import pstats
 import subprocess
@@ -374,11 +398,12 @@ def hop_class(name, args, kwargs):
 # ----------------------------------------------------------------------
 
 
-def compare(torch, tag, name, label, kernel, plain, args, kw=None, out=None):
+def compare(torch, tag, name, label, kernel, plain, args, kw=None, out=None, tol=None):
     """Run ``kernel`` and ``plain`` on the same inputs; fail unless they
-    agree exactly.  With ``out`` (a view into a larger buffer), the kernel
-    writes there and must leave the rest of the buffer as it was.
-    Returns max |kernel - plain|."""
+    agree exactly, or, with ``tol`` (a tensor of the result's shape),
+    within ``tol`` element by element.  With ``out`` (a view into a
+    larger buffer), the kernel writes there and must leave the rest of
+    the buffer as it was.  Returns max |kernel - plain|."""
     kw = kw or {}
     if out is None:
         got = kernel(*args, **kw)
@@ -401,9 +426,11 @@ def compare(torch, tag, name, label, kernel, plain, args, kw=None, out=None):
         return tuple(a.shape) if hasattr(a, "shape") else a
 
     where = "" if out is None else f", out at float offset {out.storage_offset()}"
+    within = err == 0.0 if tol is None else bool(((got - want).abs() <= tol).all())
+    stated = "0" if tol is None else f"elementwise, largest {float(tol.max()):.6g}"
     say(tag, f"kernels: {name} [{label}] args {[shape(a) for a in args]} {kw}{where}: "
-             f"max |kernel - plain| = {err} (tolerance 0)")
-    check(err == 0.0, f"{name} [{label}] disagrees with its plain version: {err}")
+             f"max |kernel - plain| = {err} (tolerance {stated}): {within}")
+    check(within, f"{name} [{label}] disagrees with its plain version: {err}")
     return err
 
 
@@ -1875,18 +1902,64 @@ def maintain_kernels(torch, tag, captured) -> dict:
     """The largest refresh's ``segment_sum`` and ``coo_spmm`` launches (the
     leg's own shapes) against their plain versions, tolerance 0, and
     timed beside the plain version, the library call and the bound."""
-    from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.coo_spmm import coo_spmm
-
     seg = [lc for key, lc in captured.items() if isinstance(key, tuple) and key[0] == "segment_sum"]
     check(seg and "coo_spmm" in captured, "maintain leg: no segment_sum or coo_spmm captured")
     out = {"segment_sum": segment_regime(
         torch, tag, "segment_sum", "largest refresh launch",
         max(seg, key=lambda lc: lc.size), path="maintain leg")}
-    lc = captured["coo_spmm"]
+    out["coo_spmm"] = coo_spmm_row(
+        torch, tag, "maintain leg", "largest refresh launch", captured["coo_spmm"], tol=None)
+    return out
+
+
+def spmm_tolerance(torch, rows, cols, vals, dense, s):
+    """None (tolerance 0) when every product and partial sum of the
+    float32 ``coo_spmm`` is an integer below 2**24, which both the kernel
+    and its plain version then compute exactly; else the elementwise
+    bound on their difference.  Summing a row's run of at most m edges in
+    any order rounds each product and each addition once, at most 2**-24
+    relative, so each result lies within (2m) · 2**-24 · Σ|w · x| of the
+    exact sum (to first order), and the two within twice that."""
+    mag = torch.zeros((s, dense.shape[1]), dtype=torch.float64, device=dense.device)
+    mag.index_add_(0, rows, vals.abs().double()[:, None] * dense.abs().double()[cols])
+    integral = bool((vals == vals.round()).all()) and bool((dense == dense.round()).all())
+    if integral and (float(mag.max()) if mag.numel() else 0.0) < 2 ** 24:
+        return None
+    m = int(torch.bincount(rows, minlength=s).max())
+    return (4 * m * F32_UNIT * mag).float()
+
+
+def spmm_exact_check(torch, tag, path: str, lc) -> float:
+    """A captured ``coo_spmm`` launch's rows and columns with exact
+    operands, held against the plain version at tolerance 0: weights 1
+    and a dense of integers in [1, hi], hi chosen so that no output sum
+    passes 2**24.  Every edge adds at least 1 to its row, so a lost,
+    repeated or misplaced edge shows, however long the row's run."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.coo_spmm import coo_spmm
+
     rows, cols, vals, dense, s = lc.args
-    err = compare(torch, tag, "coo_spmm", "maintain leg, largest refresh launch", coo_spmm,
-                  ref.coo_spmm, lc.args)
+    m = int(torch.bincount(rows, minlength=s).max()) if rows.numel() else 1
+    hi = min(100, (2 ** 24 - 1) // m)
+    check(hi >= 1, f"coo_spmm [{path}]: a row of {m} edges leaves no exact operands")
+    gen = torch.Generator(device=dense.device).manual_seed(0)
+    exact = torch.randint(1, hi + 1, tuple(dense.shape), generator=gen, device=dense.device)
+    args = (rows, cols, torch.ones_like(vals), exact.to(dense.dtype), s)
+    return compare(torch, tag, "coo_spmm", f"{path}, exact operands (weights 1, dense in "
+                   f"[1, {hi}], longest run {m})", coo_spmm, ref.coo_spmm, args)
+
+
+def coo_spmm_row(torch, tag, path: str, label: str, lc, tol) -> dict:
+    """One captured ``coo_spmm`` launch held against its plain version
+    within ``tol`` (None: exactly; else :func:`spmm_tolerance`'s bound),
+    and timed beside the plain version, ``torch.sparse.mm`` and the
+    bound."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.coo_spmm import coo_spmm
+
+    rows, cols, vals, dense, s = lc.args
+    err = compare(torch, tag, "coo_spmm", f"{path}, {label}", coo_spmm, ref.coo_spmm, lc.args,
+                  tol=tol)
     nnz, (kdense, w) = rows.shape[0], dense.shape
     used = int(torch.unique(cols).numel())
     b, by = bound(nnz * 20 + used * w * 4 + s * w * 4, 2 * nnz * w)
@@ -1898,11 +1971,316 @@ def maintain_kernels(torch, tag, captured) -> dict:
         library_ms=csr_spmm_ms(torch, rows, cols, vals, dense, s),
         bound_ms=b, bound_by=by,
     )
-    say(tag, f"kernels: coo_spmm [maintain leg] at {row['shapes']}: {row['ms']:.4f} ms, "
+    say(tag, f"kernels: coo_spmm [{path}] at {row['shapes']}: {row['ms']:.4f} ms, "
              f"bound {b:.4f} ms by {by}, plain {row['plain_ms']:.4f} ms, library "
              f"torch.sparse.mm {row['library_ms']:.4f} ms; {row['walk']}")
-    out["coo_spmm"] = row
+    return row
+
+
+# ----------------------------------------------------------------------
+# storage leg (Table XIV on the card)
+# ----------------------------------------------------------------------
+
+
+def measured_chain_cols(n: int, seed: int) -> dict:
+    """The fold-free measured chain of the repo's Table XIV
+    (``benchmarks/tables.py:276``): R1(g1, p0), R2(p0, p1, m), R3(p1,
+    g2) at ``n`` rows each, join domains ``n // 50``, group domains 32,
+    an integer measure m in [1, 100)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    jdom, gdom = max(4, n // 50), 32
+    return {
+        "R1": {"g1": rng.integers(0, gdom, n), "p0": rng.integers(0, jdom, n)},
+        "R2": {"p0": rng.integers(0, jdom, n), "p1": rng.integers(0, jdom, n),
+               "m": rng.integers(1, 100, n)},
+        "R3": {"p1": rng.integers(0, jdom, n), "g2": rng.integers(0, gdom, n)},
+    }
+
+
+def storage_totals(cols) -> tuple[int, int]:
+    """Σ COUNT and Σ SUM(R2.m) of the chain join in int64, without the
+    port: Σ over p0, p1 of c1[p0]·c2[p0, p1]·c3[p1], i.e. each R2 row
+    weighed by the R1 rows on its p0 and the R3 rows on its p1."""
+    import numpy as np
+
+    dom = 1 + max(int(cols[r][a].max()) for r, a in (
+        ("R1", "p0"), ("R2", "p0"), ("R2", "p1"), ("R3", "p1")))
+    c1 = np.bincount(cols["R1"]["p0"], minlength=dom).astype(np.int64)
+    c3 = np.bincount(cols["R3"]["p1"], minlength=dom).astype(np.int64)
+    w = c1[cols["R2"]["p0"]] * c3[cols["R2"]["p1"]]
+    return int(w.sum()), int((w * cols["R2"]["m"]).sum())
+
+
+def storage_sum_query(engine):
+    """The repo's Table XIV query: SUM(R2.m) by R1.g1, R3.g2."""
+    from repro_torch.api import Q, Sum
+
+    return Q.over("R1", "R2", "R3").group_by("R1.g1", "R3.g2").agg(s=Sum("R2.m")).engine(engine)
+
+
+def storage_bundle(engine):
+    """The storage smoke bundle of ``src/repro/launch/storage.py:61``."""
+    from repro_torch.api import Avg, Count, Max, Min, Q, Sum
+
+    return (
+        Q.over("R1", "R2", "R3").group_by("R1.g1", "R3.g2")
+        .agg(n=Count(), s=Sum("R2.m"), lo=Min("R2.m"), hi=Max("R2.m"), mean=Avg("R2.m"))
+        .engine(engine)
+    )
+
+
+def chunk_env(rows: int):
+    """``REPRO_CHUNK_ROWS`` set for a ``with`` block (the chunk a stored
+    plan's prepare streams in), restored after."""
+    import os
+    from unittest import mock
+
+    return mock.patch.dict(os.environ, {"REPRO_CHUNK_ROWS": str(rows)})
+
+
+def host_peak(torch, fn):
+    """``(result, seconds, tracemalloc peak bytes)`` of ``fn()``, the host
+    clock ending in a synchronise.  tracemalloc counts numpy's and
+    Python's allocations (each host range an upload gathers among them),
+    not memmap pages."""
+    import tracemalloc
+
+    tracemalloc.start()
+    try:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        peak = tracemalloc.get_traced_memory()[1]
+    finally:
+        tracemalloc.stop()
+    return out, secs, peak
+
+
+def storage_leg(torch, tag, args) -> dict:
+    """The repo's Table XIV on the card: the measured chain at
+    ``--storage-n`` rows per relation written with ``write_database`` to
+    a temporary directory (removed after) and mounted with
+    ``open_database``; prepare's host peak, mounted and in memory; the
+    Table XIV SUM query on both, bit for bit; the storage smoke bundle
+    on the mounted database, driven; Σ COUNT / Σ SUM against numpy."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.aggregates.semiring import Sum
+    from repro_torch.core.prepare import prepare
+    from repro_torch.core.query import JoinAggQuery
+    from repro_torch.kernels import ops
+    from repro_torch.relational.relation import Database
+    from repro_torch.storage import open_database, write_database
+
+    n = args.storage_n
+    cols = measured_chain_cols(n, args.seed)
+    db = Database.from_mapping(cols)
+    col_bytes = max(c.nbytes for rc in cols.values() for c in rc.values())
+    total_bytes = sum(c.nbytes for rc in cols.values() for c in rc.values())
+    chunk = max(4096, n // 25)
+    say(tag, f"data: storage leg: measured chain n={n} seed={args.seed}: join domains "
+             f"{max(4, n // 50)}, group domains 32; {total_bytes} B of columns, largest "
+             f"column {col_bytes} B; chunk_rows {chunk}")
+    out: dict = {"launches": {}}
+    tmp = Path(tempfile.mkdtemp(prefix="chip-smoke-storage-"))
+    try:
+        t0 = time.perf_counter()
+        write_database(db, tmp / "db")
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        mdb = open_database(tmp / "db")
+        open_s = time.perf_counter() - t0
+        disk = sum(p.stat().st_size for p in (tmp / "db").rglob("*") if p.is_file())
+        say(tag, f"storage leg: write_database {write_s:.3f} s ({disk} B on disk), "
+                 f"open_database {open_s:.3f} s")
+
+        # Table XIV's prepare: encode + the three grouped-CSR views
+        q = JoinAggQuery(("R1", "R2", "R3"), (("R1", "g1"), ("R3", "g2")), Sum("R2", "m"))
+
+        def prep_all(d, ch):
+            prep = prepare(q, d, chunk_rows=ch)
+            for rel, attr in (("R1", "p0"), ("R2", "p0"), ("R3", "p1")):
+                prep.csr_view(rel, (attr,))
+            return prep
+
+        peaks = {}
+        for label, d, ch in (("mmap", mdb, chunk), ("in-memory", db, None)):
+            prep, secs, peak = host_peak(torch, lambda: prep_all(d, ch))
+            peaks[label] = peak
+            say(tag, f"storage leg: prepare {label}: {secs:.3f} s, host peak {peak} B "
+                     f"(tracemalloc) = {peak / col_bytes:.2f}x the largest column")
+            out[f"prepare {label}"] = {"seconds": secs, "host_peak_bytes": peak,
+                                       "peak_over_column": peak / col_bytes}
+            del prep
+        check(peaks["mmap"] < 2 * col_bytes,
+              f"storage leg: mmap prepare host peak {peaks['mmap']} B is not below 2x the "
+              f"largest column ({col_bytes} B)")
+
+        # the Table XIV query, mounted (first execute traced) and in memory
+        path = str(tmp / "db")
+        results = {}
+        for label in ("mmap", "in-memory"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if label == "mmap":
+                with chunk_env(chunk):
+                    plan = storage_sum_query("torch").plan(path)
+            else:
+                plan = storage_sum_query("torch").plan(db)
+            plan_s = time.perf_counter() - t0
+            ops.reset_launch_counts()
+            res, cold_s, peak = host_peak(torch, plan.execute)
+            launches = ops.launch_counts()
+            t0 = time.perf_counter()
+            plan.execute()
+            torch.cuda.synchronize()
+            warm_s = time.perf_counter() - t0
+            say(tag, f"storage leg: Table XIV SUM, {label}: {plan}; chunk_rows "
+                     f"{plan.chunk_rows}; plan {plan_s:.3f} s; first execute {cold_s:.3f} s "
+                     f"(traced), host peak {peak} B (tracemalloc) = {peak / col_bytes:.2f}x "
+                     f"the largest column; "
+                     f"warm execute {warm_s:.3f} s; launches {launches}; {res.num_rows} rows")
+            verified(tag, f"storage leg, Table XIV SUM, {label}", plan)
+            check_paths(tag, f"storage leg, Table XIV SUM, {label}", plan, launches)
+            results[label] = res
+            out[f"Table XIV SUM, {label}"] = {
+                "plan_s": plan_s, "first_execute_s": cold_s, "warm_execute_s": warm_s,
+                "first_execute_host_peak_bytes": peak,
+                "chunk_rows": plan.chunk_rows, "rows": res.num_rows,
+            }
+            out["launches"][f"storage, Table XIV SUM, {label}"] = launches
+            del plan
+        same = same_result(results["mmap"], results["in-memory"])
+        say(tag, f"check: storage leg: Table XIV SUM mounted = in-memory bit for bit: {same}")
+        check(same, "storage leg: the mounted result differs from the in-memory one")
+
+        # the storage smoke bundle on the mounted database, driven; the
+        # Table XIV plans' device views go first, so the bundle's peak
+        # above resident counts its own
+        gc.collect()
+        torch.cuda.empty_cache()
+        with chunk_env(chunk):
+            bplan, bres, bundle = drive(
+                torch, tag, "storage leg, mmap bundle", lambda: storage_bundle("torch").plan(path)
+            )
+        blaunches = bundle["launches"]
+        bundle["paths"] = check_paths(tag, "storage leg, mmap bundle", bplan, blaunches)
+        for name in UNFUSED_KERNELS:
+            check(blaunches[name] > 0, f"storage leg: the stored path never launched {name}")
+        check(blaunches["fused_hop"] == 0, "storage leg: the unfused bundle launched fused_hop")
+        verified(tag, "storage leg, mmap bundle", bplan)
+        out["mmap bundle"] = bundle
+        out["launches"]["storage, mmap bundle"] = blaunches
+        out["kernels"] = storage_kernels(
+            torch, tag, capture_launches(bplan.execute, main_path_key))
+
+        want_n, want_s = storage_totals(cols)
+        rtol = count_rtol(bplan)
+        ok = True
+        for label, got, want, col in (
+            ("Σ count", bres.column("n"), want_n, "n"),
+            ("Σ sum", bres.column("s"), want_s, "s"),
+            ("Σ sum (Table XIV)", results["mmap"].column("s"), want_s, "s"),
+        ):
+            total = float(got.sum())
+            exact = float(got.max(initial=0)) < 2 ** 24
+            err = abs(total - want) / max(want, 1)
+            good = (total == want) if exact else err <= rtol
+            ok = ok and good
+            say(tag, f"check: storage leg: {label} {total:.0f} vs numpy {want}; largest "
+                     f"group {float(got.max(initial=0)):.0f}; "
+                     + ("exact below 2**24" if exact else
+                        f"relative error {err:.3e} within {rtol:.3e}") + f": {good}")
+        check(ok and bres.num_rows > 0, "storage leg: Σ count / Σ sum disagree with numpy")
+        for name in bres.agg_names:
+            check(bool(np.isfinite(bres.column(name)).all()),
+                  f"storage leg: non-finite values in {name}")
+        del bplan, bres, results
+        torch.cuda.empty_cache()
+        storage_checks(torch, tag, args, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     return out
+
+
+def storage_kernels(torch, tag, captured) -> dict:
+    """The stored bundle's largest ``segment_sum`` and ``segment_reduce``
+    launches and its ``coo_spmm`` launch (the leg's own shapes) against
+    their plain versions, and timed beside the plain version, the library
+    call and the bound.  The segment kernels are held at tolerance 0.
+    ``coo_spmm``'s row sums pass 2**24 here, so kernel and plain version
+    round in different orders: it is held within
+    :func:`spmm_tolerance`'s bound on the captured operands, and at
+    tolerance 0 on exact operands at the same rows and columns
+    (:func:`spmm_exact_check`)."""
+    out = {}
+    for name in SEGMENT_KERNELS:
+        launches = [lc for key, lc in captured.items()
+                    if isinstance(key, tuple) and key[0] == name]
+        check(launches, f"storage leg: no {name} launch captured")
+        out[name] = segment_regime(torch, tag, name, "largest stored-bundle launch",
+                                   max(launches, key=lambda lc: lc.size), path="storage leg")
+    check("coo_spmm" in captured, "storage leg: no coo_spmm launch captured")
+    lc = captured["coo_spmm"]
+    out["coo_spmm"] = coo_spmm_row(torch, tag, "storage leg", "stored-bundle launch", lc,
+                                   tol=spmm_tolerance(torch, *lc.args))
+    out["coo_spmm"]["exact_operands_max_abs_err"] = spmm_exact_check(
+        torch, tag, "storage leg", lc)
+    return out
+
+
+def storage_checks(torch, tag, args, tmp: Path) -> None:
+    """At ``--check-n``: the mounted bundle against forced tiny chunks
+    (the k-way merge), ``.fused(True)``, the CPU and the in-memory twin,
+    bit for bit; a ``Q.maintain`` handle over the mounted database
+    against one over the in-memory twin through three 100-row R2
+    inserts."""
+    import numpy as np
+
+    from repro_torch.api import Q, Sum, TorchChannelEngine
+    from repro_torch.relational.relation import Database
+    from repro_torch.storage import open_database, write_database
+
+    n = args.check_n
+    cols = measured_chain_cols(n, args.seed)
+    db = Database.from_mapping(cols)
+    write_database(db, tmp / "small")
+    path = str(tmp / "small")
+    want = storage_bundle("torch").plan(db).execute()
+    tiny = max(64, n // 64)
+    runs = {"default chunk": storage_bundle("torch").plan(open_database(path))}
+    with chunk_env(tiny):
+        runs[f"tiny chunks ({tiny} rows)"] = storage_bundle("torch").plan(path)
+    runs["fused"] = storage_bundle("torch").fused(True).plan(path)
+    runs["device='cpu'"] = storage_bundle(TorchChannelEngine(device="cpu")).plan(path)
+    for label, plan in runs.items():
+        same = same_result(want, plan.execute())
+        say(tag, f"check: storage leg: n={n} mounted, {label} (chunk_rows "
+                 f"{plan.chunk_rows}) = in-memory bit for bit: {same}")
+        check(same and plan.chunk_rows is not None,
+              f"storage leg, n={n}: the mounted {label} result differs")
+    check(runs[f"tiny chunks ({tiny} rows)"].chunk_rows == tiny < n,
+          "storage leg: the tiny-chunk plan did not stream in chunks of its rows")
+
+    mq = Q.over("R1", "R2", "R3").group_by("R1.g1").agg(s=Sum("R2.m"))
+    hm, hd = mq.maintain(db), mq.maintain(open_database(path))
+    rng = np.random.default_rng(args.seed + 1)
+    jdom = max(4, n // 50)
+    for step in range(3):
+        delta = {"p0": rng.integers(0, jdom, 100), "p1": rng.integers(0, jdom, 100),
+                 "m": rng.integers(1, 100, 100)}
+        hm.insert("R2", delta)
+        hd.insert("R2", delta)
+        same = hm.result() == hd.result()
+        say(tag, f"check: storage leg: n={n}: maintained over the mounted database = over "
+                 f"the in-memory one after insert {step + 1} of 100 R2 rows: {same}")
+        check(same, f"storage leg: maintain diverged at insert {step + 1}")
 
 
 # ----------------------------------------------------------------------
@@ -1914,6 +2292,8 @@ def main() -> int:
     ap.add_argument("--check-n", type=int, default=20_000,
                     help="rows per relation of the CPU bit-identity check")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--storage-n", type=int, default=5_000_000,
+                    help="rows per relation of the storage leg")
     args = ap.parse_args()
 
     if not (SRC / "repro_torch" / "kernels" / "ops.py").is_file():
@@ -2040,11 +2420,19 @@ def main() -> int:
         results[name]["max_abs_err"] = max(results[name]["max_abs_err"], row["max_abs_err"])
         results[name]["maintain"] = row
 
+    # 11. storage leg ------------------------------------------------------
+    torch.cuda.empty_cache()
+    stored = storage_leg(torch, tag, args)
+    for name, row in stored.pop("kernels").items():
+        results[name]["max_abs_err"] = max(results[name]["max_abs_err"], row["max_abs_err"])
+        results[name]["storage"] = row
+
     legs = {"main": launches, "fused": flaunches}
-    for leg in (split, cyclic, dense, maintain):
+    for leg in (split, cyclic, dense, maintain, stored):
         legs.update(leg.pop("launches"))
     for label, summary in (("main path", main), ("fused path", fused), *split.items(),
-                           *cyclic.items(), *dense.items(), *maintain.items()):
+                           *cyclic.items(), *dense.items(), *maintain.items(),
+                           *(("storage leg, " + k, v) for k, v in stored.items())):
         say(tag, f"{label} summary: {json.dumps(summary)}")
     paths = {name: "main" for name in UNFUSED_KERNELS}
     paths.update(fused_hop="fused", semiring_matmul=None)
@@ -2066,8 +2454,9 @@ def main() -> int:
             entry.update(regimes=r["regimes"], launches_by_width=r["launches_by_width"])
         if name == "coo_spmm":
             entry.update(walk=r["walk"])
-        if "maintain" in r:
-            entry.update(maintain=r["maintain"])
+        for leg in ("maintain", "storage"):
+            if leg in r:
+                entry[leg] = r[leg]
         if name == "fused_hop":
             entry.update(three_dispatch_ms=r["three_dispatch_ms"], library=r["library"],
                          hops=r["hops"], walk=r["walk"])

@@ -18,6 +18,8 @@ V-TREE-ORDER  node order is topological; parent/child pointers agree
 V-TREE-LEAF   every tree leaf holds a group attribute (post-fold)
 V-RIP         each attribute's relations form a connected subtree
 V-CODES       encoded codes lie in [0, dom); multiplicities >= 0
+V-STORE-CSR   memmap-backed CSR views: keys ascending, order a valid
+              permutation, keys reproduce the raveled codes
 V-CHAN-COUNT  exactly one COUNT channel, in slot 0
 V-CHAN-DUP    no duplicate channels / min-max requests
 V-CHAN-MEASURE  channel & min-max measures point at relations that
@@ -40,9 +42,9 @@ V-GHD-GROUP   no bag hosts two group relations
 ============= =========================================================
 
 Copy of the JAX package's ``analysis/verify.py`` for one device: its
-shard and sentinel checks (meshes) and its memmap CSR check (disk-backed
-storage) have nothing to check here, and V-KERN checks the launch shapes
-of ``kernels/ops.py`` in place of the TPU tile configurations.
+shard and sentinel checks (meshes) have nothing to check here, and
+V-KERN checks the launch shapes of ``kernels/ops.py`` in place of the
+TPU tile configurations.
 """
 from __future__ import annotations
 
@@ -213,6 +215,73 @@ def check_codes(prep) -> list[Diagnostic]:
                     f"codes/{rel}",
                     f"{rel} has negative multiplicities; the additive "
                     "merge assumes pre-aggregated counts >= 0",
+                )
+            )
+    return out
+
+
+def check_storage(prep) -> list[Diagnostic]:
+    """V-STORE-CSR: every memmap-backed grouped-CSR view built by the
+    external sort (DESIGN.md §12) must be a faithful sorted permutation
+    of its encoding — ``keys`` ascending, ``order`` a permutation of
+    ``[0, n)``, and ``keys == ravel(codes)[order]``.  A bug in the k-way
+    merge (dropped run, split key, unstable tie-break) trips one of the
+    three; in-RAM views are ``np.argsort`` by construction and skipped."""
+    from repro_torch.core.prepare import _ravel
+
+    out: list[Diagnostic] = []
+    for (rel, key_attrs), view in getattr(prep, "_csr_cache", {}).items():
+        if not isinstance(prep.encoded[rel].codes, np.memmap):
+            continue  # in-RAM encodings build views via np.argsort
+        site = f"storage/{rel}"
+        n = prep.encoded[rel].num_rows
+        if len(view.keys) != n or len(view.order) != n:
+            out.append(
+                Diagnostic(
+                    "V-STORE-CSR",
+                    site,
+                    f"CSR view over {key_attrs} has {len(view.keys)} keys "
+                    f"/ {len(view.order)} order entries for {n} rows",
+                )
+            )
+            continue
+        if n == 0:
+            continue
+        if bool(np.any(view.keys[1:] < view.keys[:-1])):
+            out.append(
+                Diagnostic(
+                    "V-STORE-CSR",
+                    site,
+                    f"CSR keys over {key_attrs} are not ascending — "
+                    "binary-search slicing would drop edges",
+                )
+            )
+            continue
+        order = np.asarray(view.order)
+        seen = np.zeros(n, dtype=bool)
+        in_range = (order >= 0) & (order < n)
+        seen[order[in_range]] = True
+        if not (in_range.all() and seen.all()):
+            out.append(
+                Diagnostic(
+                    "V-STORE-CSR",
+                    site,
+                    f"CSR order over {key_attrs} is not a permutation of "
+                    f"[0, {n}) — edges duplicated or lost in the merge",
+                )
+            )
+            continue
+        er = prep.encoded[rel]
+        cols = [er.attrs.index(a) for a in key_attrs]
+        dims = [prep.dicts[a].size for a in key_attrs]
+        expect = _ravel(np.asarray(er.codes), cols, dims)[order]
+        if not np.array_equal(np.asarray(view.keys), expect):
+            out.append(
+                Diagnostic(
+                    "V-STORE-CSR",
+                    site,
+                    f"CSR keys over {key_attrs} disagree with the "
+                    "raveled codes under the view's own permutation",
                 )
             )
     return out
@@ -581,6 +650,7 @@ def verify_plan(plan) -> list[Diagnostic]:
     out = check_tree(prep)
     tree_broken = any(d.code in ("V-TREE-ROOT", "V-TREE-ORDER") for d in out)
     out += check_codes(prep)
+    out += check_storage(prep)
     out += check_channels(plan)
     if plan.ghd_plan is not None:
         out += verify_ghd_plan(plan.ghd_plan)

@@ -20,7 +20,9 @@ of the JAX package's ``api/builder.py``; ``.mesh`` raises
 """
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, replace
+from pathlib import Path
 from typing import Callable, Mapping
 
 import numpy as np
@@ -34,15 +36,21 @@ from repro_torch.relational.relation import Database
 
 
 def _as_database(db) -> Database:
-    """A ``Database`` passes through; a mapping of relations or column
-    dicts is wrapped."""
+    """One ingestion surface (DESIGN.md §12): a ``Database`` passes
+    through, a mapping of named sources/column-dicts wraps via
+    ``Database.from_sources``, and a filesystem path mounts a stored
+    database directory (disk-backed, streaming prepare)."""
     if isinstance(db, Database):
         return db
+    if isinstance(db, (str, Path, os.PathLike)):
+        from repro_torch.storage import open_database
+
+        return open_database(db)
     if isinstance(db, Mapping):
-        return Database.from_mapping(db)
+        return Database.from_sources(db)
     raise TypeError(
-        f"cannot plan against {type(db).__name__}; pass a Database or a "
-        "mapping of relations"
+        f"cannot plan against {type(db).__name__}; pass a Database, a "
+        "mapping of relation sources, or a stored-database path"
     )
 
 
@@ -213,7 +221,9 @@ class Q:
         return replace(self, engine_name=engine)
 
     def memory_budget(self, nbytes: int) -> "Q":
-        """Peak-message budget before group-axis streaming kicks in."""
+        """Peak-message budget before group-axis streaming kicks in.
+        For disk-backed sources it also bounds prepare-time peak memory
+        by shrinking the streaming chunk size (DESIGN.md §12)."""
         return replace(self, budget=int(nbytes))
 
     def stream(self, attr: str, tile: int) -> "Q":

@@ -66,7 +66,15 @@ from repro_torch.planner.cost import (
     node_card_estimates,
     plan_cost,
 )
-from repro_torch.relational.relation import Database, Relation, estimate_prepare_peak
+from repro_torch.relational.relation import Database, Relation
+from repro_torch.relational.source import (
+    copy_column_source,
+    estimate_prepare_peak,
+    filter_source,
+    rename_source,
+    resolve_chunk_rows,
+    storage_kind,
+)
 
 COPY_SUFFIX = "__grp"
 
@@ -158,6 +166,10 @@ class Plan:
     stats_enabled: bool = True
     # why each rejected candidate root failed, for explain()
     root_notes: tuple[str, ...] = ()
+    # effective streaming chunk size used at prepare time; None = the
+    # whole-column in-RAM fast path (purely in-memory sources,
+    # DESIGN.md §12)
+    chunk_rows: int | None = None
     # the Q builder that produced this plan (maintain() replays its
     # aliases, renames and predicates on every delta batch)
     spec: "object | None" = None
@@ -352,12 +364,17 @@ class Plan:
                 f"{_fmt_bytes(self.memory_budget or DEFAULT_MEMORY_BUDGET)})"
             )
         sources = [self.db[r] for r in self.query.relations]
+        mode = (
+            "whole-column"
+            if self.chunk_rows is None
+            else f"chunked ({self.chunk_rows} rows/chunk)"
+        )
         lines.append(
-            "storage: whole-column, est prepare peak "
-            f"{_fmt_bytes(estimate_prepare_peak(sources))}"
+            f"storage: {mode}, est prepare peak "
+            f"{_fmt_bytes(estimate_prepare_peak(sources, self.chunk_rows))}"
         )
         for rname, src in zip(self.query.relations, sources):
-            lines.append(f"  {rname}: {src.storage_kind} ({src.num_rows} rows)")
+            lines.append(f"  {rname}: {storage_kind(src)} ({src.num_rows} rows)")
         if not self.stats_enabled:
             lines.append("stats: disabled (byte-heuristic planning)")
         else:
@@ -569,13 +586,18 @@ def compile_plan(spec, db: Database, physical: bool = True) -> Plan:
         raise ValueError(f"aggregate names collide with group columns: {sorted(clash)}")
 
     stats_on = bool(spec.stats_opt)
+    # one chunking decision per plan: explicit env override, else derived
+    # from the memory budget when any source is disk-backed (DESIGN.md §12)
+    chunk_rows = resolve_chunk_rows(
+        [edb[r] for r in rel_names], memory_budget=spec.budget
+    )
     if not physical:
         return Plan(
             db=edb, query=query0, aggs=aggs, group_display=group_display,
             engine=engine, prep=None, channels=(), minmax=(), assemble={},
             rewrite_notes=tuple(notes), memory_budget=spec.budget,
             stream=spec.stream_opt, fused=spec.fused_opt, cyclic=cyclic,
-            stats_enabled=stats_on, spec=spec,
+            stats_enabled=stats_on, spec=spec, chunk_rows=chunk_rows,
         )
     ghd_plan = None
     root_notes: tuple[str, ...] = ()
@@ -589,7 +611,9 @@ def compile_plan(spec, db: Database, physical: bool = True) -> Plan:
             return prep.measure_moves.get(rel, rel)
 
     else:
-        prep, root_notes = _best_root(query0, edb, measures, use_stats=stats_on)
+        prep, root_notes = _best_root(
+            query0, edb, measures, use_stats=stats_on, chunk_rows=chunk_rows
+        )
 
         def resolve_rel(rel: str) -> str:
             return prep.measure_moves.get(rel, rel)
@@ -629,6 +653,7 @@ def compile_plan(spec, db: Database, physical: bool = True) -> Plan:
         stats_enabled=stats_on,
         root_notes=root_notes,
         spec=spec,
+        chunk_rows=chunk_rows,
     )
     if os.environ.get("REPRO_VERIFY", "") not in ("", "0"):
         plan.verify()  # debug-mode assert (DESIGN.md §11)
@@ -645,7 +670,7 @@ def _apply_aliases(spec, db: Database, notes: list[str]) -> Database:
         if name == source and not mapping:
             edb.add(db[source])
             continue
-        edb.add(db[source].renamed(name, mapping))
+        edb.add(rename_source(db[source], name, mapping))
         if name != source:
             note = f"alias {name} := {source}"
             if mapping:
@@ -661,11 +686,12 @@ def _apply_predicates(spec, edb: Database, notes: list[str]) -> Database:
         if pred.relation not in edb:
             raise KeyError(f"where: relation {pred.relation!r} not in query")
         rel = edb[pred.relation]
-        filtered = rel.filter(np.asarray(pred.fn(rel.columns)))
+        before = rel.num_rows
+        filtered = filter_source(rel, pred.fn)
         edb.add(filtered)
         notes.append(
             f"where {pred.relation}: {pred.label} "
-            f"({rel.num_rows} -> {filtered.num_rows} rows)"
+            f"({before} -> {filtered.num_rows} rows)"
         )
     return edb
 
@@ -717,7 +743,7 @@ def _copy_joining_group_attrs(rel_names, edb: Database, group_by, notes: list[st
         while copy in used:
             copy += "_"
         used.add(copy)
-        edb.add(edb[rel].with_column(copy, edb[rel].columns[attr]))
+        edb.add(copy_column_source(edb[rel], copy, attr))
         out_group_by.append((rel, copy))
         joined_in = sorted(r for r in rel_names if attr in edb[r].attrs)
         notes.append(
@@ -732,6 +758,7 @@ def _best_root(
     db: Database,
     measures: dict[str, str],
     use_stats: bool = True,
+    chunk_rows: int | None = None,
 ) -> tuple[Prepared, tuple[str, ...]]:
     """Cost-based root search: encode once, fold/decompose per candidate
     group-relation root, rank by the statistics-refined cost model
@@ -740,7 +767,9 @@ def _best_root(
     Every rejected root's reason is kept for ``explain()`` and for the
     error raised when no candidate is valid."""
     schema = resolve_schema(query, db)
-    dicts, encoded = encode_query(query, db, schema, measures=measures)
+    dicts, encoded = encode_query(
+        query, db, schema, measures=measures, chunk_rows=chunk_rows
+    )
     best: tuple[Prepared, tuple] | None = None
     failures: list[str] = []
     stats = None

@@ -11,8 +11,11 @@
    on their neighbor — a semi-join with counts), and
 5. the query decomposition tree with attribute splitting.
 
-Copy of the JAX package's ``core/prepare.py`` without its out-of-core
-view build.  Statistics are collected lazily (:attr:`Prepared.stats`).
+Copy of the JAX package's ``core/prepare.py``.  A disk-backed database
+(or a forced ``chunk_rows``) streams the encoding and builds its
+grouped-CSR views through the external key-sort
+(:func:`grouped_csr_external`), so both land as memmaps.  Statistics
+are collected lazily (:attr:`Prepared.stats`).
 The torch engine moves each grouped-CSR view to the device once and
 memoizes it in :attr:`Prepared.device_views`; the incremental maintainer
 drops a relation's memos when a delta changes it
@@ -32,9 +35,11 @@ from repro_torch.relational.encoding import (
     EncodedRelation,
     build_dictionaries,
     encode_relation,
+    encode_relation_streaming,
     reduce_grouped,
 )
 from repro_torch.relational.relation import Database
+from repro_torch.relational.source import env_chunk_rows, resolve_chunk_rows
 
 
 @dataclass
@@ -74,6 +79,59 @@ def grouped_csr(
     keys = _ravel(er.codes, cols, list(dims))
     order = np.argsort(keys, kind="stable")
     return CSRView(tuple(key_attrs), keys[order], order)
+
+
+def grouped_csr_external(
+    er: EncodedRelation,
+    key_attrs: tuple[str, ...],
+    dims: tuple[int, ...],
+    chunk_rows: int | None = None,
+) -> CSRView:
+    """Out-of-core :func:`grouped_csr`: the sorted key array and its
+    permutation are built through the external chunked key-sort and land
+    as ``np.memmap``\\ s, so the view costs O(chunk) RAM even when the
+    encoding itself is disk-backed (DESIGN.md §12).  The merge's stable
+    (key, global row) order reproduces ``np.argsort(keys, "stable")``
+    exactly — bit-identical to the in-RAM build."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from repro_torch.relational.source import DEFAULT_CHUNK_ROWS
+    from repro_torch.storage import sort as ext
+
+    step = chunk_rows or env_chunk_rows() or DEFAULT_CHUNK_ROWS
+    cols = [er.attrs.index(a) for a in key_attrs]
+    n = er.num_rows
+    if n == 0:
+        return CSRView(tuple(key_attrs), np.zeros(0, np.int64), np.zeros(0, np.int64))
+    spill = tempfile.TemporaryDirectory(prefix=f"repro-csr-{er.name}-")
+    base = Path(spill.name)
+    run_dir = base / "runs"
+    run_dir.mkdir()
+
+    def chunks():
+        for start in range(0, n, step):
+            stop = min(start + step, n)
+            keys = _ravel(np.asarray(er.codes[start:stop]), cols, list(dims))
+            yield {
+                ext.KEY: keys,
+                "idx": np.arange(start, stop, dtype=np.int64),
+            }
+
+    runs = ext.sort_chunks_to_runs(run_dir, chunks())
+    writer = ext.SpillWriter(base, "csr")
+    # merge windows hold O(runs × block) rows; tying the block to the
+    # chunk budget keeps the merge inside the same RAM envelope as the
+    # run-building phase instead of the 64Ki-row default
+    block = max(256, step // 16)
+    for batch in ext.merge_runs(runs, block_rows=block):
+        writer.append(batch)
+    shutil.rmtree(run_dir, ignore_errors=True)
+    fields = writer.finish()
+    view = CSRView(tuple(key_attrs), fields[ext.KEY], fields["idx"])
+    view._spill = spill  # keep the memmap files alive with the view
+    return view
 
 
 @dataclass
@@ -158,7 +216,15 @@ class Prepared:
         if view is None:
             er = self.encoded[rel]
             dims = tuple(self.dicts[a].size for a in key_attrs)
-            view = grouped_csr(er, tuple(key_attrs), dims)
+            if isinstance(er.codes, np.memmap):
+                view = grouped_csr_external(
+                    er,
+                    tuple(key_attrs),
+                    dims,
+                    chunk_rows=getattr(er, "_chunk_rows", None),
+                )
+            else:
+                view = grouped_csr(er, tuple(key_attrs), dims)
             view = self._csr_cache.setdefault(key, view)
         return view
 
@@ -355,19 +421,35 @@ def encode_query(
     schema: QuerySchema,
     growable: bool = False,
     measures: dict[str, str] | None = None,
+    chunk_rows: int | None = None,
 ) -> tuple[dict[str, Dictionary], dict[str, EncodedRelation]]:
     """Front half of :func:`prepare`: shared dictionaries + encoded
-    relations (``growable`` as in :func:`prepare`)."""
+    relations (``growable`` as in :func:`prepare`).
+
+    ``chunk_rows`` bounds prepare-time memory: when set (explicitly, via
+    ``REPRO_CHUNK_ROWS``, or implied by disk-backed sources) dictionary
+    building and pre-aggregation stream over ``iter_chunks`` batches and
+    the encodings spill to memmaps; ``None`` keeps the whole-column
+    in-RAM path (bit-identical either way, DESIGN.md §12)."""
     all_attrs = {a for attrs in schema.relevant.values() for a in attrs}
     rels = [db[r] for r in query.relations]
-    dicts = build_dictionaries(rels, all_attrs, growable=growable)
+    chunk_rows = resolve_chunk_rows(rels, chunk_rows)
+    dicts = build_dictionaries(rels, all_attrs, growable=growable, chunk_rows=chunk_rows)
     measures = query_measures(query, measures)
-    encoded = {
-        rname: encode_relation(
-            db[rname], schema.relevant[rname], dicts, measures.get(rname)
-        )
-        for rname in query.relations
-    }
+    encoded: dict[str, EncodedRelation] = {}
+    for rname in query.relations:
+        if chunk_rows is None:
+            encoded[rname] = encode_relation(
+                db[rname], schema.relevant[rname], dicts, measures.get(rname)
+            )
+        else:
+            encoded[rname] = encode_relation_streaming(
+                db[rname],
+                schema.relevant[rname],
+                dicts,
+                measures.get(rname),
+                chunk_rows=chunk_rows,
+            )
     return dicts, encoded
 
 
@@ -446,6 +528,7 @@ def prepare(
     root: str | None = None,
     growable: bool = False,
     measures: dict[str, str] | None = None,
+    chunk_rows: int | None = None,
 ) -> Prepared:
     """Resolve, encode, fold and decompose ``query`` over ``db``.
 
@@ -453,9 +536,14 @@ def prepare(
     :class:`~repro_torch.relational.encoding.GrowableDictionary` encoders so the
     result can be maintained under inserts/deletes
     (``repro_torch.incremental``): new attribute values append codes and
-    domains only ever grow."""
+    domains only ever grow.
+
+    ``chunk_rows`` bounds prepare-time peak memory by streaming encoding
+    (see :func:`encode_query`); it defaults to streaming automatically
+    when any relation source is disk-backed."""
     schema = resolve_schema(query, db)
     dicts, encoded = encode_query(
-        query, db, schema, growable=growable, measures=measures
+        query, db, schema, growable=growable, measures=measures,
+        chunk_rows=chunk_rows,
     )
     return finish_prepare(query, schema, dicts, encoded, root=root, measures=measures)

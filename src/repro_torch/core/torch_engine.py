@@ -27,7 +27,12 @@ Port of the JAX package's ``core/jax_engine.py``.
   What lives on the device: each grouped-CSR view (sorted keys, permuted
   codes and weights), moved once per ``Prepared`` or stream tile, and
   every message of the walk; peak memory is the largest message, and
-  group-axis stream tiles bound even that.  The JAX engine's
+  group-axis stream tiles bound even that.  Every view, weight and
+  dense relation tensor moves to the device in row ranges
+  (:func:`to_device_rows`) of the encoding's chunk size (a stored
+  database's plan chunk, DESIGN.md §12, else ``DEFAULT_CHUNK_ROWS``), so
+  host memory stays bounded by one range through the first execute as
+  through a stored prepare.  The JAX engine's
   ``EDGE_BUCKET`` padding (static shapes for jit) and its numpy fallback
   for ``≥ 2**31`` segments are gone: the kernels index in int64.
 
@@ -68,6 +73,7 @@ from repro_torch.kernels.ops import fused_enabled
 from repro_torch.kernels.segment_reduce import segment_reduce
 from repro_torch.kernels.segment_sum import segment_sum
 from repro_torch.relational.relation import Database
+from repro_torch.relational.source import DEFAULT_CHUNK_ROWS
 
 
 def require_device(device) -> torch.device:
@@ -210,6 +216,28 @@ def full_fp32_matmul():
         torch.set_float32_matmul_precision(saved)
 
 
+def _chunk_of(er) -> int:
+    """Rows per host range when ``er``'s rows move to the device: its
+    streaming chunk (a stored database's plan chunk), else
+    ``DEFAULT_CHUNK_ROWS``."""
+    return int(getattr(er, "_chunk_rows", None) or DEFAULT_CHUNK_ROWS)
+
+
+def to_device_rows(shape, dtype, device, chunk: int, rows_of) -> torch.Tensor:
+    """A ``shape`` tensor of ``dtype`` on ``device``, filled in row ranges
+    of ``chunk`` rows: ``rows_of(lo, hi)`` gives rows ``lo:hi`` on the
+    host (a gather, or a slice of a memmap).  Host memory holds one range
+    at a time; a read-only range (a stored memmap's pages) is copied
+    before torch sees it, so no memmap is shared or written."""
+    dst = torch.empty(shape, dtype=dtype, device=device)
+    host_dtype = torch.empty(0, dtype=dtype).numpy().dtype
+    for lo in range(0, shape[0], chunk):
+        hi = min(lo + chunk, shape[0])
+        rows = np.require(rows_of(lo, hi), host_dtype, ["C", "W"])
+        dst[lo:hi].copy_(torch.from_numpy(rows))
+    return dst
+
+
 def _scatter(prep: Prepared, rel: str, values: np.ndarray, device) -> torch.Tensor:
     """``rel``'s per-row ``values`` in a dense float32 tensor over its attr
     domains on ``device``.  The relation's grouped-CSR view keyed on all
@@ -230,11 +258,15 @@ def _scatter(prep: Prepared, rel: str, values: np.ndarray, device) -> torch.Tens
     if er.num_rows == 0:
         return flat.reshape(dims)
     view = prep.csr_view(rel, er.attrs)
-    keys = torch.from_numpy(view.keys).to(device)
-    vals = torch.from_numpy(
-        np.ascontiguousarray(values[view.order], dtype=np.float32)
-    ).to(device)
-    if bool(np.all(view.keys[1:] != view.keys[:-1])):
+    n, chunk = len(view.keys), _chunk_of(er)
+    keys = to_device_rows(
+        (n,), torch.int64, device, chunk, lambda lo, hi: view.keys[lo:hi]
+    )
+    vals = to_device_rows(
+        (n,), torch.float32, device, chunk,
+        lambda lo, hi: values[np.asarray(view.order[lo:hi])],
+    )
+    if bool((keys[1:] != keys[:-1]).all()):
         flat[keys] = vals
     else:
         flat = segment_sum(vals.reshape(-1, 1), keys, elems).reshape(-1)
@@ -385,23 +417,32 @@ class DeviceView:
     codes: torch.Tensor  # (n, arity) int64
     order: np.ndarray  # sorted position -> encoded row
     memo: dict = field(default_factory=dict)
+    # rows per host range of its uploads (:func:`to_device_rows`)
+    chunk_rows: int = DEFAULT_CHUNK_ROWS
 
     @staticmethod
     def build(er, view: CSRView, device: torch.device) -> "DeviceView":
-        codes = np.ascontiguousarray(er.codes[view.order], dtype=np.int64)
-        return DeviceView(
-            view.attrs,
-            torch.from_numpy(view.keys).to(device),
-            view.keys,
-            torch.from_numpy(codes).to(device),
-            view.order,
+        """``view`` on ``device``, moved in row ranges of ``er``'s chunk
+        size.  The host keys stay the view's own (a memmap is only
+        read)."""
+        n, chunk = len(view.keys), _chunk_of(er)
+        keys = to_device_rows(
+            (n,), torch.int64, device, chunk, lambda lo, hi: view.keys[lo:hi]
         )
+        codes = to_device_rows(
+            (n, len(er.attrs)), torch.int64, device, chunk,
+            lambda lo, hi: er.codes[np.asarray(view.order[lo:hi])],
+        )
+        return DeviceView(view.attrs, keys, view.keys, codes, view.order, chunk_rows=chunk)
 
-    def upload(self, host: np.ndarray) -> torch.Tensor:
-        """Per-edge ``host`` values (rows in encoded order), permuted into
-        key order, as float32 on the view's device."""
-        w = np.ascontiguousarray(host[self.order], dtype=np.float32)
-        return torch.from_numpy(w).to(self.keys.device)
+    def upload(self, rows_of, tail: tuple[int, ...] = ()) -> torch.Tensor:
+        """Per-edge values in key order, float32 on the view's device:
+        ``rows_of(idx)`` gives the host values (rows of shape ``tail``) of
+        encoded rows ``idx``, one row range at a time."""
+        return to_device_rows(
+            (len(self.order),) + tuple(tail), torch.float32, self.keys.device,
+            self.chunk_rows, lambda lo, hi: rows_of(np.asarray(self.order[lo:hi])),
+        )
 
 
 def key_chunks(
@@ -563,12 +604,27 @@ class _KernelChannelEngine(_CsrHopMixin, ChannelTensorEngine):
 
     def _weights(self, rel: str, view: DeviceView):
         """``((n, k) weights, uniform)``; ``uniform`` (every channel
-        weighs an edge alike) is decided once per view on the host."""
+        weighs an edge alike) is decided once per view on the host.  Each
+        channel's column (its ``sum`` payload or the multiplicities, as
+        :func:`channel_weight_matrices` lays them out) is formed in
+        float64, then float32, one row range at a time."""
         key = ("channels", self.channel_measures)
         if key not in view.memo:
-            w = self._host_weights(rel).astype(np.float32)
-            uniform = self.k == 1 or bool((w == w[:, :1]).all())
-            view.memo[key] = (view.upload(w), uniform)
+            er = self.encoded[rel]
+            cols = [
+                er.payloads["sum"] if m == rel else er.count
+                for m in self.channel_measures
+            ]
+            flags = []
+
+            def rows_of(idx):
+                w = np.stack([np.asarray(c[idx], np.float64) for c in cols], axis=1)
+                w = w.astype(np.float32)
+                flags.append(self.k == 1 or bool((w == w[:, :1]).all()))
+                return w
+
+            dev = view.upload(rows_of, (self.k,))
+            view.memo[key] = (dev, all(flags))
         return view.memo[key]
 
     def _contract_block(self, weights, gathers, view, knum):
@@ -612,9 +668,10 @@ class _MinMaxKernelEngine(_CsrHopMixin, TensorEngine):
         key = ("payload", self.kind, self.values is None)
         if key not in view.memo:
             payload = er.payloads[self.kind]
-            if self.values is not None:
-                payload = np.searchsorted(self.values, payload)
-            view.memo[key] = view.upload(payload)
+            view.memo[key] = view.upload(
+                lambda idx: payload[idx] if self.values is None
+                else np.searchsorted(self.values, payload[idx])
+            )
         return view.memo[key]
 
     def _contract_block(self, weights, gathers, view, knum):
@@ -622,6 +679,17 @@ class _MinMaxKernelEngine(_CsrHopMixin, TensorEngine):
             view.keys, view.keys_host, weights.reshape(-1, 1), gathers, knum,
             self.kind, self.fused,
         )
+
+
+def _distinct(values: np.ndarray, chunk: int) -> np.ndarray:
+    """``np.unique(values)``, folded over row ranges of ``chunk`` as a
+    running sorted union (the same array, read a range at a time)."""
+    if len(values) <= chunk:
+        return np.unique(values)
+    out = np.unique(values[:0])
+    for lo in range(0, len(values), chunk):
+        out = np.union1d(out, values[lo:lo + chunk])
+    return out
 
 
 @dataclass
@@ -664,7 +732,8 @@ class SparseProgram:
         key = (str(self.device), rel_m, kind)
         memo = self.prep.payload_values
         if key not in memo:
-            host = np.unique(self.prep.encoded[rel_m].payloads[kind])
+            er = self.prep.encoded[rel_m]
+            host = _distinct(er.payloads[kind], _chunk_of(er))
             memo[key] = (
                 (host, torch.from_numpy(host).to(self.device))
                 if len(host) <= _MAX_EXACT_RANKS else None

@@ -1,12 +1,13 @@
-"""Dictionary encoding of attribute values (in-memory path).
+"""Dictionary encoding of attribute values.
 
 Every query-relevant attribute gets one global code space shared by all
 relations that carry it (natural-join attributes *must* share codes — a
 code **is** a node id in the paper's data graph).  Codes are dense int64
 in ``[0, |domain|)``; ``Dictionary.values`` maps codes back to values.
 
-Copy of the JAX package's ``relational/encoding.py`` without its
-external-sort (chunk-streaming) branch.
+Copy of the JAX package's ``relational/encoding.py``: the whole-column
+path for in-memory relations and the chunk-streaming path
+(:func:`encode_relation_streaming`) whose encodings land as memmaps.
 """
 from __future__ import annotations
 
@@ -77,11 +78,18 @@ class GrowableDictionary(Dictionary):
 
 
 def build_dictionaries(
-    relations: Iterable[Relation], attrs: Iterable[str], growable: bool = False
+    relations: Iterable[Relation],
+    attrs: Iterable[str],
+    growable: bool = False,
+    chunk_rows: int | None = None,
 ) -> dict[str, Dictionary]:
-    """One shared dictionary per attribute name across all relations;
-    ``growable`` builds :class:`GrowableDictionary` encoders (the
-    incremental maintainer's)."""
+    """One shared dictionary per attribute name across all relations.
+
+    ``chunk_rows`` streams each source column chunk-at-a-time, folding
+    per-chunk uniques into a running sorted union (``np.union1d`` is a
+    truncation-free set union, so the result is identical to the
+    whole-column ``np.unique``); ``None`` keeps the whole-column fast
+    path for in-memory relations."""
     relations = list(relations)
     cls = GrowableDictionary if growable else Dictionary
     out: dict[str, Dictionary] = {}
@@ -89,8 +97,18 @@ def build_dictionaries(
         carriers = [r for r in relations if attr in r.attrs]
         if not carriers:
             raise KeyError(f"attr {attr!r} not present in any relation")
-        parts = [np.asarray(r.columns[attr]) for r in carriers]
-        out[attr] = cls(attr, np.unique(np.concatenate(parts)))
+        if chunk_rows is None:
+            parts = [np.asarray(r.open_column(attr)) for r in carriers]
+            values = np.unique(np.concatenate(parts))
+        else:
+            values = None
+            for r in carriers:
+                for chunk in r.iter_chunks((attr,), chunk_rows):
+                    u = np.unique(chunk[attr])
+                    values = u if values is None else np.union1d(values, u)
+            if values is None:  # all carriers empty: one empty column
+                values = np.unique(np.asarray(carriers[0].open_column(attr)))
+        out[attr] = cls(attr, values)
     return out
 
 
@@ -176,10 +194,137 @@ def encode_relation(
     attrs = tuple(attrs)
     if not attrs:
         raise ValueError(f"relation {rel.name!r}: empty projection")
-    cols = [dicts[a].encode(np.asarray(rel.columns[a])) for a in attrs]
+    cols = [dicts[a].encode(np.asarray(rel.open_column(a))) for a in attrs]
     codes = np.stack(cols, axis=1)
     uniq, count, payloads = preaggregate_rows(
         codes,
-        np.asarray(rel.columns[measure]) if measure is not None else None,
+        np.asarray(rel.open_column(measure)) if measure is not None else None,
     )
     return EncodedRelation(rel.name, attrs, uniq, count, payloads)
+
+
+def encode_relation_streaming(
+    rel,
+    attrs: Iterable[str],
+    dicts: Mapping[str, Dictionary],
+    measure: str | None = None,
+    chunk_rows: int = 1 << 18,
+    spill_dir: str | None = None,
+) -> EncodedRelation:
+    """Chunk-streaming twin of :func:`encode_relation` (DESIGN.md §12).
+
+    Each chunk is encoded, raveled to a composite row key over the full
+    dictionary domains, and pre-aggregated locally; the sorted chunk
+    partials land in external-sort run files and a k-way aggregating
+    merge produces the final unique rows — written straight to
+    ``np.memmap`` spill files, so peak RAM is bounded by the chunk size
+    plus the merge windows, never the relation.
+
+    Row-major ravel order equals ``np.unique(codes, axis=0)``'s
+    lexicographic order, so codes/count come out bit-identical to the
+    in-RAM path.  Float ``sum`` payloads accumulate per chunk and then
+    per merged run — associative but not the sequential order of
+    :func:`preaggregate_rows`, hence exact (bit-identical) only for
+    integer-valued measures; ``min``/``max``/``count`` are always exact.
+    """
+    import shutil
+    import tempfile
+
+    from pathlib import Path
+
+    from repro_torch.storage import sort as ext
+
+    attrs = tuple(attrs)
+    if not attrs:
+        raise ValueError(f"relation {rel.name!r}: empty projection")
+    dims = tuple(dicts[a].size for a in attrs)
+    spill = tempfile.TemporaryDirectory(
+        prefix=f"repro-enc-{rel.name}-", dir=spill_dir
+    )
+    base = Path(spill.name)
+    run_dir = base / "runs"
+    run_dir.mkdir()
+    stream_cols = attrs if measure is None else attrs + (measure,)
+
+    def chunk_partials():
+        for chunk in rel.iter_chunks(stream_cols, chunk_rows):
+            codes = np.stack(
+                [dicts[a].encode(np.asarray(chunk[a])) for a in attrs], axis=1
+            )
+            keys = (
+                np.ravel_multi_index(
+                    tuple(codes[:, i] for i in range(len(attrs))), dims=dims
+                ).astype(np.int64)
+                if len(codes)
+                else np.zeros(0, np.int64)
+            )
+            uniq, inv = np.unique(keys, return_inverse=True)
+            inv = inv.ravel()
+            fields = {
+                ext.KEY: uniq,
+                "count": np.bincount(inv, minlength=len(uniq)).astype(np.int64),
+            }
+            if measure is not None:
+                m = np.asarray(chunk[measure], dtype=np.float64)
+                fields["sum"] = np.bincount(inv, weights=m, minlength=len(uniq))
+                mn = np.full(len(uniq), np.inf)
+                np.minimum.at(mn, inv, m)
+                mx = np.full(len(uniq), -np.inf)
+                np.maximum.at(mx, inv, m)
+                fields["min"] = mn
+                fields["max"] = mx
+            yield fields
+
+    runs = ext.sort_chunks_to_runs(run_dir, chunk_partials())
+    writer = ext.SpillWriter(base, "enc")
+    codes_path = base / "enc.codes.bin"
+    n_out = 0
+    # tie the merge window to the chunk budget (see grouped_csr_external)
+    block = max(256, int(chunk_rows) // 16)
+    with open(codes_path, "wb") as codes_fh:
+        for batch in ext.merge_runs(runs, block_rows=block):
+            uniq, inv = np.unique(batch[ext.KEY], return_inverse=True)
+            inv = inv.ravel()
+            out = {
+                ext.KEY: uniq,
+                "count": np.bincount(
+                    inv, weights=batch["count"].astype(np.float64),
+                    minlength=len(uniq),
+                ).astype(np.int64),
+            }
+            if measure is not None:
+                out["sum"] = np.bincount(
+                    inv, weights=batch["sum"], minlength=len(uniq)
+                )
+                mn = np.full(len(uniq), np.inf)
+                np.minimum.at(mn, inv, batch["min"])
+                mx = np.full(len(uniq), -np.inf)
+                np.maximum.at(mx, inv, batch["max"])
+                out["min"] = mn
+                out["max"] = mx
+            codes = np.column_stack(np.unravel_index(uniq, dims)).astype(np.int64)
+            np.ascontiguousarray(codes).tofile(codes_fh)
+            n_out += len(uniq)
+            writer.append(out)
+    shutil.rmtree(run_dir, ignore_errors=True)
+    fields = writer.finish()
+    codes_mm = (
+        np.memmap(
+            codes_path, dtype=np.int64, mode="r+", shape=(n_out, len(attrs))
+        )
+        if n_out
+        else np.zeros((0, len(attrs)), np.int64)
+    )
+    if measure is not None:
+        # empty relations still carry (empty) payloads, as the in-RAM
+        # path does — the fold rewrite keys off payload presence
+        payloads = {
+            k: fields.get(k, np.zeros(0)) for k in ("sum", "min", "max")
+        }
+    else:
+        payloads = {}
+    count = fields["count"] if n_out else np.zeros(0, np.int64)
+    er = EncodedRelation(rel.name, attrs, codes_mm, count, payloads)
+    er._spill = spill  # keep the memmap files alive with the encoding
+    er._chunk_rows = int(chunk_rows)  # CSR builds reuse the same budget
+    return er

@@ -1,20 +1,17 @@
-"""Columnar in-memory relations — the port's storage substrate.
+"""Columnar relations — the port's storage substrate.
 
 A :class:`Relation` is a dict of equal-length numpy columns and a
-:class:`Database` a named collection of them.  This is the in-memory half
-of the JAX package's ``relational/relation.py``; the planner's rewrites
-(aliasing, predicate pushdown, group-attribute column copies) call
-:meth:`Relation.renamed`, :meth:`Relation.filter` and
-:meth:`Relation.with_column` directly, which is what the JAX package's
-``rename_source``/``filter_source``/``copy_column_source`` do for an
-in-memory relation.  The disk-backed ``RelationSource`` path is not
-ported, so every relation's ``storage_kind`` is ``"memory"`` and
-:func:`estimate_prepare_peak` knows the whole-column mode only.
+:class:`Database` a named collection of *relation sources*
+(DESIGN.md §12).  A plain :class:`Relation` is the trivial
+:class:`~repro_torch.relational.source.RelationSource` — one in-RAM
+chunk; disk-backed relations live in :mod:`repro_torch.storage` and
+stream through the same protocol.  Copy of the JAX package's
+``relational/relation.py``.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Mapping
+from typing import Iterator, Mapping
 
 import numpy as np
 
@@ -26,7 +23,7 @@ class Relation:
     name: str
     columns: dict[str, np.ndarray]
 
-    storage_kind = "memory"  # for explain(); no disk-backed tier is ported
+    storage_kind = "memory"
 
     def __post_init__(self) -> None:
         lengths = {len(col) for col in self.columns.values()}
@@ -75,26 +72,47 @@ class Relation:
         cols[attr] = np.asarray(values)
         return Relation(self.name, cols)
 
+    # -- RelationSource protocol (the trivial in-memory source) ---------
+    def iter_chunks(
+        self,
+        columns: tuple[str, ...] | None = None,
+        chunk_rows: int | None = None,
+    ) -> Iterator[dict[str, np.ndarray]]:
+        """Stream row ranges as column dicts; one chunk when unbounded."""
+        attrs = tuple(columns) if columns is not None else self.attrs
+        missing = set(attrs) - set(self.columns)
+        if missing:
+            raise KeyError(f"relation {self.name!r} has no attrs {sorted(missing)}")
+        n = self.num_rows
+        step = n if chunk_rows is None else max(int(chunk_rows), 1)
+        for start in range(0, n, step) if n else ():
+            stop = min(start + step, n)
+            yield {a: self.columns[a][start:stop] for a in attrs}
 
-def estimate_prepare_peak(relations) -> int:
-    """Estimated prepare-time peak bytes for ``Plan.explain()``: the
-    whole-column mode materializes every encoded column at once."""
-    return sum(8 * max(len(r.attrs), 1) * r.num_rows for r in relations)
+    def open_column(self, attr: str) -> np.ndarray:
+        return self.columns[attr]
 
 
 @dataclass
 class Database:
-    """A named collection of in-memory relations."""
+    """A named collection of relation sources.
 
-    relations: dict[str, Relation] = field(default_factory=dict)
+    Values are anything speaking the
+    :class:`~repro_torch.relational.source.RelationSource` protocol:
+    plain in-memory :class:`Relation`\\ s, disk-backed
+    :class:`~repro_torch.storage.store.StoredRelation`\\ s, or the
+    planner's lazy rewrite wrappers.  ``from_mapping`` stays the thin
+    eager adapter; ``from_sources`` is the unified ingestion spelling."""
 
-    def __getitem__(self, name: str) -> Relation:
+    relations: dict[str, "Relation"] = field(default_factory=dict)
+
+    def __getitem__(self, name: str):
         return self.relations[name]
 
     def __contains__(self, name: str) -> bool:
         return name in self.relations
 
-    def add(self, rel: Relation) -> "Database":
+    def add(self, rel) -> "Database":
         self.relations[rel.name] = rel
         return self
 
@@ -109,3 +127,13 @@ class Database:
                 db.add(Relation(name, dict(obj)))
         return db
 
+    @staticmethod
+    def from_sources(mapping: Mapping[str, object]) -> "Database":
+        """Named sources of any spelling (RelationSource, Relation, or a
+        column mapping) — the one ingestion surface (DESIGN.md §12)."""
+        from repro_torch.relational.source import as_source
+
+        db = Database()
+        for name, obj in mapping.items():
+            db.add(as_source(obj, name))
+        return db

@@ -17,10 +17,10 @@ Incremental maintenance keeps a materialized collection current:
 :meth:`Statistics.refresh_relation` recollects a relation after a
 delete, and both bump ``generation``.
 
-Copy of the JAX package's ``stats/collect.py`` for in-memory encodings
-(one chunk per relation, as the JAX package scans them).  The fanout
-sampler draws from the same seeded generator in the same order, so both
-packages collect the same statistics.
+Copy of the JAX package's ``stats/collect.py``: in-memory encodings scan
+as one chunk, memmap encodings in bounded row chunks, as the JAX package
+scans them.  The fanout sampler draws from the same seeded generator in
+the same order, so both packages collect the same statistics.
 """
 from __future__ import annotations
 
@@ -148,20 +148,43 @@ class Statistics:
 
 
 def _relation_stats(
-    er: EncodedRelation, dicts: dict[str, Dictionary], kmv_k: int, hh_m: int
+    er: EncodedRelation,
+    dicts: dict[str, Dictionary],
+    kmv_k: int,
+    hh_m: int,
+    chunk_rows: int | None = None,
 ) -> RelationStats:
-    """Sketch one encoded relation in one pass over its columns."""
-    rows = int(er.count.sum()) if er.num_rows else 0
+    """Sketch one encoded relation, feeding the sketches in bounded row
+    chunks so a memmap-backed encoding is never pulled into RAM whole
+    (DESIGN.md §12).  Purely in-memory encodings with no chunking forced
+    scan as one chunk — the sketches see identical input either way, and
+    the KMV sketch's truncated set-union makes its *state* independent
+    of the chunking (the regression test asserts it)."""
+    from repro_torch.relational.source import DEFAULT_CHUNK_ROWS, env_chunk_rows
+
+    n = er.num_rows
+    rows = int(er.count.sum()) if n else 0
+    if chunk_rows is None:
+        chunk_rows = env_chunk_rows() or (
+            DEFAULT_CHUNK_ROWS if isinstance(er.codes, np.memmap) else None
+        )
+    step = max(int(chunk_rows), 1) if chunk_rows else max(n, 1)
+    distincts = [DistinctSketch(kmv_k) for _ in er.attrs]
+    heavies = [HeavyHitterSketch(hh_m) for _ in er.attrs]
+    maxes = [-1] * len(er.attrs)
+    for start in range(0, n, step):
+        stop = min(start + step, n)
+        block = np.asarray(er.codes[start:stop])
+        w = np.asarray(er.count[start:stop])
+        for i in range(len(er.attrs)):
+            col = block[:, i]
+            distincts[i].update(col)
+            heavies[i].update(col, weights=w)
+            maxes[i] = max(maxes[i], int(col.max(initial=-1)))
     cols: dict[str, ColumnStats] = {}
     for i, attr in enumerate(er.attrs):
-        col = np.asarray(er.codes[:, i])
-        distinct = DistinctSketch(kmv_k).update(col)
-        heavy = HeavyHitterSketch(hh_m).update(col, weights=er.count)
-        dom = (
-            dicts[attr].size if attr in dicts
-            else max(int(col.max(initial=-1)), 0) + 1
-        )
-        cols[attr] = ColumnStats(attr, rows, dom, distinct, heavy)
+        dom = dicts[attr].size if attr in dicts else max(maxes[i], 0) + 1
+        cols[attr] = ColumnStats(attr, rows, dom, distincts[i], heavies[i])
     return RelationStats(er.name, rows, er.num_rows, cols)
 
 

@@ -1,8 +1,9 @@
 """The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
 neither JAX nor the JAX package ``repro`` (an acyclic, a split, a cyclic
-and a dense-path query are answered, explained and verified, and a
-maintained bundle takes an insert, with both refused), and the port's default engine refuses to run without a CUDA
-card instead of quietly using the CPU."""
+and a dense-path query are answered, explained and verified, a
+maintained bundle takes an insert, and a stored database is written,
+mounted and answered, with both refused), and the port's default engine
+refuses to run without a CUDA card instead of quietly using the CPU."""
 import ast
 import json
 import os
@@ -65,6 +66,23 @@ handle = (
 )
 maintained = handle.insert("R2", {"j": np.array([1, 2]), "g2": np.array([0, 4]),
                                   "m": np.array([3, 5])})
+import tempfile
+from repro_torch.relational.relation import Database
+from repro_torch.storage import write_database
+
+with tempfile.TemporaryDirectory() as td:
+    write_database(Database.from_mapping(db), td + "/db")
+    stored = (
+        Q.over("R1", "R2").group_by("R1.g1", "R2.g2")
+        .agg(n=Count(), s=Sum("R2.m"), lo=Min("R2.m"), hi=Max("R2.m"))
+        .engine(cpu).plan(td + "/db")
+    )
+    stored_res = stored.execute()
+    stored_same = all(
+        (stored_res.column(c) == res.column(c)).all() for c in res.relation.columns
+    )
+    stored_explained = "storage: chunked" in stored.explain()
+    stored_findings = len(stored.verify(strict=False))
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in {"jax", "jaxlib", "repro"})
 print(json.dumps({"rows": res.num_rows, "n": float(res.column("n").sum()),
                   "split": split.split is not None,
@@ -75,6 +93,8 @@ print(json.dumps({"rows": res.num_rows, "n": float(res.column("n").sum()),
                   "explained": "torch path: dense" in explained,
                   "findings": len(dense.verify(strict=False) + cyclic.verify(strict=False)),
                   "maintained_n": float(maintained.column("n").sum()),
+                  "stored_same": bool(stored_same), "stored_explained": stored_explained,
+                  "stored_findings": stored_findings,
                   "loaded": loaded}))
 """
 
@@ -99,6 +119,7 @@ def test_port_answers_a_query_with_jax_and_repro_refused():
     assert out["dense"] == "dense" and out["dense_rows"] > 0
     assert out["explained"] and out["findings"] == 0
     assert out["maintained_n"] > out["n"]  # the insert joined
+    assert out["stored_same"] and out["stored_explained"] and out["stored_findings"] == 0
 
 
 def _imported_modules(path: Path) -> list[str]:
@@ -125,7 +146,7 @@ def test_no_source_imports_jax_or_repro(path):
 def test_the_scan_covers_every_port_package():
     scanned = {p.parent.name for p in PORT.rglob("*.py")}
     packages = {p.parent.name for p in PORT.rglob("__init__.py")}
-    assert {"analysis", "api", "core", "incremental", "kernels", "planner"} <= packages == scanned
+    assert {"analysis", "api", "core", "incremental", "kernels", "planner", "storage"} <= packages == scanned
 
 
 def test_torch_engine_raises_without_cuda(monkeypatch):
