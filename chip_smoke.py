@@ -116,7 +116,36 @@ Run from the root of a checkout on a machine with a CUDA card.  It
    chunks (the k-way merge), with ``.fused(True)``, on the CPU and with
    the default chunk, each bit-identical to the in-memory run, and a
    ``Q.maintain`` handle over the mounted database equal to one over the
-   in-memory twin through three 100-row R2 inserts.
+   in-memory twin through three 100-row R2 inserts;
+12. drives the serve leg: ``JoinAggServer(db, device="cuda", workers=8,
+   fusion_window=0.002)`` over C1 at ``--n`` with the reference demo's
+   integer ``R2.w`` in [1, 100) (``launch/serve.py``), answering its five
+   shapes (count, sum, multi, minmax, two_group) and ``count`` with
+   ``.fused(True)``; every answer is held against a solo
+   ``plan(db).execute()`` of its spec on the card, bit for bit.  It
+   prints each shape's cold and warm query time; two rounds of 8 client
+   threads x 6 queries (the first while two served views take 6 insert
+   batches each and 2 readers per view check every read against a
+   shadow handle's prefix: ``by_g1``, COUNT by R1.g1, whose R1 batches
+   recompute because the chain folds into R1, and ``pairs``, the
+   two_group shape on g1 < 40 and g2 < 40, whose R2 batches must all
+   propagate through the device message caches, its last prefix also
+   equal to a fresh execute; the second round warm and under the
+   profiler): p50/p99
+   latency, queries per second, the device idle share and the device
+   peak above what the full plan cache holds; 8 identical queries as one
+   burst (one execute) against one after another; a count/sum/multi
+   burst (a channel merge); one TCP round trip; the plan-cache and
+   fusion counters (compiles fewer than queries); the dense leg's TPCH
+   bundle from 4 concurrent clients of a second server under a global
+   ``allow_tf32 = True`` (every einsum term run with TF32 off, read by a
+   spy on ``contract_term``; the FP32 result bit for bit; the setting
+   kept);
+   at ``--check-n`` a ``device="cpu"`` server against a ``device="cuda"``
+   one, answer by answer; and the served plans' own ``segment_sum``,
+   ``coo_spmm``, ``segment_reduce`` and ``fused_hop`` launches against
+   their plain versions (tolerance 0), each timed beside its library
+   call.  Each of the four must launch.
 
 Every leg prints its ``torch path:`` line — per key range for the split
 leg — and checks the path each run took against ``choose_path``: a dense
@@ -279,13 +308,16 @@ def bundle_query(engine):
     )
 
 
-def idle_share(torch, run) -> tuple[float, float, list[tuple[str, float, int]]]:
+def idle_share(torch, run, cpu: bool = True) -> tuple[float, float, list[tuple[str, float, int]]]:
     """Run ``run()`` under torch.profiler; return (wall s, device-busy s,
     top device ops by time).  Busy time is the union of the intervals of
-    all device events (kernels and copies)."""
+    all device events (kernels and copies).  ``cpu=False`` traces the
+    device alone, for runs whose host threads issue too many ops to
+    trace cheaply."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU] * cpu + [ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         run()
@@ -769,6 +801,27 @@ def fused_hop_cases(torch, dev):
     return cases
 
 
+def fused_library(torch, args, uniform: bool):
+    """The one PyTorch call that computes a ``fused_hop`` launch, by hop
+    class, and its time: ``index_add_`` for a leaf sum, ``scatter_reduce_``
+    for a leaf min/max, a CSR ``torch.sparse.mm`` for a single-child
+    channel-uniform sum; ``(None, None)`` where no one call does."""
+    keys, w, msgs, idxs, s, k, kind = args
+    dev = keys.device
+    if not msgs and kind == "sum":
+        return "index_add_", time_ms(
+            torch, lambda: torch.zeros((s, k), device=dev).index_add_(0, keys, w))
+    if not msgs:
+        ident = float("inf") if kind == "min" else float("-inf")
+        return f"scatter_reduce_ a{kind}", time_ms(
+            torch, lambda: torch.full((s, 1), ident, device=dev).scatter_reduce_(
+                0, keys[:, None], w, f"a{kind}", include_self=True))
+    if len(msgs) == 1 and kind == "sum" and uniform:
+        return "torch.sparse.mm, CSR", csr_spmm_ms(
+            torch, keys, idxs[0], w[:, 0].contiguous(), msgs[0], s)
+    return None, None
+
+
 def fused_phase(torch, tag, captured):
     """``fused_hop`` against its plain version at the largest launch of
     each hop class of the fused path and on edge cases; each class timed
@@ -800,24 +853,7 @@ def fused_phase(torch, tag, captured):
         b, by = bound(nbytes, n * width * k * (nchild + 1))
         keys_host = keys.cpu().numpy()
         gathers = [(m.view(m.shape[0], -1, k), i) for m, i in zip(msgs, idxs)]
-        library, library_ms = None, None
-        if nchild == 0 and kind == "sum":
-            library = "index_add_"
-            library_ms = time_ms(
-                torch, lambda: torch.zeros((s, k), device=dev).index_add_(0, keys, w)
-            )
-        elif nchild == 0:
-            ident = float("inf") if kind == "min" else float("-inf")
-            library = f"scatter_reduce_ a{kind}"
-            library_ms = time_ms(
-                torch,
-                lambda: torch.full((s, 1), ident, device=dev).scatter_reduce_(
-                    0, keys[:, None], w, f"a{kind}", include_self=True
-                ),
-            )
-        elif nchild == 1 and kind == "sum" and uniform:
-            library = "torch.sparse.mm, CSR"
-            library_ms = csr_spmm_ms(torch, keys, idxs[0], w[:, 0].contiguous(), msgs[0], s)
+        library, library_ms = fused_library(torch, args, uniform)
         hop = dict(
             kind=kind, children=nchild, uniform=uniform,
             shapes={"edges": n, "k": k, "num_segments": s,
@@ -1497,7 +1533,7 @@ def dense_leg(torch, tag, args) -> dict:
     for p in (dplan, splan, gplan):
         verified(tag, "dense leg", p)
     dense["sweep"] = path_sweep(torch, tag, args.seed, [n for n, *_ in series] + [2 * series[-1][0]])
-    return {"dense": dense, "dense, mode=sparse": sparse,
+    return {"dense": dense, "dense, mode=sparse": sparse, "tpch": (db, q, dres),
             "launches": {"dense": dense["launches"],
                          "dense, mode=sparse": sparse["launches"]}}
 
@@ -2286,6 +2322,526 @@ def storage_checks(torch, tag, args, tmp: Path) -> None:
 # ----------------------------------------------------------------------
 
 
+# ----------------------------------------------------------------------
+# serve leg (the query server on the card)
+# ----------------------------------------------------------------------
+
+SERVE_WORKERS = 8
+SERVE_CLIENTS = 8
+SERVE_QUERIES_PER_CLIENT = 6
+SERVE_VIEW_BATCHES = 6
+SERVE_PAIRS_GROUPS = 40  # the incremental view keeps g1 < 40 and g2 < 40
+SERVE_BURST = 8
+SERVE_TF32_CLIENTS = 4
+SERVE_TF32_QUERIES = 3  # per TF32 client, one after another
+
+
+def serve_shapes():
+    """The reference demo's five shapes (``launch/serve.py``) and the
+    ``count`` shape with ``.fused(True)``."""
+    from repro_torch.launch.serve import demo_queries
+
+    shapes = demo_queries()
+    shapes["count_fused"] = shapes["count"].fused(True)
+    return shapes
+
+
+def percentile_ms(samples: list[float], p: float) -> float:
+    import numpy as np
+
+    return float(np.percentile(np.asarray(samples) * 1e3, p))
+
+
+def client_load(srv, shapes, clients: int, per_client: int, on_answer=None) -> dict:
+    """``clients`` threads, each sending ``per_client`` queries that rotate
+    through ``shapes`` (client ``i`` starts at shape ``i``), each waited
+    for before the next; returns every answer by (client, query) with its
+    latency (host clock, ending when the answer is on the host) and the
+    wall time.  Raises if a thread failed or hung."""
+    import threading
+
+    names = list(shapes)
+    answers, errors = {}, []
+    lock = threading.Lock()
+
+    def client(i: int) -> None:
+        for j in range(per_client):
+            name = names[(i + j) % len(names)]
+            try:
+                t0 = time.perf_counter()
+                res = srv.query(shapes[name])
+                dt = time.perf_counter() - t0
+                if on_answer is not None:
+                    on_answer(name, res)
+            except Exception as e:
+                with lock:
+                    errors.append(f"client {i} query {j} ({name}): {e!r}")
+                return
+            with lock:
+                answers[(i, j)] = (name, res, dt)
+
+    threads = [threading.Thread(target=client, args=(i,), name=f"client-{i}")
+               for i in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    wall = time.perf_counter() - t0
+    check(not any(t.is_alive() for t in threads), "serve leg: a client thread hung")
+    check(not errors, f"serve leg: client errors: {errors[:4]}")
+    return {"answers": answers, "wall_s": wall,
+            "latencies": [dt for _, _, dt in answers.values()]}
+
+
+def serve_leg(torch, tag, args, tpch) -> dict:
+    """The query server on the card: ``JoinAggServer(db, device="cuda")``
+    over C1 at ``--n`` with the reference demo's integer ``R2.w``,
+    answering the five demo shapes and a fused ``count`` from concurrent
+    clients, fusing bursts, merging channels, serving two maintained
+    views under writes (``by_g1``, whose R1 batches recompute because the
+    whole chain folds into R1, and ``pairs``, whose R2 batches propagate
+    through the device message caches) and a TCP client; a second server
+    answers the dense
+    leg's TPCH bundle under a global TF32 setting; at ``--check-n`` a
+    ``device="cpu"`` server gives the same answers.  Every answer is held
+    against a solo ``plan(db).execute()`` of its spec on the card, bit
+    for bit (every partial sum is an integer below 2**24 here)."""
+    import threading
+
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import demo_database
+    from repro_torch.relational.relation import Database, Relation
+    from repro_torch.serve import JoinAggServer, connect, serve_tcp
+
+    t_leg = time.perf_counter()
+    db = demo_database(args.n, seed=args.seed)
+    shapes = serve_shapes()
+    say(tag, f"data: serve leg: C1 n={args.n} seed={args.seed}, R2.w in [1, 100); shapes "
+             f"{list(shapes)}; {SERVE_WORKERS} workers, fusion window 0.002 s")
+
+    # solo oracles on the card, and the view's prefix oracles from a
+    # shadow handle: epoch e == R1 insert batches 1..e
+    t0 = time.perf_counter()
+    solo = {name: q.plan(db).execute() for name, q in shapes.items()}
+    oracle_s = time.perf_counter() - t0
+    rng = np.random.default_rng(args.seed + 7)
+    g1_dom = int(db["R1"].columns["g1"].max()) + 1
+    p0_dom = int(db["R1"].columns["p0"].max()) + 1
+    deltas = [{"g1": rng.integers(0, g1_dom, 1000), "p0": rng.integers(0, p0_dom, 1000)}
+              for _ in range(SERVE_VIEW_BATCHES)]
+    t0 = time.perf_counter()
+    shadow = shapes["count"].plan(db).maintain()
+    shadow_build_s = time.perf_counter() - t0
+    prefix, shadow_ms = [shadow.result()], []
+    for d in deltas:
+        t0 = time.perf_counter()
+        prefix.append(shadow.insert("R1", d))
+        shadow_ms.append((time.perf_counter() - t0) * 1e3)
+    say(tag, f"serve leg: solo oracles {oracle_s:.3f} s ({ {k: r.num_rows for k, r in solo.items()} } "
+             f"rows); view prefix oracles from a shadow handle built in {shadow_build_s:.3f} s, "
+             f"refresh ms alone {[round(x, 1) for x in shadow_ms]}; {handle_stats(shadow)}")
+    del shadow
+
+    # the incremental view: the two_group shape on at most 40 x 40 groups,
+    # taking R2 batches; with a group relation at each end of the chain
+    # nothing folds, so no batch recomputes.  Its last prefix is also held
+    # against a fresh execute over the grown database
+    pairs_q = (shapes["two_group"].where("R1", "g1", "<", SERVE_PAIRS_GROUPS)
+               .where("R4", "g2", "<", SERVE_PAIRS_GROUPS))
+    r2 = db["R2"].columns
+    pair_deltas = [{"p0": rng.integers(0, int(r2["p0"].max()) + 1, 1000),
+                    "p1": rng.integers(0, int(r2["p1"].max()) + 1, 1000),
+                    "w": rng.integers(1, 100, 1000)} for _ in range(SERVE_VIEW_BATCHES)]
+    t0 = time.perf_counter()
+    shadow = pairs_q.plan(db).maintain()
+    shadow_build_s = time.perf_counter() - t0
+    pair_prefix, pair_shadow_ms = [shadow.result()], []
+    for d in pair_deltas:
+        t0 = time.perf_counter()
+        pair_prefix.append(shadow.insert("R2", d))
+        pair_shadow_ms.append((time.perf_counter() - t0) * 1e3)
+    pair_stats = handle_stats(shadow)
+    del shadow
+    grown = Database(relations=dict(db.relations)).add(Relation("R2", {
+        a: np.concatenate([r2[a]] + [d[a].astype(r2[a].dtype) for d in pair_deltas]) for a in r2}))
+    fresh = same_result(pairs_q.plan(grown).execute(), pair_prefix[-1])
+    del grown
+    say(tag, f"check: serve leg: view pairs prefix oracles from a shadow handle built in "
+             f"{shadow_build_s:.3f} s, {pair_prefix[-1].num_rows} groups, refresh ms alone "
+             f"{[round(x, 1) for x in pair_shadow_ms]}; {pair_stats}; last prefix = a fresh "
+             f"execute over R2 with every batch appended: {fresh}")
+    check(pair_stats["fallback_recomputes"] == 0, "serve leg: a pairs batch recomputed")
+    check(fresh, "serve leg: the pairs view's last prefix differs from a fresh execute")
+
+    largest = max(float(np.abs(r.column(a)).max()) for r in solo.values() for a in r.agg_names)
+    say(tag, f"serve leg: largest aggregate of any solo answer {largest:.0f} (2**24 = {2 ** 24}): "
+             "every partial sum of every served hop is an exact float32 integer")
+    check(largest < 2 ** 24, "serve leg: a group passes 2**24; merged = solo is not exact")
+
+    def same_as_solo(name, res):
+        check(same_result(solo[name], res),
+              f"serve leg: a served {name} answer differs from its solo execute")
+
+    out: dict = {}
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    srv = JoinAggServer(db, device="cuda", workers=SERVE_WORKERS, fusion_window=0.002)
+    try:
+        # cold (compile, prepare, upload, execute) and warm, per shape
+        cold, warm = {}, {}
+        for name, q in shapes.items():
+            t0 = time.perf_counter()
+            res = srv.query(q)
+            cold[name] = time.perf_counter() - t0
+            same_as_solo(name, res)
+            times = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                res = srv.query(q)
+                times.append(time.perf_counter() - t0)
+            warm[name] = float(np.median(times))
+            same_as_solo(name, res)
+            say(tag, f"serve leg: {name}: cold {cold[name] * 1e3:.1f} ms, warm median of 5 "
+                     f"{warm[name] * 1e3:.1f} ms, {res.num_rows} rows")
+
+        # the views: created on the server, their writers refreshing on the
+        # card while the clients' queries run; 2 readers per view check
+        # every read against the batch prefix of its epoch
+        t0 = time.perf_counter()
+        view = srv.create_view("by_g1", shapes["count"])
+        view_build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pairs = srv.create_view("pairs", pairs_q)
+        pairs_build_s = time.perf_counter() - t0
+        stop = threading.Event()
+        reads, torn = {}, []
+
+        def reader(v, oracle, equal, i):
+            key = (v.name, i)
+            reads[key] = 0
+            while not stop.is_set():
+                snap = v.read()
+                if not equal(snap.result, oracle[snap.epoch]):
+                    torn.append((v.name, snap.epoch))
+                    return
+                reads[key] += 1
+                time.sleep(0.005)
+
+        refresh_ms, pairs_ms = [], []
+
+        def writer(v, rel, batches, ms):
+            for d in batches:
+                t0 = time.perf_counter()
+                v.insert(rel, d).result(timeout=600)
+                ms.append((time.perf_counter() - t0) * 1e3)
+
+        readers = [threading.Thread(target=reader, args=(v, oracle, equal, i),
+                                    name=f"reader-{v.name}-{i}")
+                   for v, oracle, equal in ((view, prefix, lambda a, b: a == b),
+                                            (pairs, pair_prefix, same_result))
+                   for i in range(2)]
+        writers = [threading.Thread(target=writer, args=args, name=f"writer-{args[0].name}")
+                   for args in ((view, "R1", deltas, refresh_ms),
+                                (pairs, "R2", pair_deltas, pairs_ms))]
+        for t in readers + writers:
+            t.start()
+        round1 = client_load(srv, shapes, SERVE_CLIENTS, SERVE_QUERIES_PER_CLIENT)
+        for t in writers:
+            t.join(timeout=900)
+        check(not any(t.is_alive() for t in writers), "serve leg: a view writer hung")
+        epochs = {v.name: v.drain() for v in (view, pairs)}
+        stop.set()
+        for t in readers:
+            t.join(timeout=60)
+        check(not any(t.is_alive() for t in readers), "serve leg: a view reader hung")
+        for name, res, _ in round1["answers"].values():
+            same_as_solo(name, res)
+        served_pairs = handle_stats(pairs.handle)
+        n_reads = {name: sum(n for (v, _), n in reads.items() if v == name)
+                   for name in epochs}
+        say(tag, f"check: serve leg: view by_g1: built in {view_build_s:.3f} s; {len(deltas)} R1 "
+                 f"insert batches of 1000 rows, refresh ms {[round(x, 1) for x in refresh_ms]} "
+                 f"(under the client load); {handle_stats(view.handle)}")
+        say(tag, f"check: serve leg: view pairs: built in {pairs_build_s:.3f} s; {len(pair_deltas)} "
+                 f"R2 insert batches of 1000 rows, refresh ms {[round(x, 1) for x in pairs_ms]} "
+                 f"(under the client load and by_g1's writes); {served_pairs}")
+        say(tag, f"check: serve leg: views: reads {n_reads} by 2 readers each, torn {torn}; epochs "
+                 f"after the drain {epochs}")
+        check(all(n > 0 for n in n_reads.values()) and not torn,
+              "serve leg: a view read matched no batch prefix")
+        check(served_pairs["fallback_recomputes"] == 0,
+              "serve leg: a served pairs batch recomputed")
+        check(epochs == {"by_g1": len(deltas), "pairs": len(pair_deltas)}
+              and view.read().result == prefix[-1]
+              and same_result(pairs.read().result, pair_prefix[-1]),
+              "serve leg: a view did not reach its last prefix")
+
+        # the same load again, every plan warm: under the profiler, with the
+        # peak above what the full cache holds
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        box = {}
+        wall, busy, top = idle_share(torch, lambda: box.setdefault(
+            "r", client_load(srv, shapes, SERVE_CLIENTS, SERVE_QUERIES_PER_CLIENT)), cpu=False)
+        round2 = box["r"]
+        peak = torch.cuda.max_memory_allocated()
+        for name, res, _ in round2["answers"].values():
+            same_as_solo(name, res)
+        n_q = SERVE_CLIENTS * SERVE_QUERIES_PER_CLIENT
+        for label, r in (("mixed load, first round (view writes, merged compiles)", round1),
+                         ("mixed load, second round (warm, profiled)", round2)):
+            say(tag, f"serve leg: {label}: {n_q} queries from {SERVE_CLIENTS} clients in "
+                     f"{r['wall_s']:.3f} s = {n_q / r['wall_s']:.2f} queries/s; latency p50 "
+                     f"{percentile_ms(r['latencies'], 50):.1f} ms, p99 "
+                     f"{percentile_ms(r['latencies'], 99):.1f} ms, max "
+                     f"{max(r['latencies']) * 1e3:.1f} ms")
+        say(tag, f"profile: serve leg, second round: {wall:.3f} s wall, device busy {busy:.3f} s, "
+                 f"idle share {1 - busy / wall:.3f}; device peak {peak} B, {peak - resident} B "
+                 f"above the {resident} B resident with the cache full")
+        for name, ms, cnt in top[:8]:
+            say(tag, f"profile: {ms:10.3f} ms x{cnt:<6d} {name[:140]}")
+
+        # 8 identical queries: one burst (one execute) vs one after another
+        fusion0 = srv.stats()["fusion"]
+        t0 = time.perf_counter()
+        futs = [srv.submit(shapes["sum"]) for _ in range(SERVE_BURST)]
+        burst = [f.result(timeout=600) for f in futs]
+        burst_s = time.perf_counter() - t0
+        fusion1 = srv.stats()["fusion"]
+        t0 = time.perf_counter()
+        serial = [srv.query(shapes["sum"]) for _ in range(SERVE_BURST)]
+        serial_s = time.perf_counter() - t0
+        for res in burst + serial:
+            same_as_solo("sum", res)
+        shared = fusion1["shared_identical"] - fusion0["shared_identical"]
+        batches = fusion1["batches"] - fusion0["batches"]
+        say(tag, f"check: serve leg: burst of {SERVE_BURST} identical sum queries: "
+                 f"{burst_s * 1e3:.1f} ms fused vs {serial_s * 1e3:.1f} ms serial; shared_identical "
+                 f"+{shared}, batches +{batches}")
+        check(shared == SERVE_BURST and batches == 1,
+              "serve leg: the identical burst did not run as one execute")
+
+        # a count/sum/multi burst by R1.g1: one channel-merged pass
+        f0 = srv.stats()["fusion"]
+        futs = {name: srv.submit(shapes[name]) for name in ("count", "sum", "multi")}
+        merged = {name: f.result(timeout=600) for name, f in futs.items()}
+        f1 = srv.stats()["fusion"]
+        for name, res in merged.items():
+            same_as_solo(name, res)
+        merged_n = f1["merged_channels"] - f0["merged_channels"]
+        say(tag, f"check: serve leg: count/sum/multi burst: merged_channels +{merged_n}, each "
+                 f"demuxed answer = its solo answer bit for bit")
+        check(merged_n >= 2, "serve leg: the count/sum/multi burst merged no channels")
+
+        # one TCP round trip
+        tcp, _ = serve_tcp(srv)
+        try:
+            with connect(*tcp.server_address) as remote:
+                t0 = time.perf_counter()
+                rres = remote.query({"relations": ["R1", "R2", "R3", "R4"],
+                                     "group_by": ["R1.g1"], "aggs": {"n": {"kind": "count"}}})
+                tcp_ms = (time.perf_counter() - t0) * 1e3
+                remote_epoch, _ = remote.view_read("by_g1")
+                stats = remote.server_stats()
+        finally:
+            tcp.shutdown()
+            tcp.server_close()
+        same = rres.to_dict("n") == solo["count"].to_dict("n")
+        say(tag, f"check: serve leg: TCP round trip {tcp_ms:.1f} ms = in-process answer: "
+                 f"{same}; view epoch over TCP {remote_epoch}")
+        check(same and remote_epoch == len(deltas), "serve leg: the TCP answer differs")
+    finally:
+        srv.close()
+    launches = ops.launch_counts()
+
+    pc, fusion = stats["plan_cache"], stats["fusion"]
+    served = 2 * n_q + 6 * len(shapes) + 2 * SERVE_BURST + 3 + 1
+    say(tag, f"serve leg: device {stats['device']}; plan cache {pc}; fusion {fusion}; "
+             f"{served} queries served; launches {launches}")
+    check(pc["compiles"] < served, "serve leg: the plan cache compiled once per query")
+    for name in ("segment_sum", "coo_spmm", "segment_reduce", "fused_hop"):
+        check(launches[name] > 0, f"serve leg: the served queries never launched {name}")
+
+    tf32 = serve_tf32(torch, tag, tpch)
+    launches = {k: launches[k] + tf32[k] for k in launches}
+    serve_cpu_check(torch, tag, args)
+    out.update(
+        cold_ms={k: v * 1e3 for k, v in cold.items()}, warm_ms={k: v * 1e3 for k, v in warm.items()},
+        round1={"wall_s": round1["wall_s"], "qps": n_q / round1["wall_s"],
+                "p50_ms": percentile_ms(round1["latencies"], 50),
+                "p99_ms": percentile_ms(round1["latencies"], 99)},
+        round2={"wall_s": round2["wall_s"], "qps": n_q / round2["wall_s"],
+                "p50_ms": percentile_ms(round2["latencies"], 50),
+                "p99_ms": percentile_ms(round2["latencies"], 99),
+                "device_busy_s": busy, "idle_share": 1 - busy / wall,
+                "peak_above_resident_bytes": peak - resident, "resident_bytes": resident},
+        burst_ms=burst_s * 1e3, serial_ms=serial_s * 1e3, view_build_s=view_build_s,
+        view_refresh_ms=refresh_ms, view_refresh_alone_ms=shadow_ms, pairs_build_s=pairs_build_s,
+        pairs_refresh_ms=pairs_ms, pairs_refresh_alone_ms=pair_shadow_ms, tcp_ms=tcp_ms,
+        plan_cache=pc, fusion=fusion,
+        queries_served=served, leg_s=time.perf_counter() - t_leg,
+    )
+    out["kernels"] = serve_kernels(torch, tag, srv, shapes)
+    out["launches"] = {"serve": launches}
+    say(tag, f"serve leg: {out['leg_s']:.1f} s")
+    return out
+
+
+def serve_tf32(torch, tag, tpch) -> dict:
+    """The dense leg's TPCH bundle from 4 concurrent clients of a second
+    server, 3 queries each, under a global ``allow_tf32 = True``: every
+    einsum term must
+    run with TF32 off (a spy on ``contract_term`` reads the switch before
+    and after each term, with 1 ms between the read and the products to
+    widen the window a lost restore would fall in; the data's integer
+    products are exact even in TF32, so the bits alone cannot show it),
+    every answer equals the dense leg's FP32 result bit for bit, and the
+    setting is still on afterwards (``full_fp32_matmul`` is counted
+    across threads)."""
+    import threading
+
+    from repro_torch.core import torch_engine
+    from repro_torch.kernels import ops
+    from repro_torch.serve import JoinAggServer
+
+    db, q, dres = tpch
+    spec = tpch_query(q, "torch")
+    matmul = torch.backends.cuda.matmul
+    before = matmul.allow_tf32
+    answers, errors, seen = [], [], []
+    real = torch_engine.contract_term
+
+    def spy(expr, operands):
+        first = matmul.allow_tf32
+        time.sleep(0.001)
+        out = real(expr, operands)
+        seen.append((first, matmul.allow_tf32))
+        return out
+
+    ops.reset_launch_counts()
+    matmul.allow_tf32 = True
+    try:
+        with JoinAggServer(db, device="cuda", workers=SERVE_TF32_CLIENTS, fuse=False) as srv:
+            plan = srv.plan_cache.lookup(spec, db)
+            path = plan.engine.path(plan.prep, plan.channels)
+            start = threading.Barrier(SERVE_TF32_CLIENTS, timeout=300)
+
+            def client():
+                start.wait()
+                try:
+                    for _ in range(SERVE_TF32_QUERIES):
+                        answers.append(srv.query(spec))
+                except Exception as e:
+                    errors.append(repr(e))
+
+            threads = [threading.Thread(target=client) for _ in range(SERVE_TF32_CLIENTS)]
+            torch_engine.contract_term = spy
+            try:
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join(timeout=300)
+            finally:
+                torch_engine.contract_term = real
+        still = matmul.allow_tf32
+    finally:
+        matmul.allow_tf32 = before
+    launches = ops.launch_counts()
+    same = (len(answers) == SERVE_TF32_CLIENTS * SERVE_TF32_QUERIES
+            and all(same_result(dres, a) for a in answers))
+    tf32_terms_seen = sum(a or b for a, b in seen)
+    say(tag, f"check: serve leg: TPCH bundle ({path} path) from {SERVE_TF32_CLIENTS} concurrent "
+             f"clients x {SERVE_TF32_QUERIES} queries with allow_tf32 = True set globally: "
+             f"{len(seen)} einsum terms, {tf32_terms_seen} "
+             f"of them with TF32 on at their start or end; {len(answers)} answers bit-identical "
+             f"to the dense leg's FP32 result: {same}; allow_tf32 still True after: {still}; "
+             f"errors {errors}")
+    check(path == "dense", "serve leg: the TPCH bundle did not take the dense path")
+    check(seen and tf32_terms_seen == 0, "serve leg: a concurrent dense term ran with TF32 on")
+    check(same and still and not errors,
+          "serve leg: concurrent dense queries under TF32 changed a result or lost the setting")
+    return launches
+
+
+def serve_cpu_check(torch, tag, args) -> None:
+    """At ``--check-n``: the same clients against a ``device="cpu"`` server
+    and a ``device="cuda"`` server, answer by answer, bit for bit."""
+    from repro_torch.launch.serve import demo_database
+    from repro_torch.serve import JoinAggServer
+
+    db = demo_database(args.check_n, seed=args.seed)
+    shapes = serve_shapes()
+    runs = {}
+    for device in ("cpu", "cuda"):
+        with JoinAggServer(db, device=device, workers=SERVE_WORKERS, fusion_window=0.002) as srv:
+            runs[device] = client_load(srv, shapes, SERVE_CLIENTS, SERVE_QUERIES_PER_CLIENT)
+    same = all(
+        name == runs["cuda"]["answers"][key][0]
+        and same_result(res, runs["cuda"]["answers"][key][1])
+        for key, (name, res, _) in runs["cpu"]["answers"].items()
+    ) and len(runs["cpu"]["answers"]) == len(runs["cuda"]["answers"])
+    say(tag, f"check: serve leg: C1 n={args.check_n}: {len(runs['cpu']['answers'])} answers "
+             f"from a device='cpu' server bit-identical to a device='cuda' server: {same}")
+    check(same, "serve leg: the cuda server's answers differ from the cpu server's")
+
+
+def serve_kernels(torch, tag, srv, shapes) -> dict:
+    """The served plans' own launches against the plain versions at
+    tolerance 0 (every partial sum is an integer below 2**24): the
+    largest ``segment_sum``, ``coo_spmm`` and ``segment_reduce`` launch of
+    the five unfused cached shapes and the largest ``fused_hop`` of
+    ``count_fused``, each timed beside its plain version, the library
+    call and the bound.  These executes are not counted."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.fused_hop import fused_hop
+
+    def cached(name):
+        return srv.plan_cache.lookup(shapes[name], srv.db, srv.generation, srv.stats_generation)
+
+    out, captured = {}, {}
+    for shape in ("count", "sum", "multi", "minmax", "two_group"):
+        for key, lc in capture_launches(cached(shape).execute, main_path_key).items():
+            if key not in captured or lc.size > captured[key].size:
+                captured[key] = lc
+    for name in SEGMENT_KERNELS:
+        launches = [lc for key, lc in captured.items() if isinstance(key, tuple) and key[0] == name]
+        check(launches, f"serve leg: no {name} launch captured")
+        out[name] = segment_regime(torch, tag, name, "largest served launch",
+                                   max(launches, key=lambda lc: lc.size), path="serve leg")
+    check("coo_spmm" in captured, "serve leg: no coo_spmm launch captured")
+    out["coo_spmm"] = coo_spmm_row(torch, tag, "serve leg", "largest served launch",
+                                   captured["coo_spmm"], tol=None)
+    fused = capture_launches(cached("count_fused").execute, hop_class)
+    check(fused, "serve leg: no fused_hop launch captured")
+    (_, _, uniform), lc = max(fused.items(), key=lambda kv: kv[1].size)
+    err = compare(torch, tag, "fused_hop", "serve leg, largest served launch", fused_hop,
+                  ref.fused_hop, lc.args)
+    keys, w, msgs, idxs, s, k, kind = lc.args
+    n = keys.shape[0]
+    width, nbytes = 1, n * 8 + n * k * 4
+    for msg, idx in zip(msgs, idxs):
+        width *= msg.shape[1] // k
+        nbytes += n * 8 + int(torch.unique(idx).numel()) * msg.shape[1] * 4
+    nbytes += s * width * k * 4
+    b, by = bound(nbytes, n * width * k * (len(msgs) + 1))
+    library, library_ms = fused_library(torch, lc.args, uniform)
+    row = out["fused_hop"] = dict(
+        shapes={"edges": n, "k": k, "num_segments": s, "kind": kind,
+                "messages": [list(m.shape) for m in msgs]},
+        launches=lc.count, max_abs_err=err, ms=time_ms(torch, lambda: fused_hop(*lc.args)),
+        plain_ms=time_ms(torch, lambda: ref.fused_hop(*lc.args), reps=3),
+        library=library, library_ms=library_ms, bound_ms=b, bound_by=by,
+    )
+    say(tag, f"kernels: fused_hop [serve leg] at {row['shapes']}: {row['ms']:.4f} ms, bound "
+             f"{b:.4f} ms by {by}, plain {row['plain_ms']:.4f} ms, library {library} "
+             f"{library_ms if library_ms is None else f'{library_ms:.4f}'} ms")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=500_000, help="rows per relation")
@@ -2411,6 +2967,7 @@ def main() -> int:
     split = split_leg(torch, tag, args)
     cyclic = cyclic_leg(torch, tag, args)
     dense = dense_leg(torch, tag, args)
+    tpch = dense.pop("tpch")
     explain_phase(torch, tag, args.seed)
 
     # 10. maintain leg -----------------------------------------------------
@@ -2427,12 +2984,21 @@ def main() -> int:
         results[name]["max_abs_err"] = max(results[name]["max_abs_err"], row["max_abs_err"])
         results[name]["storage"] = row
 
+    # 12. serve leg --------------------------------------------------------
+    torch.cuda.empty_cache()
+    served = serve_leg(torch, tag, args, tpch)
+    del tpch
+    for name, row in served.pop("kernels").items():
+        results[name]["max_abs_err"] = max(results[name]["max_abs_err"], row["max_abs_err"])
+        results[name]["serve"] = row
+
     legs = {"main": launches, "fused": flaunches}
-    for leg in (split, cyclic, dense, maintain, stored):
+    for leg in (split, cyclic, dense, maintain, stored, served):
         legs.update(leg.pop("launches"))
     for label, summary in (("main path", main), ("fused path", fused), *split.items(),
                            *cyclic.items(), *dense.items(), *maintain.items(),
-                           *(("storage leg, " + k, v) for k, v in stored.items())):
+                           *(("storage leg, " + k, v) for k, v in stored.items()),
+                           ("serve leg", served)):
         say(tag, f"{label} summary: {json.dumps(summary)}")
     paths = {name: "main" for name in UNFUSED_KERNELS}
     paths.update(fused_hop="fused", semiring_matmul=None)
@@ -2454,7 +3020,7 @@ def main() -> int:
             entry.update(regimes=r["regimes"], launches_by_width=r["launches_by_width"])
         if name == "coo_spmm":
             entry.update(walk=r["walk"])
-        for leg in ("maintain", "storage"):
+        for leg in ("maintain", "storage", "serve"):
             if leg in r:
                 entry[leg] = r[leg]
         if name == "fused_hop":

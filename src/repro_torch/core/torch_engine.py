@@ -40,12 +40,21 @@ Port of the JAX package's ``core/jax_engine.py``.
 package's ``choose_jax_path`` does; :func:`execute_torch` is the
 single-aggregate entry.  Counts are exact in float32 up to 2**24 per
 partial product on both paths.
+
+Concurrent executes of one plan (the query server's workers) share the
+``Prepared``'s memos: device views, their weights, dense tensors and
+MIN/MAX payload values.  Each is built completely and then stored by
+one assignment, so a race costs at most a second build of the same
+value, never a reader of a half-built one.  Every launch goes to its
+thread's current stream, the default one: a per-worker stream would let
+one worker read a view whose upload is still queued on another's.
 """
 from __future__ import annotations
 
 import contextlib
 import functools
 import math
+import threading
 from dataclasses import dataclass, field
 from typing import Iterator
 
@@ -191,29 +200,49 @@ def contract_term(expr: str, operands: list[torch.Tensor]) -> torch.Tensor:
     return acc
 
 
-@contextlib.contextmanager
-def full_fp32_matmul():
-    """Run the enclosed products in full FP32, then restore the caller's
-    setting: float32 counts are exact below 2**24 only without TF32.
-    Callers that set TF32 through the per-backend ``fp32_precision``
-    switch are restored through it (reading the process-wide precision
-    then raises)."""
+def _set_full_fp32():
+    """Switch float32 products to full FP32; return the function that
+    restores the caller's setting.  Callers that set TF32 through the
+    per-backend ``fp32_precision`` switch are restored through it
+    (reading the process-wide precision then raises)."""
     try:
         saved = torch.get_float32_matmul_precision()
     except RuntimeError:
         matmul = torch.backends.cuda.matmul
         saved = matmul.fp32_precision
         matmul.fp32_precision = "ieee"
-        try:
-            yield
-        finally:
-            matmul.fp32_precision = saved
-        return
+        return lambda: setattr(matmul, "fp32_precision", saved)
     torch.set_float32_matmul_precision("highest")
+    return lambda: torch.set_float32_matmul_precision(saved)
+
+
+# the precision is one process-wide switch: concurrent dense runs share
+# one save and one restore, or the first to leave would restore the
+# caller's TF32 under the others' products
+_fp32_lock = threading.Lock()
+_fp32_users = 0  # guarded-by: _fp32_lock
+_fp32_restore = None  # guarded-by: _fp32_lock
+
+
+@contextlib.contextmanager
+def full_fp32_matmul():
+    """Run the enclosed products in full FP32, then restore the caller's
+    setting: float32 counts are exact below 2**24 only without TF32.
+    Entries are counted across threads: the first sets FP32 and saves
+    the caller's setting, the last out restores it."""
+    global _fp32_users, _fp32_restore
+    with _fp32_lock:
+        if _fp32_users == 0:
+            _fp32_restore = _set_full_fp32()
+        _fp32_users += 1
     try:
         yield
     finally:
-        torch.set_float32_matmul_precision(saved)
+        with _fp32_lock:
+            _fp32_users -= 1
+            if _fp32_users == 0:
+                restore, _fp32_restore = _fp32_restore, None
+                restore()
 
 
 def _chunk_of(er) -> int:
@@ -503,6 +532,8 @@ class _CsrHopMixin:
                 host = grouped_csr(er, key_attrs, self._dims(key_attrs))
             else:
                 host = self.prep.csr_view(rel, key_attrs)
+            # built whole, then stored once: concurrent executes may
+            # build it twice, never read it half built
             view = cache[key] = DeviceView.build(er, host, self.device)
         return view
 

@@ -375,10 +375,23 @@ def _library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
-@functools.cache
+# one build per process: concurrent first launches (the query server's
+# workers) wait for it instead of starting nvcc on the same temp file
+_build_lock = threading.Lock()
+_built: dict[str, BuiltKernel] = {}  # guarded-by: _build_lock
+
+
 def build() -> dict[str, BuiltKernel]:
     """Compile every kernel library not built yet, in parallel; raise
-    with nvcc's output if any compile fails."""
+    with nvcc's output if any compile fails.  Built once per process;
+    concurrent callers wait for the one build."""
+    with _build_lock:
+        if not _built:
+            _built.update(_build_all())
+        return dict(_built)
+
+
+def _build_all() -> dict[str, BuiltKernel]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     built: dict[str, BuiltKernel] = {}
     pending: dict[str, tuple[Path, Path, subprocess.Popen, float]] = {}

@@ -1,9 +1,11 @@
 """The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
 neither JAX nor the JAX package ``repro`` (an acyclic, a split, a cyclic
 and a dense-path query are answered, explained and verified, a
-maintained bundle takes an insert, and a stored database is written,
-mounted and answered, with both refused), and the port's default engine
-refuses to run without a CUDA card instead of quietly using the CPU."""
+maintained bundle takes an insert, a stored database is written,
+mounted and answered, and a query server on the CPU answers in process
+and over TCP and applies a view batch, with both refused), and the
+port's default engine refuses to run without a CUDA card instead of
+quietly using the CPU."""
 import ast
 import json
 import os
@@ -83,6 +85,27 @@ with tempfile.TemporaryDirectory() as td:
     )
     stored_explained = "storage: chunked" in stored.explain()
     stored_findings = len(stored.verify(strict=False))
+from repro_torch.serve import JoinAggServer, connect, serve_tcp
+
+served_db = Database.from_mapping(db)
+with JoinAggServer(served_db, device="cpu", workers=2) as srv:
+    bundle = Q.over("R1", "R2").group_by("R1.g1", "R2.g2").agg(n=Count(), s=Sum("R2.m"))
+    served = srv.query(bundle)
+    tcp, _ = serve_tcp(srv)
+    try:
+        with connect(*tcp.server_address) as remote:
+            remote_res = remote.query({"relations": ["R1", "R2"],
+                                       "group_by": ["R1.g1", "R2.g2"],
+                                       "aggs": {"n": {"kind": "count"}}})
+    finally:
+        tcp.shutdown()
+        tcp.server_close()
+    srv.create_view("v", Q.over("R1", "R2").group_by("R1.g1").agg(n=Count()))
+    epoch = srv.apply_view("v", "insert", "R1",
+                           {"g1": np.array([0]), "j": np.array([1])}).result(timeout=120)
+    server_device = srv.stats()["device"]
+served_same = all((served.column(c) == res.column(c)).all() for c in ("n", "s"))
+remote_same = remote_res.to_dict("n") == res.to_dict("n")
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in {"jax", "jaxlib", "repro"})
 print(json.dumps({"rows": res.num_rows, "n": float(res.column("n").sum()),
                   "split": split.split is not None,
@@ -95,6 +118,8 @@ print(json.dumps({"rows": res.num_rows, "n": float(res.column("n").sum()),
                   "maintained_n": float(maintained.column("n").sum()),
                   "stored_same": bool(stored_same), "stored_explained": stored_explained,
                   "stored_findings": stored_findings,
+                  "served_same": bool(served_same), "remote_same": remote_same,
+                  "view_epoch": epoch, "server_device": server_device,
                   "loaded": loaded}))
 """
 
@@ -120,6 +145,8 @@ def test_port_answers_a_query_with_jax_and_repro_refused():
     assert out["explained"] and out["findings"] == 0
     assert out["maintained_n"] > out["n"]  # the insert joined
     assert out["stored_same"] and out["stored_explained"] and out["stored_findings"] == 0
+    assert out["served_same"] and out["remote_same"]
+    assert out["view_epoch"] == 1 and out["server_device"] == "cpu"
 
 
 def _imported_modules(path: Path) -> list[str]:
@@ -146,7 +173,10 @@ def test_no_source_imports_jax_or_repro(path):
 def test_the_scan_covers_every_port_package():
     scanned = {p.parent.name for p in PORT.rglob("*.py")}
     packages = {p.parent.name for p in PORT.rglob("__init__.py")}
-    assert {"analysis", "api", "core", "incremental", "kernels", "planner", "storage"} <= packages == scanned
+    assert {
+        "analysis", "api", "core", "incremental", "kernels", "launch", "planner", "serve",
+        "storage",
+    } <= packages == scanned
 
 
 def test_torch_engine_raises_without_cuda(monkeypatch):
