@@ -145,7 +145,23 @@ Run from the root of a checkout on a machine with a CUDA card.  It
    one, answer by answer; and the served plans' own ``segment_sum``,
    ``coo_spmm``, ``segment_reduce`` and ``fused_hop`` launches against
    their plain versions (tolerance 0), each timed beside its library
-   call.  Each of the four must launch.
+   call.  Each of the four must launch;
+13. drives the shard leg, the sharded path of DESIGN.md §8: the bundle of
+   2 on C1 at ``--n`` through ``Q ... .mesh(S).plan(db).execute()`` on
+   process groups of S = 1, 2 and 4 ranks (``multiprocessing`` spawns each
+   rank on ``cuda:{rank % device_count}``; NCCL where there are at least S
+   cards, else gloo, which gathers on the host; the kernels are built
+   before the spawn), unfused and fused.  Every rank's gathered answer
+   must equal 2's single-device answer bit for bit and Σ COUNT / Σ SUM
+   numpy's, and every rank must launch ``segment_sum`` and
+   ``segment_reduce`` (unfused) or ``fused_hop`` (fused).  It prints the
+   backend and ranks per card, each rank's cold and warm execute split
+   into the walk and the ``all_gather``, its peak device memory above
+   resident beside the S = 1 peak (the ratio; nothing is claimed), and
+   ``per_device_bytes()`` beside that peak.  At S = 4 a C1 at
+   ``--check-n`` whose group attributes take 2 codes (the last two
+   shards own no rows) runs meshed and alone, bit for bit, and rank 0
+   holds its largest launches against the plain versions (tolerance 0).
 
 Every leg prints its ``torch path:`` line — per key range for the split
 leg — and checks the path each run took against ``choose_path``: a dense
@@ -164,6 +180,7 @@ import argparse
 import cProfile
 import gc
 import json
+import os
 import pstats
 import subprocess
 import sys
@@ -2796,8 +2813,6 @@ def serve_kernels(torch, tag, srv, shapes) -> dict:
     the five unfused cached shapes and the largest ``fused_hop`` of
     ``count_fused``, each timed beside its plain version, the library
     call and the bound.  These executes are not counted."""
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.fused_hop import fused_hop
 
     def cached(name):
         return srv.plan_cache.lookup(shapes[name], srv.db, srv.generation, srv.stats_generation)
@@ -2817,8 +2832,19 @@ def serve_kernels(torch, tag, srv, shapes) -> dict:
                                    captured["coo_spmm"], tol=None)
     fused = capture_launches(cached("count_fused").execute, hop_class)
     check(fused, "serve leg: no fused_hop launch captured")
-    (_, _, uniform), lc = max(fused.items(), key=lambda kv: kv[1].size)
-    err = compare(torch, tag, "fused_hop", "serve leg, largest served launch", fused_hop,
+    out["fused_hop"] = fused_hop_row(torch, tag, "serve leg", fused)
+    return out
+
+
+def fused_hop_row(torch, tag, path: str, captured) -> dict:
+    """The largest captured ``fused_hop`` launch (``hop_class`` keys)
+    against its plain version at tolerance 0, timed beside the plain
+    version, the library call of its hop class and the bound."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.fused_hop import fused_hop
+
+    (_, _, uniform), lc = max(captured.items(), key=lambda kv: kv[1].size)
+    err = compare(torch, tag, "fused_hop", f"{path}, largest launch", fused_hop,
                   ref.fused_hop, lc.args)
     keys, w, msgs, idxs, s, k, kind = lc.args
     n = keys.shape[0]
@@ -2829,17 +2855,337 @@ def serve_kernels(torch, tag, srv, shapes) -> dict:
     nbytes += s * width * k * 4
     b, by = bound(nbytes, n * width * k * (len(msgs) + 1))
     library, library_ms = fused_library(torch, lc.args, uniform)
-    row = out["fused_hop"] = dict(
+    row = dict(
         shapes={"edges": n, "k": k, "num_segments": s, "kind": kind,
                 "messages": [list(m.shape) for m in msgs]},
         launches=lc.count, max_abs_err=err, ms=time_ms(torch, lambda: fused_hop(*lc.args)),
         plain_ms=time_ms(torch, lambda: ref.fused_hop(*lc.args), reps=3),
         library=library, library_ms=library_ms, bound_ms=b, bound_by=by,
     )
-    say(tag, f"kernels: fused_hop [serve leg] at {row['shapes']}: {row['ms']:.4f} ms, bound "
+    say(tag, f"kernels: fused_hop [{path}] at {row['shapes']}: {row['ms']:.4f} ms, bound "
              f"{b:.4f} ms by {by}, plain {row['plain_ms']:.4f} ms, library {library} "
              f"{library_ms if library_ms is None else f'{library_ms:.4f}'} ms")
+    return row
+
+
+# ----------------------------------------------------------------------
+# shard leg (the sharded path over torch.distributed)
+# ----------------------------------------------------------------------
+
+SHARD_COUNTS = (1, 2, 4)
+SHARD_TIMEOUT_S = 480  # one group's ranks, spawn to exit
+
+
+def result_digest(res) -> str:
+    """sha256 over every column's name, dtype, shape and bytes: equal
+    digests are results equal bit for bit."""
+    import hashlib
+
+    import numpy as np
+
+    h = hashlib.sha256()
+    for name, col in res.relation.columns.items():
+        col = np.ascontiguousarray(col)
+        if col.dtype == object:
+            col = col.astype(str)
+        h.update(f"{name}:{col.dtype.str}:{col.shape}:".encode())
+        h.update(col.tobytes())
+    return h.hexdigest()
+
+
+def skew_chain_db(n: int, seed: int):
+    """C1 at ``n`` rows with both group attributes folded onto 2 codes:
+    over 4 shards of the root group attribute the last two own no rows.
+    The measure is folded onto [0, 4), so that at 20,000 rows every
+    group's COUNT and SUM stays below 2**24 (4 groups hold every path):
+    float32 sums are then exact in any order, and bits can be compared."""
+    from repro_torch.relational.relation import Database
+
+    _, cols = chain_db(n, seed)
+    cols["R1"]["g1"] = cols["R1"]["g1"] % 2
+    cols["R4"]["g2"] = cols["R4"]["g2"] % 2
+    cols["R3"]["m"] = cols["R3"]["m"] % 4
+    return Database.from_mapping(cols)
+
+
+def shard_rank(rank: int, world: int, out_dir: str, job: dict) -> None:
+    """One rank of a shard-leg group (a process of its own): join the
+    group through the ``file://`` store under ``out_dir`` and run
+    :func:`shard_rank_run`; write its numbers to ``rank<r>.json``, or the
+    traceback to ``rank<r>.err``, and exit non-zero on any failure."""
+    import datetime
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    try:
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+        dist.init_process_group(
+            job["backend"], init_method=f"file://{out_dir}/store", rank=rank,
+            world_size=world, timeout=datetime.timedelta(seconds=SHARD_TIMEOUT_S),
+        )
+        try:
+            out = shard_rank_run(torch, dist, rank, world, job)
+        finally:
+            dist.destroy_process_group()
+        Path(out_dir, f"rank{rank}.json").write_text(json.dumps(out))
+    except BaseException:
+        Path(out_dir, f"rank{rank}.err").write_text(traceback.format_exc())
+        raise
+
+
+def shard_rank_run(torch, dist, rank: int, world: int, job: dict) -> dict:
+    """The rank's part of the leg: the C1 bundle through ``Q ...
+    .mesh(world).plan(db).execute()``, unfused then fused, each cold and
+    warm with its launches counted from 0 over the cold execute and the
+    walk and the all_gather timed apart; its answer must equal the
+    parent's single-device execute bit for bit and Σ COUNT / Σ SUM
+    numpy's.  With ``job["kernels"]`` every rank captures a warm
+    execute's launches and rank 0 holds the largest against the plain
+    versions; with ``job["skew"]`` a C1 whose last shards own no rows
+    runs meshed and alone on this rank's card, bit for bit."""
+    from repro_torch.core.distributed import DistributedSparseProgram
+    from repro_torch.kernels import ops
+
+    tag = job["tag"]
+    # the group's ranks share the host's cores
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    ops.build()  # the parent built every library: this finds and loads them
+    db, _ = chain_db(job["n"], job["seed"])
+    spent = {"walk": 0.0, "gather": 0.0}
+
+    def timed(name, fn):
+        def run(self, *a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = fn(self, *a)
+            torch.cuda.synchronize()
+            spent[name] += time.perf_counter() - t0
+            return r
+        return run
+
+    DistributedSparseProgram.walk = timed("walk", DistributedSparseProgram.walk)
+    DistributedSparseProgram.gather = timed("gather", DistributedSparseProgram.gather)
+
+    def execute(plan):
+        spent.update(walk=0.0, gather=0.0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = plan.execute()
+        torch.cuda.synchronize()
+        return res, {"ms": (time.perf_counter() - t0) * 1e3, "walk_ms": spent["walk"] * 1e3,
+                     "gather_ms": spent["gather"] * 1e3}
+
+    out = {"rank": rank, "device": torch.cuda.current_device(), "modes": {}, "kernels": {}}
+    label = f"shard leg, S={world} rank {rank}"
+    for fused in (False, True):
+        mode = "fused" if fused else "unfused"
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        plan = bundle_query("torch").fused(fused).mesh(world).plan(db)
+        prepare_s = time.perf_counter() - t0
+        ops.reset_launch_counts()
+        res, cold = execute(plan)
+        launches = ops.launch_counts()
+        res, warm = execute(plan)
+        peak = torch.cuda.max_memory_allocated() - resident
+        (prog,) = plan.prep.shard_programs.values()
+        check(prog.num_shards == world and prog.axis.rank == rank,
+              f"{label}: the program is shard {prog.axis.rank} of {prog.num_shards}")
+        check(result_digest(res) == job["digest"],
+              f"{label} {mode}: the gathered answer differs from the single-device execute")
+        got = (int(res.column("n").sum()), int(res.column("s").sum()))
+        check(got == tuple(job["totals"]), f"{label} {mode}: Σ count / Σ sum {got} vs numpy "
+                                           f"{job['totals']}")
+        want = ("fused_hop",) if fused else SEGMENT_KERNELS
+        others = UNFUSED_KERNELS if fused else ("fused_hop",)
+        check(all(launches[k] > 0 for k in want) and not any(launches[k] for k in others),
+              f"{label} {mode}: launches {launches}")
+        lo, hi = prog.ranges[rank]
+        lines = plan.explain().splitlines()
+        at = next(i for i, line in enumerate(lines) if line.startswith("torch path:"))
+        end = next((j for j in range(at + 1, len(lines)) if not lines[j].startswith("  ")),
+                   len(lines))
+        check(lines[at].startswith("torch path: distributed-sparse"),
+              f"{label} {mode}: {lines[at]}")
+        out["modes"][mode] = {
+            "path": lines[at:end],
+            "prepare_s": prepare_s, "cold": cold, "warm": warm, "launches": launches,
+            "peak_above_resident_bytes": peak, "resident_bytes": resident,
+            "per_device_bytes": prog.per_device_bytes(), "range": [lo, hi],
+            "tile": prog.tile, "rows": res.num_rows,
+            "edges": {rel: er.num_rows for rel, er in prog.encoded.items()},
+        }
+        if job["kernels"]:
+            # every rank takes part in the captured execute (a collective
+            # call); rank 0 then holds its launches while the others wait
+            captured = capture_launches(plan.execute, hop_class if fused else main_path_key)
+            if rank == 0:
+                out["kernels"].update(shard_kernels(torch, tag, f"shard leg, S={world}",
+                                                    captured, fused))
+            dist.barrier()
+        del plan, res, prog
+
+    if job["skew"]:
+        sdb = skew_chain_db(job["check_n"], job["seed"])
+        for fused in (False, True):
+            q = bundle_query("torch").fused(fused)
+            ops.reset_launch_counts()
+            meshed = q.mesh(world).plan(sdb)
+            res = meshed.execute()
+            launches = ops.launch_counts()
+            (prog,) = meshed.prep.shard_programs.values()
+            alone = q.plan(sdb).execute()
+            largest = max(float(abs(alone.column(c)).max()) for c in ("n", "s"))
+            check(largest < 2**24, f"{label}: skewed C1 aggregate {largest} is past 2**24, "
+                                   "where float32 sums depend on their order")
+            same = same_result(res, alone)
+            edges = {rel: er.num_rows for rel, er in prog.encoded.items()
+                     if prog.attr in er.attrs}
+            out.setdefault("skew", {})["fused" if fused else "unfused"] = {
+                "ranges": prog.ranges, "edges": edges, "launches": launches,
+                "same": same, "rows": res.num_rows,
+            }
+            check(same, f"{label}: skewed C1 meshed differs from the single-device execute")
+            del meshed, res, alone, prog
     return out
+
+
+def shard_kernels(torch, tag, path: str, captured, fused: bool) -> dict:
+    """A rank's largest captured launches against their plain versions
+    (tolerance 0), timed beside the plain version, the library call and
+    the bound: ``segment_sum``, ``segment_reduce`` and ``coo_spmm`` of an
+    unfused execute, or ``fused_hop`` of a fused one."""
+    if fused:
+        check(captured, f"{path}: no fused_hop launch captured")
+        return {"fused_hop": fused_hop_row(torch, tag, path, captured)}
+    out = {}
+    for name in SEGMENT_KERNELS:
+        launches = [lc for key, lc in captured.items() if isinstance(key, tuple) and key[0] == name]
+        check(launches, f"{path}: no {name} launch captured")
+        out[name] = segment_regime(torch, tag, name, "largest launch",
+                                   max(launches, key=lambda lc: lc.size), path=path)
+    if "coo_spmm" in captured:
+        out["coo_spmm"] = coo_spmm_row(torch, tag, path, "largest launch",
+                                       captured["coo_spmm"], tol=None)
+    return out
+
+
+def shard_group(world: int, job: dict, tmp: Path) -> tuple[list[dict], float]:
+    """Spawn ``world`` ranks of :func:`shard_rank` and join them within
+    ``SHARD_TIMEOUT_S``; every rank's numbers and the group's wall
+    seconds.  A rank that fails, hangs or exits non-zero fails the leg
+    (a hung rank is killed first)."""
+    import multiprocessing
+
+    out_dir = tmp / f"group{world}"
+    out_dir.mkdir()
+    ctx = multiprocessing.get_context("spawn")
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=shard_rank, args=(r, world, str(out_dir), job), daemon=True)
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = t0 + SHARD_TIMEOUT_S
+    for p in procs:
+        p.join(timeout=max(deadline - time.perf_counter(), 0.1))
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(timeout=30)
+    errors = [(r, (out_dir / f"rank{r}.err").read_text()) for r in range(world)
+              if (out_dir / f"rank{r}.err").exists()]
+    codes = [p.exitcode for p in procs]
+    check(not hung and not errors and not any(codes),
+          f"shard leg, S={world}: hung ranks {hung}, exit codes {codes}\n"
+          + "\n".join(f"rank {r}:\n{e}" for r, e in errors))
+    ranks = [json.loads((out_dir / f"rank{r}.json").read_text()) for r in range(world)]
+    return ranks, time.perf_counter() - t0
+
+
+def shard_leg(torch, tag, args, digest: str, totals: tuple[int, int]) -> dict:
+    """The sharded path on the card (DESIGN.md §8): C1 at ``--n`` rows,
+    the main path's bundle through ``Q ... .mesh(S).plan(db).execute()``
+    on groups of S = 1, 2 and 4 ranks, each a process that
+    ``multiprocessing`` spawns on ``cuda:{rank % device_count}``; NCCL
+    when there are at least S cards, gloo otherwise (which gathers on the
+    host).  The parent built the kernels before, so no rank runs
+    ``nvcc``.  Every rank's answer must equal the single-device execute
+    (``digest``) bit for bit and Σ COUNT / Σ SUM numpy's (``totals``);
+    every rank must launch ``segment_sum`` and ``segment_reduce``
+    (unfused) or ``fused_hop`` (fused).  At S = 4 a C1 whose trailing
+    shards own no rows runs too, and the ranks' largest launches are held
+    against the plain versions.  Prints the backend, cold and warm
+    execute ms split into the walk and the all_gather, each rank's peak
+    above resident beside the S = 1 peak, and ``per_device_bytes()``."""
+    import shutil
+    import tempfile
+
+    cards = torch.cuda.device_count()
+    tmp = Path(tempfile.mkdtemp(prefix="repro-shard-leg-"))
+    groups = {}
+    try:
+        for world in SHARD_COUNTS:
+            backend = "nccl" if cards >= world else "gloo"
+            job = {"n": args.n, "seed": args.seed, "check_n": args.check_n, "tag": tag,
+                   "backend": backend, "digest": digest, "totals": list(totals),
+                   "kernels": world == max(SHARD_COUNTS), "skew": world == max(SHARD_COUNTS)}
+            ranks, seconds = shard_group(world, job, tmp)
+            per_card = -(-world // cards)
+            say(tag, f"shard leg: S={world}: backend {backend}, {world} rank(s) on "
+                     f"{min(world, cards)} card(s), {per_card} per card; group {seconds:.1f} s "
+                     "from spawn to exit")
+            groups[world] = {"backend": backend, "seconds": seconds, "ranks": ranks}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    base = {mode: groups[1]["ranks"][0]["modes"][mode]["peak_above_resident_bytes"]
+            for mode in ("unfused", "fused")}
+    totals_by_kernel: dict[str, int] = {}
+    summary = {}
+    for world, g in groups.items():
+        for line in g["ranks"][0]["modes"]["unfused"]["path"]:
+            say(tag, f"shard leg: S={world}: {line}")
+        for r in g["ranks"]:
+            for mode, m in r["modes"].items():
+                peak = m["peak_above_resident_bytes"]
+                say(tag, f"shard leg: S={world} rank {r['rank']} {mode}: shard {m['range']} "
+                         f"(tile {m['tile']}), edges {m['edges']}; cold {m['cold']['ms']:.1f} ms "
+                         f"(walk {m['cold']['walk_ms']:.1f}, all_gather "
+                         f"{m['cold']['gather_ms']:.1f}), warm {m['warm']['ms']:.1f} ms (walk "
+                         f"{m['warm']['walk_ms']:.1f}, all_gather {m['warm']['gather_ms']:.1f}); "
+                         f"prepare {m['prepare_s']:.2f} s; launches {m['launches']}")
+                say(tag, f"shard leg: S={world} rank {r['rank']} {mode}: peak above resident "
+                         f"{peak} B vs S=1 {base[mode]} B, ratio {peak / base[mode]:.3f}; "
+                         f"per_device_bytes() {m['per_device_bytes']} B, "
+                         f"{m['per_device_bytes'] / peak:.3f} of the measured peak")
+                for k, v in m["launches"].items():
+                    totals_by_kernel[k] = totals_by_kernel.get(k, 0) + v
+            for mode, sk in r.get("skew", {}).items():
+                empty = sum(1 for lo, hi in sk["ranges"] if hi == lo)
+                say(tag, f"shard leg: S={world} rank {r['rank']} skewed C1 n={args.check_n} "
+                         f"{mode}: shards {sk['ranges']} ({empty} own no rows), this rank's "
+                         f"sharded edges {sk['edges']}, launches {sk['launches']}, "
+                         f"{sk['rows']} rows bit-identical to the single-device execute: "
+                         f"{sk['same']}")
+        summary[f"S={world}"] = {
+            "backend": g["backend"], "seconds": g["seconds"],
+            "ranks": [{mode: {k: m[k] for k in ("cold", "warm", "peak_above_resident_bytes",
+                                               "per_device_bytes", "launches")}
+                       for mode, m in r["modes"].items()} for r in g["ranks"]],
+        }
+    kernels = groups[max(SHARD_COUNTS)]["ranks"][0]["kernels"]
+    for name in ("segment_sum", "segment_reduce", "fused_hop"):
+        check(name in kernels, f"shard leg: {name} was not held against its plain version")
+    summary["launches"] = {"shard": {k: totals_by_kernel.get(k, 0) for k in KERNEL_SOURCES}}
+    summary["kernels"] = kernels
+    return summary
 
 
 def main() -> int:
@@ -2962,6 +3308,7 @@ def main() -> int:
         results[name]["max_abs_err"] = max([results[name]["max_abs_err"]] + errs)
 
     # 6. split leg, 7. cyclic leg, 8. dense leg, 9. explain --------------
+    main_digest = result_digest(res)
     del plan, fplan, res, fres, captured
     torch.cuda.empty_cache()
     split = split_leg(torch, tag, args)
@@ -2992,13 +3339,20 @@ def main() -> int:
         results[name]["max_abs_err"] = max(results[name]["max_abs_err"], row["max_abs_err"])
         results[name]["serve"] = row
 
+    # 13. shard leg --------------------------------------------------------
+    torch.cuda.empty_cache()
+    sharded = shard_leg(torch, tag, args, main_digest, (want_n, want_s))
+    for name, row in sharded.pop("kernels").items():
+        results[name]["max_abs_err"] = max(results[name]["max_abs_err"], row["max_abs_err"])
+        results[name]["shard"] = row
+
     legs = {"main": launches, "fused": flaunches}
-    for leg in (split, cyclic, dense, maintain, stored, served):
+    for leg in (split, cyclic, dense, maintain, stored, served, sharded):
         legs.update(leg.pop("launches"))
     for label, summary in (("main path", main), ("fused path", fused), *split.items(),
                            *cyclic.items(), *dense.items(), *maintain.items(),
                            *(("storage leg, " + k, v) for k, v in stored.items()),
-                           ("serve leg", served)):
+                           ("serve leg", served), ("shard leg", sharded)):
         say(tag, f"{label} summary: {json.dumps(summary)}")
     paths = {name: "main" for name in UNFUSED_KERNELS}
     paths.update(fused_hop="fused", semiring_matmul=None)
@@ -3020,7 +3374,7 @@ def main() -> int:
             entry.update(regimes=r["regimes"], launches_by_width=r["launches_by_width"])
         if name == "coo_spmm":
             entry.update(walk=r["walk"])
-        for leg in ("maintain", "storage", "serve"):
+        for leg in ("maintain", "storage", "serve", "shard"):
             if leg in r:
                 entry[leg] = r[leg]
         if name == "fused_hop":

@@ -31,6 +31,12 @@ V-SPLIT-ROOT  one root per range; each is a group relation
 V-SPLIT-ATTR  split attr is a non-group join attribute
 V-SPLIT-MINMAX  split plans carry no MIN/MAX (not range-additive)
 V-SPLIT-HEAVY heavy keys are in-domain singleton ranges
+V-SHARD-PARTITION  shard key ranges (and their CSR edge slices)
+              exactly partition the root group attr's domain
+V-SHARD-TILE  no shard is wider than the uniform tile its codes are
+              re-based into
+V-SENTINEL    a built sharded program's hop keys lie in [0, knum),
+              ascending, with knum the product of the kept dims
 V-KERN        every fused hop has a launch shape the kernel takes:
               positive block dimensions, blocks and edges within one
               launch's limits, dynamic shared memory within the
@@ -41,13 +47,14 @@ V-GHD-RIP     bags holding each attribute form a connected subtree
 V-GHD-GROUP   no bag hosts two group relations
 ============= =========================================================
 
-Copy of the JAX package's ``analysis/verify.py`` for one device: its
-shard and sentinel checks (meshes) have nothing to check here, and
-V-KERN checks the launch shapes of ``kernels/ops.py`` in place of the
-TPU tile configurations.
+Port of the JAX package's ``analysis/verify.py``.  V-KERN checks the
+launch shapes of ``kernels/ops.py`` in place of the TPU tile
+configurations, and V-SENTINEL checks a rank's real hop keys: the port
+pads no edges, so there is no pad sentinel to keep apart from them.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import numpy as np
@@ -474,6 +481,163 @@ def check_split(prep, split, minmax) -> list[Diagnostic]:
 
 
 # ----------------------------------------------------------------------
+# distributed shard partitions + hop keys
+# ----------------------------------------------------------------------
+
+
+def check_shards(prep, num_shards: int) -> list[Diagnostic]:
+    """V-SHARD-* for a planned (host-side) shard count: the per-shard
+    grouped-CSR key ranges of the root group attribute must exactly
+    partition its domain, with contiguous, exhaustive edge slices."""
+    out: list[Diagnostic] = []
+    root = prep.decomposition.root
+    attr = prep.schema.group_of.get(root)
+    if attr is None:
+        out.append(
+            Diagnostic(
+                "V-SHARD-PARTITION",
+                f"shard/{root}",
+                f"root {root!r} has no group attribute to shard",
+            )
+        )
+        return out
+    view = prep.csr_view(root, (attr,))
+    dom = prep.dicts[attr].size
+    if view.num_keys != dom:
+        out.append(
+            Diagnostic(
+                "V-SHARD-PARTITION",
+                f"shard/{root}",
+                f"CSR view key space {view.num_keys} != dom({attr!r}) = {dom}",
+            )
+        )
+    if len(view.keys) and (
+        bool(np.any(np.diff(view.keys) < 0))
+        or int(view.keys[0]) < 0
+        or int(view.keys[-1]) >= view.num_keys
+    ):
+        out.append(
+            Diagnostic(
+                "V-SHARD-PARTITION",
+                f"shard/{root}",
+                "CSR keys are unsorted or out of range; binary-search "
+                "slicing would return wrong edge blocks",
+            )
+        )
+        return out
+
+    shards = view.shard(num_shards)
+    if len(shards) != num_shards:
+        out.append(
+            Diagnostic(
+                "V-SHARD-PARTITION",
+                "shard",
+                f"{len(shards)} shard(s) for a mesh of {num_shards}",
+            )
+        )
+    cursor = 0
+    edge_cursor = 0
+    ok = True
+    for lo, hi, sl in shards:
+        if lo != min(cursor, view.num_keys) or hi < lo or sl.start != edge_cursor:
+            ok = False
+            break
+        cursor = max(cursor, hi)
+        edge_cursor = sl.stop
+    if not ok or cursor != view.num_keys or edge_cursor != len(view.keys):
+        out.append(
+            Diagnostic(
+                "V-SHARD-PARTITION",
+                "shard",
+                f"shard ranges {[(lo, hi) for lo, hi, _ in shards]} / "
+                "edge slices do not exactly partition the key space — "
+                "a dropped or repeated CSR block changes the answer",
+            )
+        )
+
+    tile = max(1, -(-view.num_keys // num_shards))
+    widths = [hi - lo for lo, hi, _ in shards]
+    if widths and max(widths) > tile:
+        out.append(
+            Diagnostic(
+                "V-SHARD-TILE",
+                "shard",
+                f"shard width {max(widths)} exceeds the padded tile "
+                f"{tile}; a rebased code could reach the OOB sentinel",
+            )
+        )
+    return out
+
+
+def verify_distributed_program(prog) -> list[Diagnostic]:
+    """V-SHARD-* / V-SENTINEL on a *built*
+    :class:`~repro_torch.core.distributed.DistributedSparseProgram`:
+    checks its ranges, its tile and the hop keys this rank's walk reads,
+    not just the planned arithmetic."""
+    out: list[Diagnostic] = []
+    dom = prog.prep.dicts[prog.attr].size
+
+    cursor = 0
+    for lo, hi in prog.ranges:
+        if lo != min(cursor, dom) or hi < lo:
+            cursor = -1
+            break
+        cursor = max(cursor, hi)
+    if cursor != dom:
+        out.append(
+            Diagnostic(
+                "V-SHARD-PARTITION",
+                f"distributed/{prog.attr}",
+                f"shard ranges {list(prog.ranges)} do not partition [0, {dom})",
+            )
+        )
+    widths = [hi - lo for lo, hi in prog.ranges]
+    if widths and (prog.tile < max(widths) or prog.tile < 1):
+        out.append(
+            Diagnostic(
+                "V-SHARD-TILE",
+                f"distributed/{prog.attr}",
+                f"tile {prog.tile} < max shard width {max(widths)}",
+            )
+        )
+
+    for hop in prog.hops:
+        knum = hop.knum
+        site = f"distributed/{hop.rel}"
+        if knum != math.prod(hop.kept_dims) or knum < 1:
+            out.append(
+                Diagnostic(
+                    "V-SENTINEL",
+                    site,
+                    f"hop key space knum={knum} inconsistent with kept dims "
+                    f"{hop.kept_dims}",
+                )
+            )
+            continue
+        keys = np.asarray(prog.host_keys(hop))
+        bad = int(np.count_nonzero((keys < 0) | (keys >= knum)))
+        if bad:
+            out.append(
+                Diagnostic(
+                    "V-SENTINEL",
+                    site,
+                    f"{bad} hop key(s) outside [0, {knum}) — the reduction "
+                    "would drop or misroute real edges",
+                )
+            )
+        elif bool(np.any(keys[1:] < keys[:-1])):
+            out.append(
+                Diagnostic(
+                    "V-SENTINEL",
+                    site,
+                    "hop keys are not ascending — the kernels' row walk "
+                    "would split an output row's edges",
+                )
+            )
+    return out
+
+
+# ----------------------------------------------------------------------
 # fused-hop launch shapes (DESIGN.md §13)
 # ----------------------------------------------------------------------
 
@@ -657,9 +821,13 @@ def verify_plan(plan) -> list[Diagnostic]:
     if plan.split is not None:
         out += check_split(prep, plan.split, plan.minmax)
     if tree_broken:
-        # the kernel and overflow checks walk the tree from the root; on
-        # a malformed tree the V-TREE-* findings already say why
+        # the shard, kernel and overflow checks walk the tree from the
+        # root; on a malformed tree the V-TREE-* findings already say why
         return out
+    if plan.mesh is not None:
+        from repro_torch.core.distributed import mesh_shards
+
+        out += check_shards(prep, mesh_shards(plan.mesh))
     if getattr(plan.engine, "supports_fused", False):
         out += check_kernels(plan)
     if plan.stats_enabled:

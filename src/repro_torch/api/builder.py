@@ -15,8 +15,7 @@ Every method returns a new immutable ``Q``; ``plan(db)`` compiles to a
 "Source")`` tuples (or repeat a bare name — occurrences auto-alias as
 ``name__2``, ``name__3``, ...) and rename the alias's columns with
 ``.rename``; ``Q.from_query`` wraps a catalog ``JoinAggQuery``.  Port
-of the JAX package's ``api/builder.py``; ``.mesh`` raises
-:class:`UnsupportedPlanOption`.
+of the JAX package's ``api/builder.py``.
 """
 from __future__ import annotations
 
@@ -30,7 +29,6 @@ import numpy as np
 from repro_torch.aggregates.semiring import AggSpec, Count
 from repro_torch.api.engines import TorchChannelEngine
 from repro_torch.api.plan import Plan, Predicate, compile_plan
-from repro_torch.core.operator import UnsupportedPlanOption
 from repro_torch.core.query import JoinAggQuery
 from repro_torch.relational.relation import Database
 
@@ -92,6 +90,9 @@ class Q:
     # fused hop kernels (DESIGN.md §13): True/False pins the choice,
     # None defers to the REPRO_FUSED environment switch
     fused_opt: bool | None = None
+    # shard count or torch.distributed DeviceMesh (Q.mesh); execute(mesh=)
+    # overrides it per call
+    mesh_opt: "object | None" = None
 
     # ------------------------------------------------------------------
     @staticmethod
@@ -232,9 +233,15 @@ class Q:
         return replace(self, stream_opt=(attr, int(tile)))
 
     def mesh(self, mesh) -> "Q":
-        raise UnsupportedPlanOption(
-            "device meshes are not ported to repro_torch (one device only)"
-        )
+        """Execute over a mesh of ranks (mesh-capable engines only): a
+        shard count, which needs an initialised ``torch.distributed``
+        process group of that many ranks (or none, for 1), or a
+        ``torch.distributed.device_mesh.DeviceMesh``, whose ``data``
+        dimension (else its first) carries the shards.  The root group
+        attribute's CSR row ranges are partitioned one per rank
+        (DESIGN.md §8); ``execute()`` becomes a collective call that
+        every rank makes, and every rank gets the whole answer."""
+        return replace(self, mesh_opt=mesh)
 
     def fused(self, enabled: bool = True) -> "Q":
         """Run every decomposition-tree hop as one ``fused_hop`` kernel

@@ -11,8 +11,9 @@ The planner compiles a query down to one :class:`Prepared` plus
 
 :class:`TorchChannelEngine` turns those into sparse :class:`EngineOutput`
 tiles on one device: CUDA unless the caller asks for the CPU.  It is the
-port of the JAX package's single-device ``JaxChannelEngine.run`` (the
-dense einsum program or the sparse kernel walk, chosen per run) and is
+port of the JAX package's ``JaxChannelEngine.run`` (the dense einsum
+program or the sparse kernel walk, chosen per run; over a mesh, the
+sharded sparse walk of ``repro_torch.core.distributed``) and is
 registered under the name ``"torch"``.
 """
 from __future__ import annotations
@@ -139,11 +140,16 @@ class TorchChannelEngine:
     PyTorch version.  ``mode`` pins the path: ``"auto"`` (the default)
     follows the choice, ``"dense"`` or ``"sparse"`` override it.
     Channel values are float32, exact to 2**24 per partial product
-    (DESIGN.md §2, §7)."""
+    (DESIGN.md §2, §7).
+
+    ``run(..., mesh=...)`` runs the sharded path instead (DESIGN.md §8):
+    a collective call that every rank of the mesh's process group makes,
+    each on its own device, and each gets every shard's output."""
 
     name = "torch"
     supports_streaming = True
     supports_fused = True
+    supports_mesh = True
 
     def __init__(self, device: str | torch.device = "cuda", mode: str = "auto"):
         if mode not in MODES:
@@ -170,13 +176,19 @@ class TorchChannelEngine:
         )
         return "dense" if choice.path == "dense" and fused is not True else "sparse"
 
-    def run(self, prep, channels, minmax, stream=None, memory_budget=None, fused=None):
+    def run(
+        self, prep, channels, minmax, stream=None, memory_budget=None, fused=None,
+        mesh=None,
+    ):
         """Contract all channels in one pass; one output per stream tile
         (``stream`` = ``(group attr, tile)``, as the planner resolved it).
         ``memory_budget`` is the dense program's budget in the path
         choice; ``fused`` True/False pins the fused hops, None follows
-        ``REPRO_FUSED``."""
+        ``REPRO_FUSED``.  ``mesh`` (a shard count or a ``DeviceMesh``)
+        runs the sharded path: one output per shard."""
         cm = tuple(ch.measure[0] if ch.kind == "sum" else None for ch in channels)
+        if mesh is not None:
+            return self._run_distributed(prep, channels, minmax, cm, mesh, fused)
         prog = build_sparse_program(prep, cm, self.device, fused)
         if self.path(prep, channels, stream, memory_budget, fused) == "dense":
             if stream is not None:
@@ -197,6 +209,23 @@ class TorchChannelEngine:
             }
             outs.append(sparsify(prep, channels, arr, mm, offsets))
         return outs
+
+    def _run_distributed(self, prep, channels, minmax, cm, mesh, fused):
+        """Sharded sparse execution over the mesh's data axis: this rank
+        walks its CSR partition of the root group attribute and gathers
+        every shard's partial; one :class:`EngineOutput` per shard
+        (DESIGN.md §8).  MIN/MAX ride the same program, masked by the
+        COUNT channel like every other sparse path."""
+        from repro_torch.core.distributed import build_distributed_program
+
+        prog = build_distributed_program(
+            prep, cm, mesh, minmax=tuple((r.kind, r.measure[0]) for r in minmax),
+            fused=fused, device=self.device,
+        )
+        return [
+            sparsify(prep, channels, arr, dict(zip(minmax, mms)), offsets)
+            for arr, mms, offsets in prog.run()
+        ]
 
 
 _REGISTRY = {"torch": TorchChannelEngine()}

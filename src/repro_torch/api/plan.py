@@ -25,8 +25,8 @@ among them; ``Plan.verify()`` checks the plan's structural invariants
 (``repro_torch.analysis.verify``); ``Plan.maintain()`` hands the same
 query to the incremental maintainer (``repro_torch.incremental``).
 
-Port of the JAX package's ``api/plan.py``, fused hops included
-(``Q.fused``); meshes raise :class:`UnsupportedPlanOption`.
+Port of the JAX package's ``api/plan.py``, fused hops (``Q.fused``) and
+meshes (``Q.mesh``, ``repro_torch.core.distributed``) included.
 """
 from __future__ import annotations
 
@@ -173,6 +173,9 @@ class Plan:
     # the Q builder that produced this plan (maintain() replays its
     # aliases, renames and predicates on every delta batch)
     spec: "object | None" = None
+    # shard count or DeviceMesh from Q.mesh(); execute(mesh=...)
+    # overrides it per call
+    mesh: "object | None" = None
     # the split plan's per-range Prepared set, built on the first
     # execute and kept, so warm executes reuse each range's device views
     _split_parts: "list[Prepared] | None" = field(
@@ -212,10 +215,11 @@ class Plan:
         """The tile plan actually used: the explicit ``stream`` option, or
         auto-streaming over the largest group attribute when the
         estimated peak message exceeds the memory budget; None for a
-        split plan, whose key ranges already bound the messages."""
+        split plan, whose key ranges already bound the messages, and for
+        a meshed one, whose shards do (the mesh supersedes the budget)."""
         if self.stream is not None:
             return self.stream
-        if self.split is not None:
+        if self.split is not None or self.mesh is not None:
             return None
         budget = (
             self.memory_budget
@@ -240,11 +244,19 @@ class Plan:
             self._split_parts = split_parts(self.prep, self.split)
         return self._split_parts
 
-    def outputs(self) -> list[EngineOutput]:
+    def outputs(self, mesh: "object | None" = None) -> list[EngineOutput]:
         """The engine's sparse outputs for every channel and MIN/MAX
-        request: one per stream tile, or for a split plan the per-range
-        partials merged into one."""
+        request: one per stream tile, one per shard of a mesh (``mesh``,
+        else the plan's own), or for a split plan the per-range partials
+        merged into one.  A mesh supersedes the memory budget and the
+        split: the shard partition is the memory bound."""
         self._require_physical()
+        mesh = self.mesh if mesh is None else mesh
+        if mesh is not None:
+            _check_mesh_options(self.engine, self.stream)
+            return self.engine.run(
+                self.prep, self.channels, self.minmax, None, fused=self.fused, mesh=mesh
+            )
         if self.split is not None:
             from repro_torch.planner.split import execute_split
 
@@ -260,10 +272,15 @@ class Plan:
             memory_budget=self.memory_budget, **kwargs,
         )
 
-    def execute(self) -> AggResult:
+    def execute(self, mesh: "object | None" = None) -> AggResult:
         """Run every named aggregate in a single contraction pass (one
-        per key range of a split plan)."""
-        return _assemble(self, self.outputs())
+        per key range of a split plan).
+
+        ``mesh`` (or the plan's ``Q.mesh(...)`` option) runs the sharded
+        distributed-sparse path (DESIGN.md §8): a collective call that
+        every rank of the mesh's process group makes; each gets the whole
+        answer."""
+        return _assemble(self, self.outputs(mesh))
 
     def maintain(self):
         """Incremental-maintenance handle(s) for this plan's query, their
@@ -310,7 +327,7 @@ class Plan:
         """Check every declared structural invariant of this compiled
         plan (DESIGN.md §11): decomposition-tree running intersection,
         encoded codes, semiring-channel wiring (AVG's SUM/COUNT pairing
-        included), exact disjoint split key-range partitions, the fused
+        included), exact disjoint split and shard key-range partitions, the fused
         hops' launch shapes and accumulator-overflow headroom at
         sketch-estimated cardinalities.
 
@@ -356,6 +373,13 @@ class Plan:
                 f"root={prep.decomposition.root}, "
                 f"est peak message {_fmt_bytes(self.message_peak)}"
             )
+        if self.mesh is not None:
+            from repro_torch.core.distributed import mesh_shards, shard_attr
+
+            lines.append(
+                f"mesh: {mesh_shards(self.mesh)} shard(s) of group attr "
+                f"{shard_attr(prep)!r} on the data axis"
+            )
         stream = self.resolved_stream()
         if stream is not None:
             lines.append(
@@ -389,7 +413,7 @@ class Plan:
                 lines.append(f"split: {self.split.describe()}")
                 for (lo, hi), root in zip(self.split.ranges, self.split.roots):
                     lines.append(f"  [{lo},{hi}) root={root}")
-            elif not self.cyclic:
+            elif not self.cyclic and self.mesh is None:
                 lines.append("split: none (no qualifying skew)")
         lines.extend(self._explain_path(stream))
         lines.extend(self._explain_kernels())
@@ -418,7 +442,13 @@ class Plan:
         return "\n".join(lines)
 
     def _explain_path(self, stream) -> list[str]:
-        """Dense-vs-sparse choice + per-node byte estimates."""
+        """Dense-vs-sparse(-vs-distributed) choice + per-node byte
+        estimates."""
+        shards = None
+        if self.mesh is not None:
+            from repro_torch.core.distributed import mesh_shards
+
+            shards = mesh_shards(self.mesh)
         choice = choose_path(
             self.prep,
             k=max(len(self.channels), 1),
@@ -427,8 +457,22 @@ class Plan:
             measured=tuple(
                 ch.measure[0] for ch in self.channels if ch.kind == "sum" and ch.measure
             ),
+            shards=shards,
             stats=self.prep.stats if self.stats_enabled else None,
         )
+        if choice.path == "distributed-sparse":
+            lines = [
+                f"torch path: {choice.path} — {choice.reason}; "
+                f"est per-device peak {_fmt_bytes(choice.per_device_peak)} "
+                f"vs single-device sparse peak {_fmt_bytes(choice.sparse_peak)}"
+            ]
+            for rel in choice.per_device_node_bytes:
+                lines.append(
+                    f"  {rel}: per-device "
+                    f"{_fmt_bytes(choice.per_device_node_bytes[rel])} "
+                    f"/ single {_fmt_bytes(choice.sparse_node_bytes[rel])}"
+                )
+            return lines
         lines = [
             f"torch path: {choice.path} — {choice.reason}; "
             f"est dense peak {_fmt_bytes(choice.dense_peak)} "
@@ -452,7 +496,8 @@ class Plan:
     def fused_runs(self) -> list[dict]:
         """Every pass that ``execute()`` runs on the fused path, in order:
         per key range of a split plan (its own ``Prepared``), per stream
-        tile (the tile's relations and domains), the ``k``-channel pass,
+        tile or per shard of a mesh (each rank runs its own; the slice's
+        relations and domains), the ``k``-channel pass,
         then the MIN/MAX passes (``k`` = 1, one per request, alike).
         Entries hold ``run`` (a label, "" for the one run of a plain
         plan), ``pass`` ("channels" | "min/max"), ``repeat`` (passes of
@@ -478,6 +523,8 @@ class Plan:
                      f"{offsets[stream[0]]})", enc, domains)
                     for i, (enc, domains, offsets) in enumerate(found)
                 ]
+            if self.mesh is not None:
+                tiles = _shard_runs(prep, self.mesh)
             for tile, enc, domains in tiles:
                 passes = [("channels", 1, max(len(self.channels), 1))]
                 if self.minmax and self.split is None:
@@ -533,6 +580,33 @@ class Plan:
 # ----------------------------------------------------------------------
 
 
+def _shard_runs(prep: Prepared, mesh) -> list[tuple]:
+    """``(label, encoded, domains)`` of each shard's walk over ``mesh``."""
+    from repro_torch.core.distributed import mesh_shards, shard_layout
+    from repro_torch.core.prepare import csr_restrict
+
+    num = mesh_shards(mesh)
+    attr, ranges, domains = shard_layout(prep, num)
+    return [
+        (f"shard {i} of {num} ({attr} from {lo})", csr_restrict(prep, attr, lo, hi), domains)
+        for i, (lo, hi) in enumerate(ranges)
+    ]
+
+
+def _check_mesh_options(engine, stream) -> None:
+    """A mesh needs a mesh-capable engine and no explicit stream."""
+    if not getattr(engine, "supports_mesh", False):
+        raise UnsupportedPlanOption(
+            f"engine {engine.name!r} cannot execute over a mesh (only "
+            "mesh-capable engines do); drop .mesh(...) or use the 'torch' engine"
+        )
+    if stream is not None:
+        raise UnsupportedPlanOption(
+            "explicit stream tiling cannot run on a mesh (the shard partition "
+            "replaces group-axis tiles); drop .stream(...) or .mesh(...)"
+        )
+
+
 def compile_plan(spec, db: Database, physical: bool = True) -> Plan:
     """Compile a builder spec against ``db`` into a :class:`Plan`.
 
@@ -555,6 +629,9 @@ def compile_plan(spec, db: Database, physical: bool = True) -> Plan:
             f"engine {engine.name!r} has no fused hop kernels; drop "
             ".fused(...) or use the 'torch' engine"
         )
+    meshed = spec.mesh_opt is not None
+    if meshed:
+        _check_mesh_options(engine, spec.stream_opt)
 
     notes: list[str] = []
     edb = _apply_aliases(spec, db, notes)
@@ -598,6 +675,7 @@ def compile_plan(spec, db: Database, physical: bool = True) -> Plan:
             rewrite_notes=tuple(notes), memory_budget=spec.budget,
             stream=spec.stream_opt, fused=spec.fused_opt, cyclic=cyclic,
             stats_enabled=stats_on, spec=spec, chunk_rows=chunk_rows,
+            mesh=spec.mesh_opt,
         )
     ghd_plan = None
     root_notes: tuple[str, ...] = ()
@@ -625,6 +703,7 @@ def compile_plan(spec, db: Database, physical: bool = True) -> Plan:
         and not cyclic
         and not minmax
         and spec.stream_opt is None
+        and not meshed
         and engine.name == "torch"
     ):
         from repro_torch.planner.split import decide_split
@@ -654,6 +733,7 @@ def compile_plan(spec, db: Database, physical: bool = True) -> Plan:
         root_notes=root_notes,
         spec=spec,
         chunk_rows=chunk_rows,
+        mesh=spec.mesh_opt,
     )
     if os.environ.get("REPRO_VERIFY", "") not in ("", "0"):
         plan.verify()  # debug-mode assert (DESIGN.md §11)

@@ -23,6 +23,7 @@ drops a relation's memos when a delta changes it
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -63,12 +64,33 @@ class CSRView:
     attrs: tuple[str, ...]  # key attrs, in relation-attr order of ravel
     keys: np.ndarray  # (n,) int64 raveled key per edge, ascending
     order: np.ndarray  # (n,) permutation: sorted position -> original row
+    num_keys: int  # Π|dom(key attrs)|: the key space the keys lie in
 
     def slice_range(self, lo: int, hi: int) -> slice:
         """Edge slice (into the sorted order) whose keys lie in [lo, hi)."""
         a = int(np.searchsorted(self.keys, lo, "left"))
         b = int(np.searchsorted(self.keys, hi, "left"))
         return slice(a, b)
+
+    def shard(self, num_shards: int) -> list[tuple[int, int, slice]]:
+        """Partition the key space into ``num_shards`` contiguous row
+        ranges: ``(key_lo, key_hi, edge_slice)`` per shard, edge slices
+        into the sorted order (DESIGN.md §8).
+
+        Ranges are equal-width over the key domain, ``ceil(num_keys /
+        num_shards)`` keys each (the last shards may be empty when
+        ``num_keys < num_shards``): the distributed path's source
+        partition, where every shard's edges are one contiguous CSR block
+        found by two binary searches, never a COO scan."""
+        if num_shards < 1:
+            raise ValueError(f"num_shards must be >= 1, got {num_shards}")
+        tile = max(1, -(-self.num_keys // num_shards))
+        out: list[tuple[int, int, slice]] = []
+        for s in range(num_shards):
+            lo = min(s * tile, self.num_keys)
+            hi = min(lo + tile, self.num_keys)
+            out.append((lo, hi, self.slice_range(lo, hi)))
+        return out
 
 
 def grouped_csr(
@@ -78,7 +100,7 @@ def grouped_csr(
     cols = [er.attrs.index(a) for a in key_attrs]
     keys = _ravel(er.codes, cols, list(dims))
     order = np.argsort(keys, kind="stable")
-    return CSRView(tuple(key_attrs), keys[order], order)
+    return CSRView(tuple(key_attrs), keys[order], order, math.prod(dims))
 
 
 def grouped_csr_external(
@@ -104,7 +126,10 @@ def grouped_csr_external(
     cols = [er.attrs.index(a) for a in key_attrs]
     n = er.num_rows
     if n == 0:
-        return CSRView(tuple(key_attrs), np.zeros(0, np.int64), np.zeros(0, np.int64))
+        return CSRView(
+            tuple(key_attrs), np.zeros(0, np.int64), np.zeros(0, np.int64),
+            math.prod(dims),
+        )
     spill = tempfile.TemporaryDirectory(prefix=f"repro-csr-{er.name}-")
     base = Path(spill.name)
     run_dir = base / "runs"
@@ -129,7 +154,7 @@ def grouped_csr_external(
         writer.append(batch)
     shutil.rmtree(run_dir, ignore_errors=True)
     fields = writer.finish()
-    view = CSRView(tuple(key_attrs), fields[ext.KEY], fields["idx"])
+    view = CSRView(tuple(key_attrs), fields[ext.KEY], fields["idx"], math.prod(dims))
     view._spill = spill  # keep the memmap files alive with the view
     return view
 
@@ -159,6 +184,10 @@ class Prepared:
         # engine-owned memo of the sorted distinct MIN/MAX payloads the
         # walk ranks against, keyed by (device, relation, kind)
         self.payload_values: dict = {}
+        # built sharded programs (repro_torch.core.distributed), keyed on
+        # (channels, min/max, shard count, axis group, fused, device):
+        # each holds this rank's slice of every sharded relation
+        self.shard_programs: dict = {}
         # False for a split plan's key-range part: its dense relation
         # tensors are built per run and dropped, so a split holds one
         # range's tensors at a time (holding every range's would undo
@@ -190,11 +219,14 @@ class Prepared:
     def forget(self, rels) -> None:
         """Drop every memo built from the encodings of ``rels``: host and
         device grouped-CSR views (with the weights uploaded beside
-        them), dense relation tensors and MIN/MAX payload values.  The
+        them), dense relation tensors and MIN/MAX payload values, and
+        every built sharded program.  The
         incremental maintainer calls it for each relation a delta
         changed, or whose dictionary grew (its raveled keys and tensor
         shapes are stale then); every other relation keeps its memos."""
         rels = set(rels)
+        # a sharded program holds slices of every relation it shards
+        self.shard_programs.clear()
         # _csr_cache keys: (rel, key attrs); device_views keys: (device,
         # rel, key attrs) or ("dense", device, rel, layout);
         # payload_values keys: (device, rel, kind)

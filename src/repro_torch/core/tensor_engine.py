@@ -218,15 +218,19 @@ def channel_weight_matrices(
 
 
 def _decode_result(
-    prep: Prepared, arr: torch.Tensor, support: torch.Tensor | None = None
+    prep: Prepared,
+    arr: torch.Tensor,
+    support: torch.Tensor | None = None,
+    offsets: dict[str, int] | None = None,
 ) -> dict[tuple, float]:
     """``{group values: value}`` over the ``support`` cells (default: the
-    nonzero ones) of a dense group-axes result on any device."""
+    nonzero ones) of a dense group-axes result on any device; an axis
+    named in ``offsets`` starts at that code (a stream tile or shard)."""
     support = arr != 0 if support is None else support
     idx = torch.nonzero(support).cpu().numpy()
     vals = arr[support].cpu().numpy()
     cols = [
-        prep.dicts[attr].decode(idx[:, i])
+        prep.dicts[attr].decode(idx[:, i] + (offsets or {}).get(attr, 0))
         for i, (_, attr) in enumerate(prep.group_attrs)
     ]
     return {tuple(c[i] for c in cols): float(v) for i, v in enumerate(vals)}

@@ -37,7 +37,9 @@ Port of the JAX package's ``core/jax_engine.py``.
   for ``≥ 2**31`` segments are gone: the kernels index in int64.
 
 :func:`choose_path` prices both paths per node and picks one as the JAX
-package's ``choose_jax_path`` does; :func:`execute_torch` is the
+package's ``choose_jax_path`` does (and, given a shard count, prices the
+distributed-sparse path of ``core/distributed.py``, whose ranks each run
+the sparse walk below on their shard); :func:`execute_torch` is the
 single-aggregate entry.  Counts are exact in float32 up to 2**24 per
 partial product on both paths.
 
@@ -895,10 +897,16 @@ def hop_launch_shapes(
 class PathChoice:
     """Outcome of :func:`choose_path`, rendered by ``Plan.explain()``."""
 
-    path: str  # "dense" | "sparse"
+    path: str  # "dense" | "sparse" | "distributed-sparse"
     reason: str
     dense_node_bytes: dict[str, int] = field(default_factory=dict)
     sparse_node_bytes: dict[str, int] = field(default_factory=dict)
+    # meshed plans only: per-node bytes on ONE rank of the shard mesh
+    # (sharded relations and messages divide by the shard count,
+    # replicated subtrees do not): the currency of the distributed
+    # path's explain
+    per_device_node_bytes: dict[str, int] = field(default_factory=dict)
+    shards: int = 1
 
     @property
     def dense_peak(self) -> int:
@@ -909,6 +917,34 @@ class PathChoice:
     def sparse_peak(self) -> int:
         return max(self.sparse_node_bytes.values(), default=0)
 
+    @property
+    def per_device_peak(self) -> int:
+        return max(self.per_device_node_bytes.values(), default=0)
+
+
+def _node_message_attrs(prep: Prepared) -> dict[str, set[str]]:
+    """Attrs carried by each node's upward message (shared-with-parent +
+    subtree group attrs): membership only, for shard-split estimates."""
+    deco = prep.decomposition
+
+    def subtree_gattrs(rel: str) -> set[str]:
+        out = set()
+        g = prep.schema.group_of.get(rel)
+        if g:
+            out.add(g)
+        for c in deco.nodes[rel].children:
+            out |= subtree_gattrs(c)
+        return out
+
+    out: dict[str, set[str]] = {}
+    for rel in deco.order:
+        node = deco.nodes[rel]
+        up: set[str] = set()
+        if node.parent is not None:
+            up = set(prep.schema.relevant[rel]) & set(prep.schema.relevant[node.parent])
+        out[rel] = up | subtree_gattrs(rel)
+    return out
+
 
 def choose_path(
     prep: Prepared,
@@ -916,10 +952,11 @@ def choose_path(
     memory_budget: int | None = None,
     stream: tuple[str, int] | None = None,
     measured: tuple[str | None, ...] = (),
+    shards: int | None = None,
     stats=None,
 ) -> PathChoice:
     """Estimate per-node dense-vs-sparse peak bytes and pick the path, as
-    the JAX package's ``choose_jax_path`` does on one device.
+    the JAX package's ``choose_jax_path`` does.
 
     Dense cost per node: the f32 relation tensor over its attr domains
     (×k only for ``measured`` relations — the dense channel program only
@@ -933,6 +970,15 @@ def choose_path(
     statistics (``stats``, defaulting to the plan's collection when one
     was materialized) estimate a large dense tensor to be
     extreme-sparse.
+
+    ``shards`` (a mesh's data-axis extent) forces the third path,
+    ``distributed-sparse`` (the dense program does not run on meshes),
+    and fills ``per_device_node_bytes``: edge arrays and messages that
+    carry the shard attribute divide by the shard count, replicated
+    subtrees keep their full size (DESIGN.md §8).  With statistics the
+    divisor caps at the shard attribute's heavy-hitter share: a skewed
+    key pins its rows to one rank, so dividing by the full shard count
+    would under-estimate the hot rank.
     """
     if stats is None:
         stats = prep._stats_cache
@@ -955,6 +1001,8 @@ def choose_path(
         edge_bytes = er.codes.nbytes + 4 * k * er.num_rows
         sparse_nodes[rel] = edge_bytes + msg_f32 * k
     choice = PathChoice("dense", "", dense_nodes, sparse_nodes)
+    if shards is not None:
+        return _distributed_choice(prep, choice, k, msg, shards, stats)
     if stream is not None:
         choice.path = "sparse"
         choice.reason = f"stream tiles over {stream[0]!r} (dense cannot tile)"
@@ -976,6 +1024,50 @@ def choose_path(
         choice.reason = (
             f"dense program fits ({choice.dense_peak} B ≤ budget {budget} B)"
         )
+    return choice
+
+
+def _distributed_choice(
+    prep: Prepared, choice: PathChoice, k: int, msg: dict[str, int], shards: int, stats
+) -> PathChoice:
+    """``choice`` as the ``distributed-sparse`` path over ``shards``
+    shards of the root group attribute, with its per-rank node bytes."""
+    from repro_torch.core.distributed import shard_attr
+
+    attr = shard_attr(prep)
+    msg_attrs = _node_message_attrs(prep)
+    # skew caps the useful divisor: a heavy key's rows all land on one
+    # rank, so the hot shard holds at least max_share of the edges
+    div = shards
+    skew_note = ""
+    if stats is not None:
+        share = max(
+            (stats.max_share(rel, attr) for rel, er in prep.encoded.items()
+             if attr in er.attrs),
+            default=0.0,
+        )
+        if share > 0.0:
+            div = min(shards, max(1, int(1.0 / share)))
+            if div < shards:
+                skew_note = (
+                    f"; skew-capped divisor {div} (top share {share:.2f} of {attr!r})"
+                )
+    per_dev: dict[str, int] = {}
+    for rel, er in prep.encoded.items():
+        edge_bytes = er.codes.nbytes + 4 * k * er.num_rows
+        if attr in er.attrs:
+            edge_bytes //= div
+        msg_f32 = (msg[rel] // 2) * k
+        if attr in msg_attrs[rel]:
+            msg_f32 //= div
+        per_dev[rel] = edge_bytes + msg_f32
+    choice.path = "distributed-sparse"
+    choice.shards = shards
+    choice.per_device_node_bytes = per_dev
+    choice.reason = (
+        f"mesh over {shards} shard(s) of {attr!r} on the data axis "
+        "(dense einsum is retired on meshes)" + skew_note
+    )
     return choice
 
 

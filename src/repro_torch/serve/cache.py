@@ -14,7 +14,9 @@
 Port of the JAX package's ``serve/cache.py``.  The port has no jit and
 no program memo, so the LRU serves the plan cache alone; the shape key
 also carries the ``.fused`` option, which picks the kernels a plan
-launches.
+launches.  The cache compiles no meshed spec (:func:`refuse_mesh`): a
+meshed execute is a collective call, and no other rank runs a follower
+loop to join it.
 """
 from __future__ import annotations
 
@@ -22,6 +24,8 @@ import threading
 from collections import OrderedDict
 from dataclasses import dataclass, field, replace
 from typing import Any, Callable
+
+from repro_torch.core.operator import UnsupportedPlanOption
 
 
 @dataclass
@@ -164,7 +168,7 @@ def plan_shape_key(spec, generation: int = 0, stats_generation: int = 0):
     (with aliases), column renames, pushed-down predicate labels, group
     attributes, the named-aggregate bundle (name, kind, measure; index 5,
     which :func:`~repro_torch.serve.batcher.fusion_key` drops), engine
-    name, memory budget / stream options, the server's data
+    name, memory budget / stream options, the mesh shard count, the server's data
     ``generation`` (bumped on every relation registration, so stale
     plans become unreachable and age out of the LRU), the
     ``stats_generation`` plus the spec's own stats toggle (a stats bump
@@ -174,14 +178,18 @@ def plan_shape_key(spec, generation: int = 0, stats_generation: int = 0):
 
     Uncacheable shapes — ``None`` is returned — are those whose identity
     the label cannot prove: callable predicates (the label is just the
-    function's ``__name__``, so two distinct lambdas would collide) and
-    engine *instances* (no stable name).  Declarative comparison/equality
+    function's ``__name__``, so two distinct lambdas would collide),
+    engine *instances* (no stable name) and mesh objects (only plain
+    shard counts are keyed).  Declarative comparison/equality
     predicates carry ``"attr op value"`` labels (always containing a
     space) and key fine — they are the only predicate form the wire
     protocol admits, so every remote query is cacheable.
     """
     engine = spec.engine_name
     if not isinstance(engine, str):
+        return None
+    mesh = spec.mesh_opt
+    if mesh is not None and not isinstance(mesh, int):
         return None
     preds = []
     for p in spec.predicates:
@@ -198,11 +206,23 @@ def plan_shape_key(spec, generation: int = 0, stats_generation: int = 0):
         engine,
         spec.budget,
         spec.stream_opt,
-        None,  # the reference's mesh slot: one device here, Q.mesh raises
+        mesh,
         stats_generation,
         bool(spec.stats_opt),
         spec.fused_opt,
     )
+
+
+def refuse_mesh(spec) -> None:
+    """Raise :class:`UnsupportedPlanOption` for a meshed spec: a served
+    execute runs on one worker of one process, and a meshed execute
+    would wait forever in its ``all_gather`` for ranks that never join."""
+    if spec.mesh_opt is not None:
+        raise UnsupportedPlanOption(
+            "the query server runs no meshed query: a meshed execute is a "
+            "collective call that every rank of its process group makes, and "
+            "the server's other ranks run no follower loop; drop .mesh(...)"
+        )
 
 
 @dataclass
@@ -254,6 +274,7 @@ class PlanCache:
         return compile_plan(spec, db)
 
     def lookup(self, spec, db, generation: int = 0, stats_generation: int = 0):
+        refuse_mesh(spec)
         key = plan_shape_key(spec, generation, stats_generation)
         if key is None:
             with self._stats_lock:

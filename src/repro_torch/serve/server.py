@@ -51,7 +51,7 @@ from repro_torch.relational.relation import Database, Relation
 from repro_torch.relational.source import as_source, is_source
 from repro_torch.serve import wire
 from repro_torch.serve.batcher import FusionBatcher, _Pending, run_group
-from repro_torch.serve.cache import PlanCache, plan_shape_key
+from repro_torch.serve.cache import PlanCache, plan_shape_key, refuse_mesh
 from repro_torch.serve.views import ServedView
 
 
@@ -173,9 +173,12 @@ class JoinAggServer:
     # -- queries --------------------------------------------------------
     def submit(self, spec) -> Future:
         """Queue one query; resolves to its
-        :class:`~repro_torch.api.plan.AggResult`."""
+        :class:`~repro_torch.api.plan.AggResult`.  A meshed spec is
+        refused here, before it compiles (:func:`~repro_torch.serve.cache
+        .refuse_mesh`)."""
         if self._closed:
             raise RuntimeError("server is closed")
+        refuse_mesh(spec)
         with self._db_lock:
             generation = self._generation
             stats_gen = self._stats_generation

@@ -18,8 +18,9 @@ Request objects::
 
 Every response carries ``"ok"``; failures carry ``"error"`` with the
 exception text instead of tearing the connection down.  The one engine
-a request may name is ``"torch"``, the server's own; ``"mesh"`` is
-refused as :meth:`Q.mesh` refuses it.
+a request may name is ``"torch"``, the server's own; a ``"mesh"`` builds
+``Q.mesh``, which the server refuses (its other ranks run no follower
+loop to join the collective).
 
 Port of the JAX package's ``serve/wire.py``.
 """
@@ -42,7 +43,8 @@ def q_from_spec(obj: dict) -> Q:
     ``group_by`` (``"R.a"`` strings), ``aggs`` (name -> ``{"kind": ...,
     "measure": "R.m"}``), ``where`` (``[rel, attr, op, value]`` rows),
     ``renames`` (rel -> {old: new}), ``engine`` (``"torch"`` only),
-    ``memory_budget``, ``stream`` (``[attr, tile]``), ``mesh`` (refused).
+    ``memory_budget``, ``stream`` (``[attr, tile]``), ``mesh`` (a shard
+    count; the server refuses it).
     """
     rels = [tuple(r) if isinstance(r, (list, tuple)) else r
             for r in obj.get("relations", ())]

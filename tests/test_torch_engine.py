@@ -363,8 +363,9 @@ def test_cyclic_query_and_unported_options_raise():
     )
     assert got.num_rows > 0
     _assert_identical(want, got)
-    with pytest.raises(UnsupportedPlanOption):
-        q.mesh(2)
+    # a mesh of 2 plans anywhere; its execute needs a process group of 2
+    with pytest.raises(ValueError, match="process group of 2 ranks"):
+        q.mesh(2).plan(tri).execute()
     assert q.maintain(tri).result() == got.to_dict()
     cols = _quickstart_cols(200)
     plan = Q.over("R1", "R2", "R3").group_by("R1.g1").engine(CPU).plan(cols)

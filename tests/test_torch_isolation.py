@@ -2,8 +2,9 @@
 neither JAX nor the JAX package ``repro`` (an acyclic, a split, a cyclic
 and a dense-path query are answered, explained and verified, a
 maintained bundle takes an insert, a stored database is written,
-mounted and answered, and a query server on the CPU answers in process
-and over TCP and applies a view batch, with both refused), and the
+mounted and answered, a query server on the CPU answers in process
+and over TCP and applies a view batch, and a meshed plan runs on a
+local mesh of one and explains a mesh of 8, with both refused), and the
 port's default engine refuses to run without a CUDA card instead of
 quietly using the CPU."""
 import ast
@@ -104,6 +105,13 @@ with JoinAggServer(served_db, device="cpu", workers=2) as srv:
     epoch = srv.apply_view("v", "insert", "R1",
                            {"g1": np.array([0]), "j": np.array([1])}).result(timeout=120)
     server_device = srv.stats()["device"]
+meshed_q = (
+    Q.over("R1", "R2").group_by("R1.g1", "R2.g2")
+    .agg(n=Count(), s=Sum("R2.m"), lo=Min("R2.m"), hi=Max("R2.m")).engine(cpu)
+)
+meshed = meshed_q.fused(True).mesh(1).plan(db).execute()
+meshed_same = all((meshed.column(c) == res.column(c)).all() for c in res.relation.columns)
+meshed_explained = "torch path: distributed-sparse" in meshed_q.mesh(8).plan(db).explain()
 served_same = all((served.column(c) == res.column(c)).all() for c in ("n", "s"))
 remote_same = remote_res.to_dict("n") == res.to_dict("n")
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in {"jax", "jaxlib", "repro"})
@@ -120,6 +128,7 @@ print(json.dumps({"rows": res.num_rows, "n": float(res.column("n").sum()),
                   "stored_findings": stored_findings,
                   "served_same": bool(served_same), "remote_same": remote_same,
                   "view_epoch": epoch, "server_device": server_device,
+                  "meshed_same": bool(meshed_same), "meshed_explained": meshed_explained,
                   "loaded": loaded}))
 """
 
@@ -147,6 +156,7 @@ def test_port_answers_a_query_with_jax_and_repro_refused():
     assert out["stored_same"] and out["stored_explained"] and out["stored_findings"] == 0
     assert out["served_same"] and out["remote_same"]
     assert out["view_epoch"] == 1 and out["server_device"] == "cpu"
+    assert out["meshed_same"] and out["meshed_explained"]
 
 
 def _imported_modules(path: Path) -> list[str]:
@@ -171,6 +181,7 @@ def test_no_source_imports_jax_or_repro(path):
 
 
 def test_the_scan_covers_every_port_package():
+    assert PORT / "core" / "distributed.py" in set(PORT.rglob("*.py"))
     scanned = {p.parent.name for p in PORT.rglob("*.py")}
     packages = {p.parent.name for p in PORT.rglob("__init__.py")}
     assert {

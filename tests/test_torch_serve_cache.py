@@ -130,8 +130,14 @@ def test_shape_key_distinguishes_aggregates_and_options():
     assert plan_shape_key(q) != plan_shape_key(q.engine("jax"))
     assert plan_shape_key(q) != plan_shape_key(q.stats(False))
     assert plan_shape_key(q) != plan_shape_key(q.memory_budget(1 << 20))
-    with pytest.raises(UnsupportedPlanOption):  # no meshes on one device
-        q.mesh(2)
+    # a shard count is keyed, as the reference keys it; the cache refuses
+    # to compile it (no other rank would join its collective)
+    assert plan_shape_key(q.mesh(2)) != plan_shape_key(q)
+    assert plan_shape_key(q.mesh(2))[9] == 2
+    pc = PlanCache(8, engine=CPU)
+    with pytest.raises(UnsupportedPlanOption, match="follower loop"):
+        pc.lookup(q.mesh(2), None)
+    assert pc.stats.compiles == 0
 
 
 def test_shape_key_keeps_the_fused_option(db):
@@ -190,8 +196,7 @@ def test_shape_key_rejects_engine_instances_and_mesh_objects():
     class FakeMesh:
         pass
 
-    with pytest.raises(UnsupportedPlanOption):
-        base_q().mesh(FakeMesh())
+    assert plan_shape_key(base_q().mesh(FakeMesh())) is None
 
 
 # ----------------------------------------------------------------------
