@@ -162,6 +162,22 @@ Run from the root of a checkout on a machine with a CUDA card.  It
    ``--check-n`` whose group attributes take 2 codes (the last two
    shards own no rows) runs meshed and alone, bit for bit, and rank 0
    holds its largest launches against the plain versions (tolerance 0).
+14. drives the comparison leg, the paper's Tables II and III on the card
+   through the port's own baselines and oracle (``repro_torch.baselines``,
+   ``repro_torch.relational.oracle``; host numpy in the reference, torch
+   tensors on the card here).  Table III: S1, S2 and S3
+   (``data/synth.py``) at ``--n`` rows, each through the legacy
+   ``join_agg`` cold and warm, ``binary_join_agg`` and
+   ``preagg_join_agg``, printing each one's synchronised wall ms, device
+   peak above resident and largest intermediate (rows and bytes); the
+   three answers must have the same groups and equal counts.  Table II:
+   B2 at ``--n`` / 16, / 8, / 4, / 2 and ``--n`` rows, ``join_agg``
+   against ``preagg_join_agg`` on peak and ms, equal answers.  The oracle
+   on the card must equal S3's ``join_agg`` answer and the main path's C1
+   bundle at 100,000 rows (a join of about 10**8 rows) group by group:
+   COUNT, SUM, MIN and MAX exactly, AVG within 1 ulp.  At ``--check-n``
+   every baseline and oracle call on the card equals the same call with
+   ``device="cpu"``, answers and statistics, and launches no kernel.
 
 Every leg prints its ``torch path:`` line — per key range for the split
 leg — and checks the path each run took against ``choose_path``: a dense
@@ -3188,6 +3204,202 @@ def shard_leg(torch, tag, args, digest: str, totals: tuple[int, int]) -> dict:
     return summary
 
 
+# ----------------------------------------------------------------------
+# comparison leg (the paper's Tables II and III on the card)
+# ----------------------------------------------------------------------
+
+ORACLE_N = 100_000  # the C1 bundle's oracle check: a join of about 10**8 rows
+
+
+def measured(torch, fn):
+    """``fn()`` on the card: its result, the synchronised wall ms and the
+    device peak above what was allocated before the call."""
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return out, ms, torch.cuda.max_memory_allocated() - resident
+
+
+def comparison_leg(torch, tag, args) -> dict:
+    """The paper's comparison on the card, through the port's own copies
+    of the reference's baselines and oracle (``benchmarks/tables.py``
+    imports the JAX package's).  Table III: S1, S2 and S3 at ``--n``,
+    ``join_agg`` cold and warm, ``binary_join_agg`` and
+    ``preagg_join_agg``, each with its synchronised wall ms, device peak
+    above resident and largest intermediate; the three answers must be
+    equal.  Table II: B2 at the reference's five sizes (``--n`` / 16 …
+    ``--n``), ``join_agg`` against ``preagg_join_agg`` on peak and ms,
+    equal answers.  The oracle on the card holds S3's ``join_agg`` answer
+    and the main path's C1 bundle at ``ORACLE_N`` rows group by group;
+    at ``--check-n`` every baseline and oracle call on the card equals
+    the same call with ``device="cpu"``, answers and statistics."""
+    import numpy as np
+
+    from repro_torch.aggregates.semiring import Avg, Count, Max, Min, Sum
+    from repro_torch.baselines import binary_join_agg, preagg_join_agg
+    from repro_torch.core import join_agg
+    from repro_torch.data import synth
+    from repro_torch.kernels import ops
+    from repro_torch.relational.oracle import oracle_joinagg, oracle_multiagg
+
+    t_leg = time.perf_counter()
+    launches = dict.fromkeys(ops.KERNELS, 0)
+
+    def joinagg(q, db):
+        ops.reset_launch_counts()
+        res = join_agg(q, db)
+        torch.cuda.synchronize()
+        for name, count in ops.launch_counts().items():
+            launches[name] += count
+        return res
+
+    def row(table, label, ms, peak, stats):
+        interm = ("none materialised" if stats is None else
+                  f"max_intermediate_rows {stats.max_intermediate_rows}, "
+                  f"max_intermediate_bytes {stats.max_intermediate_bytes}")
+        say(tag, f"comparison leg: {table}: {label}: {ms:.1f} ms, peak above resident "
+                 f"{peak} B, {interm}")
+        return {"ms": ms, "peak_above_resident_bytes": peak,
+                "max_intermediate_rows": None if stats is None else stats.max_intermediate_rows,
+                "max_intermediate_bytes": None if stats is None else stats.max_intermediate_bytes}
+
+    summary: dict = {"table3": {}, "table2": {}, "part_seconds": {}}
+    s3_answer = None
+    t_part = time.perf_counter()
+
+    def part_done(part: str) -> None:
+        nonlocal t_part
+        now = time.perf_counter()
+        summary["part_seconds"][part] = now - t_part
+        t_part = now
+
+    for name in synth.SELF_JOIN:
+        db, q = synth.make(name, args.n, seed=args.seed)
+        label = f"Table III {name} n={args.n}"
+        out = {}
+        answers = {}
+        for method, fn in (("joinagg cold", lambda: (joinagg(q, db), None)),
+                           ("joinagg warm", lambda: (joinagg(q, db), None)),
+                           ("binary", lambda: binary_join_agg(q, db)),
+                           ("preagg", lambda: preagg_join_agg(q, db))):
+            torch.cuda.empty_cache()
+            (answers[method], stats), ms, peak = measured(torch, fn)
+            out[method] = row(label, method, ms, peak, stats)
+        want = answers["joinagg warm"]
+        same = all(a == want for a in answers.values())
+        say(tag, f"check: comparison leg: {label}: {len(want)} groups, Σ count "
+                 f"{sum(want.values()):.0f}; JOIN-AGG, binary and pre-aggregation give the "
+                 f"same groups and equal counts: {same}; peak binary / JOIN-AGG "
+                 f"{out['binary']['peak_above_resident_bytes'] / out['joinagg warm']['peak_above_resident_bytes']:.1f}, "
+                 f"preagg / JOIN-AGG "
+                 f"{out['preagg']['peak_above_resident_bytes'] / out['joinagg warm']['peak_above_resident_bytes']:.1f}")
+        check(same and len(want) > 0, f"comparison leg: {label}: the three answers differ")
+        summary["table3"][name] = out
+        if name == "S3":
+            s3_answer, s3 = want, (db, q)
+        del answers, want
+    part_done("table3")
+
+    sizes = [max(500, args.n // 16), args.n // 8, args.n // 4, args.n // 2, args.n]
+    for i, size in enumerate(sizes, start=1):
+        db, q = synth.make("B2", size, seed=args.seed)
+        label = f"Table II B2 P{i} n={size}"
+        torch.cuda.empty_cache()
+        ja, ms_j, peak_j = measured(torch, lambda: joinagg(q, db))
+        torch.cuda.empty_cache()
+        (pa, stats), ms_p, peak_p = measured(torch, lambda: preagg_join_agg(q, db))
+        out = {"joinagg": row(label, "joinagg", ms_j, peak_j, None),
+               "preagg": row(label, "preagg", ms_p, peak_p, stats)}
+        same = ja == pa
+        say(tag, f"check: comparison leg: {label}: {len(ja)} groups; JOIN-AGG = "
+                 f"pre-aggregation: {same}; peak preagg / JOIN-AGG {peak_p / peak_j:.1f}, ms "
+                 f"preagg / JOIN-AGG {ms_p / ms_j:.2f}")
+        check(same and len(ja) > 0, f"comparison leg: {label}: the answers differ")
+        summary["table2"][f"P{i}"] = {"rows": size, **out}
+    part_done("table2")
+
+    # the oracle on the card
+    db, q = s3
+    torch.cuda.empty_cache()
+    want, ms, peak = measured(torch, lambda: oracle_joinagg(q, db))
+    same = want == s3_answer
+    say(tag, f"check: comparison leg: oracle_joinagg S3 n={args.n}: {ms:.1f} ms, peak above "
+             f"resident {peak} B; {len(want)} groups, JOIN-AGG's answer equal group by "
+             f"group: {same}")
+    check(same, "comparison leg: S3: JOIN-AGG differs from the oracle")
+    summary["oracle S3"] = {"ms": ms, "peak_above_resident_bytes": peak}
+    del s3_answer, want
+
+    oracle_n = min(ORACLE_N, args.n)
+    bundle = {"n": Count(), "s": Sum("R3", "m"), "a": Avg("R3", "m"),
+              "lo": Min("R3", "m"), "hi": Max("R3", "m")}
+    rels, groups = ("R1", "R2", "R3", "R4"), (("R1", "g1"), ("R4", "g2"))
+    db, cols = chain_db(oracle_n, args.seed)
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    res = bundle_query("torch").plan(db).execute()
+    torch.cuda.synchronize()
+    for name, count in ops.launch_counts().items():
+        launches[name] += count
+    want, ms, peak = measured(torch, lambda: oracle_multiagg(rels, groups, bundle, db))
+    got = {key: {name: float(res.column(name)[i]) for name in bundle}
+           for i, key in enumerate(res.group_tuples())}
+    exact = set(got) == set(want) and all(
+        got[k][name] == w[name] for k, w in want.items() for name in ("n", "s", "lo", "hi")
+    )
+    avg_ulps = max(abs(got[k]["a"] - w["a"]) / np.spacing(w["a"]) for k, w in want.items())
+    joined = int(sum(w["n"] for w in want.values()))
+    say(tag, f"check: comparison leg: oracle_multiagg C1 bundle n={oracle_n}: {ms:.1f} ms, "
+             f"peak above resident {peak} B, join of {joined} rows, {len(want)} groups; "
+             f"COUNT, SUM, MIN and MAX equal group by group: {exact}; AVG within "
+             f"{avg_ulps:.1f} ulp")
+    check(exact and avg_ulps <= 1.0 and len(want) > 0,
+          "comparison leg: the C1 bundle differs from the oracle")
+    summary["oracle C1 bundle"] = {"n": oracle_n, "ms": ms, "peak_above_resident_bytes": peak,
+                                   "join_rows": joined}
+    del res, want, got
+    part_done("oracle")
+
+    # card = CPU at --check-n: every baseline and oracle call, answers and statistics
+    calls = []
+    for name in ("S2", "S3", "B2"):
+        db, q = synth.make(name, args.check_n, seed=args.seed)
+        if name != "B2":
+            calls.append((f"binary_join_agg {name}", binary_join_agg, (q, db)))
+            calls.append((f"oracle_joinagg {name}", oracle_joinagg, (q, db)))
+        calls.append((f"preagg_join_agg {name}", preagg_join_agg, (q, db)))
+    db, _ = chain_db(args.check_n, args.seed)
+    calls.append(("oracle_multiagg C1 bundle", oracle_multiagg, (rels, groups, bundle, db)))
+    for label, fn, fargs in calls:
+        ops.reset_launch_counts()
+        gpu = fn(*fargs)
+        check(not any(ops.launch_counts().values()),
+              f"comparison leg: {label} launched a kernel")
+        cpu = fn(*fargs, device="cpu")
+        if isinstance(gpu, tuple):
+            same = gpu[0] == cpu[0] and vars(gpu[1]) == vars(cpu[1])
+            detail = f"statistics {vars(gpu[1])['max_intermediate_rows']} rows, "
+        else:
+            same, detail = gpu == cpu, ""
+        say(tag, f"check: comparison leg: {label} n={args.check_n}: {detail}answers"
+                 f"{' and statistics' if detail else ''} equal to device='cpu': {same}")
+        check(same, f"comparison leg: {label}: cuda differs from cpu")
+    part_done("card = cpu")
+
+    for name in ("segment_sum", "coo_spmm", "segment_reduce"):
+        check(launches[name] > 0, f"comparison leg: JOIN-AGG never launched {name}")
+    seconds = time.perf_counter() - t_leg
+    say(tag, f"comparison leg: JOIN-AGG launches {launches}; the leg took {seconds:.1f} s "
+             f"({', '.join(f'{k} {v:.1f} s' for k, v in summary['part_seconds'].items())})")
+    summary["seconds"] = seconds
+    summary["launches"] = {"comparison": launches}
+    return summary
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=500_000, help="rows per relation")
@@ -3346,13 +3558,18 @@ def main() -> int:
         results[name]["max_abs_err"] = max(results[name]["max_abs_err"], row["max_abs_err"])
         results[name]["shard"] = row
 
+    # 14. comparison leg ---------------------------------------------------
+    torch.cuda.empty_cache()
+    compared = comparison_leg(torch, tag, args)
+
     legs = {"main": launches, "fused": flaunches}
-    for leg in (split, cyclic, dense, maintain, stored, served, sharded):
+    for leg in (split, cyclic, dense, maintain, stored, served, sharded, compared):
         legs.update(leg.pop("launches"))
     for label, summary in (("main path", main), ("fused path", fused), *split.items(),
                            *cyclic.items(), *dense.items(), *maintain.items(),
                            *(("storage leg, " + k, v) for k, v in stored.items()),
-                           ("serve leg", served), ("shard leg", sharded)):
+                           ("serve leg", served), ("shard leg", sharded),
+                           ("comparison leg", compared)):
         say(tag, f"{label} summary: {json.dumps(summary)}")
     paths = {name: "main" for name in UNFUSED_KERNELS}
     paths.update(fused_hop="fused", semiring_matmul=None)

@@ -87,14 +87,18 @@ from repro_torch.relational.relation import Database
 from repro_torch.relational.source import DEFAULT_CHUNK_ROWS
 
 
-def require_device(device) -> torch.device:
+def require_device(
+    device, what: str = "engine 'torch'",
+    cpu: str = '.engine(TorchChannelEngine(device="cpu"))',
+) -> torch.device:
     """``device`` as a ``torch.device``; raises when it is a card that is
-    absent (nothing falls back to the CPU)."""
+    absent (nothing falls back to the CPU).  ``what`` names the caller
+    and ``cpu`` the argument that puts it on the CPU, for the error."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            "engine 'torch' runs on CUDA and no CUDA device is available; "
-            'pass .engine(TorchChannelEngine(device="cpu")) to run on the CPU'
+            f"{what} runs on CUDA and no CUDA device is available; "
+            f"pass {cpu} to run on the CPU"
         )
     return device
 

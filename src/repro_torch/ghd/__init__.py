@@ -19,7 +19,7 @@ Port of the JAX package's ``ghd/``; ``Q...plan(db)`` dispatches here when
 the GYO test reports a cyclic hypergraph.
 """
 from repro_torch.ghd.hypertree import GHD, Bag, build_ghd, verify_ghd
-from repro_torch.ghd.rewrite import GHDPlan, compile_ghd, is_cyclic_query
+from repro_torch.ghd.rewrite import GHDPlan, compile_ghd, ghd_join_agg, is_cyclic_query
 
 __all__ = [
     "GHD",
@@ -28,5 +28,6 @@ __all__ = [
     "verify_ghd",
     "GHDPlan",
     "compile_ghd",
+    "ghd_join_agg",
     "is_cyclic_query",
 ]

@@ -297,3 +297,54 @@ def compile_ghd(
         derived_dicts=dicts_d,
         bag_out_attrs=bag_out_attrs,
     )
+
+
+def ghd_join_agg(
+    query: JoinAggQuery,
+    db: Database,
+    engine="torch",
+    memory_budget: int | None = None,
+    stream: tuple[str, int] | None = None,
+    plan: GHDPlan | None = None,
+    mesh=None,
+) -> dict[tuple, float]:
+    """Execute a cyclic join-aggregate query through the GHD compiler.
+
+    ``engine`` is ``"torch"`` (on CUDA; raises when no card is present)
+    or an engine instance such as ``TorchChannelEngine(device="cpu")``.
+    Pass a precompiled ``plan`` (from :func:`compile_ghd`) to amortize
+    bag materialization across runs.  The derived plan runs on the
+    engine's device as a cyclic ``Plan`` runs (auto-streaming past
+    ``memory_budget``, or the explicit ``stream`` tile).  ``mesh`` (a
+    shard count or a ``DeviceMesh``) shards the derived bag tree over a
+    process group instead, partitioned on the root bag's group attribute
+    (DESIGN.md §8)."""
+    from repro_torch.api.engines import resolve_engine
+    from repro_torch.api.plan import Plan, _channelize, _display_names
+
+    eng = resolve_engine(engine)
+    device = eng.device  # raises here, before the compile, without a card
+    if plan is None:
+        plan = compile_ghd(query, db)
+    prep = plan.prepared
+    if mesh is not None:
+        if stream is not None:
+            raise UnsupportedPlanOption(
+                "explicit stream tiling cannot run on a device mesh "
+                "(the shard partition replaces group-axis tiles)"
+            )
+        from repro_torch.core import distributed
+
+        return distributed.run_query(prep, mesh, device=device)
+    display = _display_names(prep.group_attrs)
+    name = "value"
+    while name in display:  # the aggregate's column sits beside the groups'
+        name += "_"
+    # the fold has already re-pointed the derived query's measure
+    aggs = ((name, prep.query.agg),)
+    channels, minmax, assemble = _channelize(aggs, lambda rel: rel)
+    return Plan(
+        db=db, query=query, aggs=aggs, group_display=display, engine=eng, prep=prep,
+        channels=channels, minmax=minmax, assemble=assemble, rewrite_notes=(),
+        memory_budget=memory_budget, stream=stream, cyclic=True, ghd_plan=plan,
+    ).execute().to_dict()

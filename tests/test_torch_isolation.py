@@ -3,10 +3,11 @@ neither JAX nor the JAX package ``repro`` (an acyclic, a split, a cyclic
 and a dense-path query are answered, explained and verified, a
 maintained bundle takes an insert, a stored database is written,
 mounted and answered, a query server on the CPU answers in process
-and over TCP and applies a view batch, and a meshed plan runs on a
-local mesh of one and explains a mesh of 8, with both refused), and the
-port's default engine refuses to run without a CUDA card instead of
-quietly using the CPU."""
+and over TCP and applies a view batch, a meshed plan runs on a
+local mesh of one and explains a mesh of 8, and the brute-force oracle,
+both baselines and the legacy ``join_agg`` agree with the planner, all
+with both packages refused), and the port's default engine refuses to
+run without a CUDA card instead of quietly using the CPU."""
 import ast
 import json
 import os
@@ -111,6 +112,22 @@ meshed_q = (
 )
 meshed = meshed_q.fused(True).mesh(1).plan(db).execute()
 meshed_same = all((meshed.column(c) == res.column(c)).all() for c in res.relation.columns)
+from repro_torch.baselines import binary_join_agg, preagg_join_agg
+from repro_torch.core import join_agg
+from repro_torch.core.query import JoinAggQuery
+from repro_torch.relational.oracle import oracle_joinagg, oracle_multiagg
+
+pair = JoinAggQuery(("R1", "R2"), (("R1", "g1"), ("R2", "g2")))
+counts = res.to_dict("n")
+baselines_same = (
+    binary_join_agg(pair, served_db, device="cpu")[0] == counts
+    and preagg_join_agg(pair, served_db, device="cpu")[0] == counts
+    and oracle_joinagg(pair, served_db, device="cpu") == counts
+    and join_agg(pair, served_db, engine=cpu) == counts
+    and {k: v["hi"] for k, v in oracle_multiagg(
+        pair.relations, pair.group_by, {"hi": Max("R2.m")}, served_db, device="cpu"
+    ).items()} == res.to_dict("hi")
+)
 meshed_explained = "torch path: distributed-sparse" in meshed_q.mesh(8).plan(db).explain()
 served_same = all((served.column(c) == res.column(c)).all() for c in ("n", "s"))
 remote_same = remote_res.to_dict("n") == res.to_dict("n")
@@ -129,7 +146,7 @@ print(json.dumps({"rows": res.num_rows, "n": float(res.column("n").sum()),
                   "served_same": bool(served_same), "remote_same": remote_same,
                   "view_epoch": epoch, "server_device": server_device,
                   "meshed_same": bool(meshed_same), "meshed_explained": meshed_explained,
-                  "loaded": loaded}))
+                  "baselines_same": baselines_same, "loaded": loaded}))
 """
 
 
@@ -157,6 +174,7 @@ def test_port_answers_a_query_with_jax_and_repro_refused():
     assert out["served_same"] and out["remote_same"]
     assert out["view_epoch"] == 1 and out["server_device"] == "cpu"
     assert out["meshed_same"] and out["meshed_explained"]
+    assert out["baselines_same"]
 
 
 def _imported_modules(path: Path) -> list[str]:
@@ -181,12 +199,14 @@ def test_no_source_imports_jax_or_repro(path):
 
 
 def test_the_scan_covers_every_port_package():
-    assert PORT / "core" / "distributed.py" in set(PORT.rglob("*.py"))
+    scanned_files = set(PORT.rglob("*.py"))
+    assert PORT / "core" / "distributed.py" in scanned_files
+    assert PORT / "relational" / "oracle.py" in scanned_files
     scanned = {p.parent.name for p in PORT.rglob("*.py")}
     packages = {p.parent.name for p in PORT.rglob("__init__.py")}
     assert {
-        "analysis", "api", "core", "incremental", "kernels", "launch", "planner", "serve",
-        "storage",
+        "analysis", "api", "baselines", "core", "incremental", "kernels", "launch",
+        "planner", "relational", "serve", "storage",
     } <= packages == scanned
 
 
