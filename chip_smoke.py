@@ -178,6 +178,20 @@ Run from the root of a checkout on a machine with a CUDA card.  It
    COUNT, SUM, MIN and MAX exactly, AVG within 1 ulp.  At ``--check-n``
    every baseline and oracle call on the card equals the same call with
    ``device="cpu"``, answers and statistics, and launches no kernel.
+15. drives the launcher leg: the port's two command-line gates, each in a
+   subprocess with ``PYTHONPATH=src`` (the kernels already built), all
+   three at once: ``python -m repro_torch.launch.storage --smoke --rows
+   40000`` on the card, and ``python -m repro_torch.analysis
+   --verify-catalog`` on the card and with ``--device cpu``, whose
+   ``catalog[...]`` lines must be equal line for line.  Meanwhile a user
+   engine registered as ``user-sparse`` (``register_engine``; a ``run``
+   with the reference's 4-argument signature, no ``fused``, no
+   ``memory_budget``, no streaming, over ``TorchChannelEngine(mode=
+   "sparse")``) answers the C1 bundle at ``--check-n`` through
+   ``Q.engine("user-sparse")``, bit for bit the same as
+   ``.engine(TorchChannelEngine(mode="sparse"))``, and must launch
+   ``segment_sum``, ``coo_spmm`` and ``segment_reduce``.  Any non-zero
+   exit code fails the script; it prints each part's seconds.
 
 Every leg prints its ``torch path:`` line — per key range for the split
 leg — and checks the path each run took against ``choose_path``: a dense
@@ -193,6 +207,7 @@ exits non-zero.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import cProfile
 import gc
 import json
@@ -3400,6 +3415,107 @@ def comparison_leg(torch, tag, args) -> dict:
     return summary
 
 
+# ----------------------------------------------------------------------
+# 15. launcher leg
+# ----------------------------------------------------------------------
+
+LAUNCHER_ROWS = 40_000  # the storage gate's own default
+LAUNCHER_TIMEOUT_S = 300
+
+
+class UserSparse:
+    """A user's engine: ``run`` with the reference's 4-argument
+    signature (no ``fused``, no ``memory_budget``) and no streaming, over
+    the torch engine pinned to its sparse walk."""
+
+    name = "user-sparse"
+    supports_streaming = False
+
+    def __init__(self, inner):
+        self.inner = inner
+
+    def run(self, prep, channels, minmax, stream=None):
+        return self.inner.run(prep, channels, minmax, stream)
+
+
+def run_cli(argv: list[str]) -> tuple[subprocess.CompletedProcess, float]:
+    """``python -m argv...`` from the checkout's root with ``PYTHONPATH=src``;
+    the finished process and its wall seconds."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", *argv], capture_output=True, text=True, env=env,
+        cwd=ROOT, timeout=LAUNCHER_TIMEOUT_S,
+    )
+    return proc, time.perf_counter() - t0
+
+
+def launcher_leg(torch, tag, args) -> dict:
+    """The port's storage gate and catalog verifier as a user runs them,
+    and a registered engine answering by its name on the card (see 15 in
+    the module docstring)."""
+    from repro_torch.api import TorchChannelEngine, register_engine
+    from repro_torch.kernels import ops
+
+    t_leg = time.perf_counter()
+    clis = {
+        "storage smoke": ["repro_torch.launch.storage", "--smoke", "--rows",
+                          str(LAUNCHER_ROWS)],
+        "verify-catalog cuda": ["repro_torch.analysis", "--verify-catalog"],
+        "verify-catalog cpu": ["repro_torch.analysis", "--verify-catalog", "--device", "cpu"],
+    }
+    with concurrent.futures.ThreadPoolExecutor(len(clis)) as pool:
+        running = {label: pool.submit(run_cli, argv) for label, argv in clis.items()}
+
+        # (c) a registered engine, by name, while the launchers run
+        t0 = time.perf_counter()
+        register_engine(UserSparse(TorchChannelEngine(device="cuda", mode="sparse")))
+        small, _ = chain_db(args.check_n, args.seed)
+        uplan = bundle_query("user-sparse").plan(small)
+        ops.reset_launch_counts()
+        got = uplan.execute()
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        want = bundle_query(TorchChannelEngine(mode="sparse")).plan(small).execute()
+        same = same_result(got, want)
+        user_s = time.perf_counter() - t0
+        say(tag, f"check: launcher leg: Q.engine('user-sparse') C1 bundle n={args.check_n}: "
+                 f"{got.num_rows} rows, launches {launches}, every column bit-identical to "
+                 f".engine(TorchChannelEngine(mode='sparse')): {same}")
+        check(same and got.num_rows > 0,
+              "launcher leg: the registered engine's answer differs")
+        for name in UNFUSED_KERNELS:
+            check(launches[name] > 0, f"launcher leg: user-sparse never launched {name}")
+        done = {label: f.result() for label, f in running.items()}
+
+    seconds = {}
+    for label, (proc, secs) in done.items():
+        seconds[label] = secs
+        for line in proc.stdout.splitlines():
+            say(tag, f"launcher leg: {label}: {line}")
+        say(tag, f"launcher leg: {label}: exit code {proc.returncode} in {secs:.1f} s")
+        check(proc.returncode == 0,
+              f"launcher leg: {label} exited {proc.returncode}: {proc.stderr[-2000:]}")
+    smoke_out = done["storage smoke"][0].stdout
+    check("storage-smoke: torch ok (" in smoke_out
+          and "storage-smoke: maintain() deltas ok" in smoke_out,
+          "launcher leg: the storage smoke printed no ok lines")
+    cuda_lines, cpu_lines = (
+        [ln for ln in done[k][0].stdout.splitlines() if ln.startswith("catalog[")]
+        for k in ("verify-catalog cuda", "verify-catalog cpu")
+    )
+    same_catalog = cuda_lines == cpu_lines and len(cuda_lines) == 10
+    say(tag, f"check: launcher leg: verify-catalog on the card and with --device cpu: "
+             f"{len(cuda_lines)} catalog lines, equal line for line: {same_catalog}")
+    check(same_catalog, "launcher leg: the catalog verifier's lines differ by device")
+
+    seconds["user-sparse"] = user_s
+    leg_s = time.perf_counter() - t_leg
+    say(tag, f"launcher leg: the leg took {leg_s:.1f} s ("
+             + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items()) + ")")
+    return {"seconds": leg_s, "part_seconds": seconds, "launches": {"launcher": launches}}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=500_000, help="rows per relation")
@@ -3409,6 +3525,7 @@ def main() -> int:
     ap.add_argument("--storage-n", type=int, default=5_000_000,
                     help="rows per relation of the storage leg")
     args = ap.parse_args()
+    t_script = time.perf_counter()
 
     if not (SRC / "repro_torch" / "kernels" / "ops.py").is_file():
         print(f"chip_smoke: {SRC / 'repro_torch'} not found; run from the "
@@ -3429,6 +3546,9 @@ def main() -> int:
     dev_name = torch.cuda.get_device_name(0)
     say(tag, f"card: {dev_name}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
+    def done(phase: str) -> None:
+        say(tag, f"chip_smoke: {phase} done at {time.perf_counter() - t_script:.1f} s")
+
     # 1. build -----------------------------------------------------------
     t0 = time.perf_counter()
     built = ops.build()
@@ -3440,6 +3560,7 @@ def main() -> int:
             if ("registers" in line or "spill" in line or "stack frame" in line
                     or (name == "semiring_matmul" and "entry function" in line)):
                 say(tag, f"build: {name}: {line.strip()}")
+    done("1. build")
 
     # 2. main path (unfused) ---------------------------------------------
     db, cols = chain_db(args.n, args.seed)
@@ -3506,6 +3627,7 @@ def main() -> int:
                  f"{same}")
         check(same and gpu.num_rows == cpu.num_rows,
               f"{label}: cuda result differs from cpu result")
+    done("2.-4. main and fused paths")
 
     # 5. kernels vs plain, at the paths' shapes --------------------------
     captured = capture_launches(plan.execute, main_path_key)
@@ -3518,16 +3640,21 @@ def main() -> int:
     results["semiring_matmul"] = semiring_phase(torch, tag)
     for name, errs in gather_phase(torch, tag).items():
         results[name]["max_abs_err"] = max([results[name]["max_abs_err"]] + errs)
+    done("5. kernels")
 
     # 6. split leg, 7. cyclic leg, 8. dense leg, 9. explain --------------
     main_digest = result_digest(res)
     del plan, fplan, res, fres, captured
     torch.cuda.empty_cache()
     split = split_leg(torch, tag, args)
+    done("6. split leg")
     cyclic = cyclic_leg(torch, tag, args)
+    done("7. cyclic leg")
     dense = dense_leg(torch, tag, args)
     tpch = dense.pop("tpch")
+    done("8. dense leg")
     explain_phase(torch, tag, args.seed)
+    done("9. explain")
 
     # 10. maintain leg -----------------------------------------------------
     torch.cuda.empty_cache()
@@ -3535,6 +3662,7 @@ def main() -> int:
     for name, row in maintain_kernels(torch, tag, maintain.pop("captured")).items():
         results[name]["max_abs_err"] = max(results[name]["max_abs_err"], row["max_abs_err"])
         results[name]["maintain"] = row
+    done("10. maintain leg")
 
     # 11. storage leg ------------------------------------------------------
     torch.cuda.empty_cache()
@@ -3542,6 +3670,7 @@ def main() -> int:
     for name, row in stored.pop("kernels").items():
         results[name]["max_abs_err"] = max(results[name]["max_abs_err"], row["max_abs_err"])
         results[name]["storage"] = row
+    done("11. storage leg")
 
     # 12. serve leg --------------------------------------------------------
     torch.cuda.empty_cache()
@@ -3550,6 +3679,7 @@ def main() -> int:
     for name, row in served.pop("kernels").items():
         results[name]["max_abs_err"] = max(results[name]["max_abs_err"], row["max_abs_err"])
         results[name]["serve"] = row
+    done("12. serve leg")
 
     # 13. shard leg --------------------------------------------------------
     torch.cuda.empty_cache()
@@ -3557,19 +3687,26 @@ def main() -> int:
     for name, row in sharded.pop("kernels").items():
         results[name]["max_abs_err"] = max(results[name]["max_abs_err"], row["max_abs_err"])
         results[name]["shard"] = row
+    done("13. shard leg")
 
     # 14. comparison leg ---------------------------------------------------
     torch.cuda.empty_cache()
     compared = comparison_leg(torch, tag, args)
+    done("14. comparison leg")
+
+    # 15. launcher leg -----------------------------------------------------
+    torch.cuda.empty_cache()
+    launched = launcher_leg(torch, tag, args)
+    done("15. launcher leg")
 
     legs = {"main": launches, "fused": flaunches}
-    for leg in (split, cyclic, dense, maintain, stored, served, sharded, compared):
+    for leg in (split, cyclic, dense, maintain, stored, served, sharded, compared, launched):
         legs.update(leg.pop("launches"))
     for label, summary in (("main path", main), ("fused path", fused), *split.items(),
                            *cyclic.items(), *dense.items(), *maintain.items(),
                            *(("storage leg, " + k, v) for k, v in stored.items()),
                            ("serve leg", served), ("shard leg", sharded),
-                           ("comparison leg", compared)):
+                           ("comparison leg", compared), ("launcher leg", launched)):
         say(tag, f"{label} summary: {json.dumps(summary)}")
     paths = {name: "main" for name in UNFUSED_KERNELS}
     paths.update(fused_hop="fused", semiring_matmul=None)
@@ -3601,6 +3738,7 @@ def main() -> int:
             entry.update(note="no path launches it; held and timed on its own",
                          semirings=r["semirings"])
         kernels.append(entry)
+    say(tag, f"chip_smoke: the whole script took {time.perf_counter() - t_script:.1f} s")
     print(tag, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

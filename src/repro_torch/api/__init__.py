@@ -14,14 +14,18 @@
 
 ``.maintain(db)`` in place of ``.plan(db)`` returns a handle whose
 ``insert``/``delete`` refresh the result along the dirty root-path only.
+``register_engine(engine)`` makes another backend (an :class:`Engine`)
+answerable by its name in ``.engine(name)``.
 """
 from repro_torch.aggregates.semiring import AggSpec, Avg, Count, Max, Min, Sum
 from repro_torch.api.builder import Q
 from repro_torch.api.engines import (
     Channel,
+    Engine,
     EngineOutput,
     MinMaxRequest,
     TorchChannelEngine,
+    register_engine,
     resolve_engine,
 )
 from repro_torch.api.maintain import MaintainedPlan
@@ -34,6 +38,7 @@ __all__ = [
     "Avg",
     "Channel",
     "Count",
+    "Engine",
     "EngineOutput",
     "MaintainedPlan",
     "Max",
@@ -45,5 +50,6 @@ __all__ = [
     "TorchChannelEngine",
     "UnsupportedPlanOption",
     "compile_plan",
+    "register_engine",
     "resolve_engine",
 ]

@@ -27,7 +27,7 @@ from typing import Callable, Mapping
 import numpy as np
 
 from repro_torch.aggregates.semiring import AggSpec, Count
-from repro_torch.api.engines import TorchChannelEngine
+from repro_torch.api.engines import Engine
 from repro_torch.api.plan import Plan, Predicate, compile_plan
 from repro_torch.core.query import JoinAggQuery
 from repro_torch.relational.relation import Database
@@ -83,7 +83,7 @@ class Q:
     predicates: tuple[Predicate, ...] = ()
     group_attrs: tuple[tuple[str, str], ...] = ()
     aggs: tuple[tuple[str, AggSpec], ...] = ()
-    engine_name: str | TorchChannelEngine = "torch"
+    engine_name: str | Engine = "torch"
     budget: int | None = None
     stream_opt: tuple[str, int] | None = None
     stats_opt: bool = True  # statistics-driven planning (DESIGN.md §10)
@@ -216,8 +216,9 @@ class Q:
         return self.agg(**{name: Count()})
 
     # ------------------------------------------------------------------
-    def engine(self, engine: str | TorchChannelEngine) -> "Q":
-        """Pick the execution backend: ``"torch"`` (on CUDA) or an engine
+    def engine(self, engine: str | Engine) -> "Q":
+        """Pick the execution backend: a registered name (``"torch"``, on
+        CUDA, or one added with ``register_engine``) or an engine
         instance such as ``TorchChannelEngine(device="cpu")``."""
         return replace(self, engine_name=engine)
 

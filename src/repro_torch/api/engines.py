@@ -14,11 +14,13 @@ tiles on one device: CUDA unless the caller asks for the CPU.  It is the
 port of the JAX package's ``JaxChannelEngine.run`` (the dense einsum
 program or the sparse kernel walk, chosen per run; over a mesh, the
 sharded sparse walk of ``repro_torch.core.distributed``) and is
-registered under the name ``"torch"``.
+registered under the name ``"torch"``.  Any other backend that meets the
+:class:`Engine` protocol joins it through :func:`register_engine`.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Protocol, runtime_checkable
 
 import numpy as np
 import torch
@@ -68,6 +70,41 @@ class EngineOutput:
     group_codes: np.ndarray  # (n, n_group_attrs) int64, column-major
     channel_values: np.ndarray  # (n, k) float64, column-major, order = channels
     minmax_values: dict[MinMaxRequest, np.ndarray]  # (n,) float64 each
+
+
+@runtime_checkable
+class Engine(Protocol):
+    """The contract an execution backend implements for the planner.
+
+    Register an instance with :func:`register_engine` and name it in
+    ``Q.engine(name)``, or pass the instance itself."""
+
+    name: str
+    supports_streaming: bool
+
+    def run(
+        self,
+        prep: Prepared,
+        channels: tuple[Channel, ...],
+        minmax: tuple[MinMaxRequest, ...],
+        stream: tuple[str, int] | None = None,
+        memory_budget: int | None = None,
+    ) -> list[EngineOutput]:
+        """Contract all channels in one pass; one output per stream tile.
+
+        ``memory_budget`` is advisory: engines with an internal physical
+        choice (the torch engine's dense-vs-sparse path) use it; others
+        may leave it out of their signature, and the planner then does
+        not pass it (it has already resolved ``stream`` from it).
+
+        Engines that run fused hop kernels set ``supports_fused = True``
+        and take a ``fused`` keyword; the planner passes it to no other.
+        Engines that can execute over a mesh set ``supports_mesh = True``
+        and take a ``mesh`` keyword: a shard count, or a
+        ``torch.distributed.device_mesh.DeviceMesh``.  The planner raises
+        :class:`~repro_torch.core.operator.UnsupportedPlanOption` before
+        it calls an engine that cannot honour a requested option."""
+        ...
 
 
 def _to_host(t: torch.Tensor) -> np.ndarray:
@@ -228,11 +265,17 @@ class TorchChannelEngine:
         ]
 
 
-_REGISTRY = {"torch": TorchChannelEngine()}
+_REGISTRY: dict[str, Engine] = {}
 
 
-def resolve_engine(engine: str | TorchChannelEngine) -> TorchChannelEngine:
-    """A registered engine by name (only ``"torch"``), or the instance."""
+def register_engine(engine: Engine) -> Engine:
+    """Register an execution backend under ``engine.name``."""
+    _REGISTRY[engine.name] = engine
+    return engine
+
+
+def resolve_engine(engine: str | Engine) -> Engine:
+    """A registered engine by name, or the instance itself."""
     if isinstance(engine, str):
         try:
             return _REGISTRY[engine]
@@ -241,3 +284,6 @@ def resolve_engine(engine: str | TorchChannelEngine) -> TorchChannelEngine:
                 f"unknown engine {engine!r}; registered: {sorted(_REGISTRY)}"
             ) from None
     return engine
+
+
+register_engine(TorchChannelEngine())

@@ -41,9 +41,9 @@ from repro_torch.aggregates.semiring import AggSpec, Count
 from repro_torch.api.engines import (
     COUNT_CHANNEL,
     Channel,
+    Engine,
     EngineOutput,
     MinMaxRequest,
-    TorchChannelEngine,
     resolve_engine,
 )
 from repro_torch.core.operator import (
@@ -144,7 +144,7 @@ class Plan:
     query: JoinAggQuery  # rewritten query (primary aggregate)
     aggs: tuple[tuple[str, AggSpec], ...]
     group_display: tuple[str, ...]
-    engine: TorchChannelEngine
+    engine: Engine
     prep: Prepared | None  # None only for maintenance-only compiles
     channels: tuple[Channel, ...]
     minmax: tuple[MinMaxRequest, ...]
@@ -215,11 +215,16 @@ class Plan:
         """The tile plan actually used: the explicit ``stream`` option, or
         auto-streaming over the largest group attribute when the
         estimated peak message exceeds the memory budget; None for a
-        split plan, whose key ranges already bound the messages, and for
-        a meshed one, whose shards do (the mesh supersedes the budget)."""
+        split plan, whose key ranges already bound the messages, for a
+        meshed one, whose shards do (the mesh supersedes the budget), and
+        for an engine that cannot stream."""
         if self.stream is not None:
             return self.stream
-        if self.split is not None or self.mesh is not None:
+        if (
+            self.split is not None
+            or self.mesh is not None
+            or not self.engine.supports_streaming
+        ):
             return None
         budget = (
             self.memory_budget
@@ -252,10 +257,13 @@ class Plan:
         split: the shard partition is the memory bound."""
         self._require_physical()
         mesh = self.mesh if mesh is None else mesh
+        kwargs = {}
+        if getattr(self.engine, "supports_fused", False):
+            kwargs["fused"] = self.fused
         if mesh is not None:
             _check_mesh_options(self.engine, self.stream)
             return self.engine.run(
-                self.prep, self.channels, self.minmax, None, fused=self.fused, mesh=mesh
+                self.prep, self.channels, self.minmax, None, mesh=mesh, **kwargs
             )
         if self.split is not None:
             from repro_torch.planner.split import execute_split
@@ -264,12 +272,10 @@ class Plan:
                 self.split_parts(), self.engine, self.channels,
                 len(self.prep.group_attrs), self.fused,
             )
-        kwargs = {}
-        if getattr(self.engine, "supports_fused", False):
-            kwargs["fused"] = self.fused
+        if _accepts_memory_budget(self.engine):
+            kwargs["memory_budget"] = self.memory_budget
         return self.engine.run(
-            self.prep, self.channels, self.minmax, self.resolved_stream(),
-            memory_budget=self.memory_budget, **kwargs,
+            self.prep, self.channels, self.minmax, self.resolved_stream(), **kwargs
         )
 
     def execute(self, mesh: "object | None" = None) -> AggResult:
@@ -349,9 +355,10 @@ class Plan:
         """Human-readable plan: strategy, root, stats, rewrites, the
         dense-vs-sparse path, the fused hops' launch shapes, per-node
         peaks with estimated cardinalities.  ``actuals=True`` also runs
-        one COUNT pass on the plan's device and renders the measured
-        per-node message cardinalities next to the estimates
-        (golden/bench scales only — it allocates the dense messages)."""
+        one COUNT pass on the plan engine's device (the CPU for an engine
+        that has none) and renders the measured per-node message
+        cardinalities next to the estimates (golden/bench scales only —
+        it allocates the dense messages)."""
         self._require_physical()
         prep = self.prep
         lines = [
@@ -433,7 +440,7 @@ class Plan:
         if self.stats_enabled:
             cards = node_card_estimates(prep, prep.stats)
             if actuals:
-                acts = actual_node_cards(prep, self.engine.device)
+                acts = actual_node_cards(prep, getattr(self.engine, "device", "cpu"))
         lines.append("tree:")
         lines.extend("  " + t for t in _render_tree(prep, cards, acts))
         if prep.folded:
@@ -580,6 +587,21 @@ class Plan:
 # ----------------------------------------------------------------------
 
 
+def _accepts_memory_budget(engine: Engine) -> bool:
+    """Engines written against the 4-argument ``run`` protocol (no
+    ``memory_budget``) keep working: the keyword is only passed when the
+    signature takes it (or ``**kwargs``)."""
+    import inspect
+
+    try:
+        params = inspect.signature(engine.run).parameters
+    except (TypeError, ValueError):  # C callables etc.: assume current
+        return True
+    return "memory_budget" in params or any(
+        p.kind is inspect.Parameter.VAR_KEYWORD for p in params.values()
+    )
+
+
 def _shard_runs(prep: Prepared, mesh) -> list[tuple]:
     """``(label, encoded, domains)`` of each shard's walk over ``mesh``."""
     from repro_torch.core.distributed import mesh_shards, shard_layout
@@ -623,7 +645,8 @@ def compile_plan(spec, db: Database, physical: bool = True) -> Plan:
     aggs = spec.aggs or (("count", Count()),)
 
     engine = resolve_engine(spec.engine_name)
-    engine.device  # raises here, before encoding, when the card is absent
+    # the torch engine raises here, before encoding, when the card is absent
+    getattr(engine, "device", None)
     if spec.fused_opt is not None and not getattr(engine, "supports_fused", False):
         raise UnsupportedPlanOption(
             f"engine {engine.name!r} has no fused hop kernels; drop "
@@ -632,6 +655,14 @@ def compile_plan(spec, db: Database, physical: bool = True) -> Plan:
     meshed = spec.mesh_opt is not None
     if meshed:
         _check_mesh_options(engine, spec.stream_opt)
+    if (spec.stream_opt is not None or spec.budget is not None) and (
+        not engine.supports_streaming
+    ):
+        raise UnsupportedPlanOption(
+            f"engine {engine.name!r} does not support the stream/memory_budget "
+            "options (only streaming-capable engines do); drop the option or "
+            "use the 'torch' engine"
+        )
 
     notes: list[str] = []
     edb = _apply_aliases(spec, db, notes)

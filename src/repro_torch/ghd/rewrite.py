@@ -323,11 +323,17 @@ def ghd_join_agg(
     from repro_torch.api.plan import Plan, _channelize, _display_names
 
     eng = resolve_engine(engine)
-    device = eng.device  # raises here, before the compile, without a card
+    # the torch engine raises here, before the compile, without a card
+    device = getattr(eng, "device", None)
     if plan is None:
         plan = compile_ghd(query, db)
     prep = plan.prepared
     if mesh is not None:
+        if not getattr(eng, "supports_mesh", False):
+            raise UnsupportedPlanOption(
+                f"engine {eng.name!r} cannot execute over a mesh; use the "
+                "'torch' engine"
+            )
         if stream is not None:
             raise UnsupportedPlanOption(
                 "explicit stream tiling cannot run on a device mesh "

@@ -264,8 +264,12 @@ def execute_split(
     fused: bool | None = None,
 ) -> list[EngineOutput]:
     """Run the plan once per key range (``split_parts``) and merge the
-    group partials."""
+    group partials.  ``fused`` goes only to an engine that runs fused
+    hops (``supports_fused``)."""
+    kwargs = {}
+    if fused is not None and getattr(engine, "supports_fused", False):
+        kwargs["fused"] = fused
     outs: list[EngineOutput] = []
     for part in parts:
-        outs.extend(engine.run(part, channels, (), None, fused=fused))
+        outs.extend(engine.run(part, channels, (), None, **kwargs))
     return [_merge_outputs(outs, num_group_attrs, len(channels))]

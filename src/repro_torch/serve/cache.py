@@ -252,7 +252,10 @@ class PlanCache:
     ``engine`` (the server's :class:`~repro_torch.api.engines
     .TorchChannelEngine`) runs every spec whose engine is the name
     ``"torch"``: the key keeps the name, the plan gets the instance, so
-    such specs stay cacheable on whatever device the server serves.
+    such specs stay cacheable on whatever device the server serves.  Any
+    other name resolves through the engine registry
+    (:func:`~repro_torch.api.engines.register_engine`) and keys the same
+    way.
     """
 
     def __init__(self, maxsize: int = 64, *, engine):

@@ -22,7 +22,8 @@ what every wire request carries) runs on the server's engine, so
 ``device`` decides where every such answer is computed: ``"cuda"`` (the
 default) raises at construction when no card is present, and nothing
 falls back to the CPU; ``device="cpu"`` runs the same paths on the
-kernels' plain versions.
+kernels' plain versions.  A spec that names another registered engine
+runs on that engine.
 
 Data registration is generational: ``register`` swaps in a *new*
 database (in-flight plans keep executing against the snapshot they were

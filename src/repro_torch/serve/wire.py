@@ -17,10 +17,12 @@ Request objects::
     {"op": "stats"} / {"op": "ping"}                  -> {"ok": true, ...}
 
 Every response carries ``"ok"``; failures carry ``"error"`` with the
-exception text instead of tearing the connection down.  The one engine
-a request may name is ``"torch"``, the server's own; a ``"mesh"`` builds
-``Q.mesh``, which the server refuses (its other ranks run no follower
-loop to join the collective).
+exception text instead of tearing the connection down.  A request's
+``"engine"`` names a registered engine (``Q.engine(name)``): ``"torch"``
+runs on the server's own, any other name on the engine registered under
+it, and an unknown name comes back as an error that lists the
+registered ones.  A ``"mesh"`` builds ``Q.mesh``, which the server
+refuses (its other ranks run no follower loop to join the collective).
 
 Port of the JAX package's ``serve/wire.py``.
 """
@@ -42,7 +44,7 @@ def q_from_spec(obj: dict) -> Q:
     Keys: ``relations`` (names or ``[alias, source]`` pairs),
     ``group_by`` (``"R.a"`` strings), ``aggs`` (name -> ``{"kind": ...,
     "measure": "R.m"}``), ``where`` (``[rel, attr, op, value]`` rows),
-    ``renames`` (rel -> {old: new}), ``engine`` (``"torch"`` only),
+    ``renames`` (rel -> {old: new}), ``engine`` (a registered name),
     ``memory_budget``, ``stream`` (``[attr, tile]``), ``mesh`` (a shard
     count; the server refuses it).
     """
@@ -72,11 +74,7 @@ def q_from_spec(obj: dict) -> Q:
     if aggs:
         q = q.agg(**aggs)
     if "engine" in obj:
-        if obj["engine"] != "torch":
-            raise ValueError(
-                f"unknown engine {obj['engine']!r}; this server runs 'torch'"
-            )
-        q = q.engine("torch")
+        q = q.engine(obj["engine"])
     if obj.get("memory_budget") is not None:
         q = q.memory_budget(obj["memory_budget"])
     if obj.get("stream") is not None:

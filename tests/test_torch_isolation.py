@@ -6,8 +6,9 @@ mounted and answered, a query server on the CPU answers in process
 and over TCP and applies a view batch, a meshed plan runs on a
 local mesh of one and explains a mesh of 8, and the brute-force oracle,
 both baselines and the legacy ``join_agg`` agree with the planner, all
-with both packages refused), and the port's default engine refuses to
-run without a CUDA card instead of quietly using the CPU."""
+with both packages refused; the storage gate and the catalog verifier
+run as ``python -m`` the same way), and the port's default engine
+refuses to run without a CUDA card instead of quietly using the CPU."""
 import ast
 import json
 import os
@@ -177,6 +178,42 @@ def test_port_answers_a_query_with_jax_and_repro_refused():
     assert out["baselines_same"]
 
 
+# the same refusal, then one of the port's launchers run as ``python -m``
+_BLOCKED_CLI = """
+import runpy, sys
+
+class Refuse:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in {"jax", "jaxlib", "repro"}:
+            raise ModuleNotFoundError(f"import of {name!r} refused")
+        return None
+
+sys.meta_path.insert(0, Refuse())
+sys.argv = sys.argv[1:]
+runpy.run_module(sys.argv[0], run_name="__main__", alter_sys=True)
+"""
+
+
+@pytest.mark.parametrize(
+    "argv, expect",
+    [
+        (["repro_torch.launch.storage", "--smoke", "--rows", "600", "--device", "cpu"],
+         "storage-smoke: maintain() deltas ok"),
+        (["repro_torch.analysis", "--verify-catalog", "--device", "cpu"],
+         "catalog[TPCH@fused]: ok"),
+    ],
+    ids=["storage", "analysis"],
+)
+def test_launchers_run_with_jax_and_repro_refused(argv, expect):
+    proc = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_CLI, *argv], capture_output=True, text=True,
+        env=_env(), cwd=REPO, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert expect in proc.stdout
+    assert "refused" not in proc.stderr
+
+
 def _imported_modules(path: Path) -> list[str]:
     tree = ast.parse(path.read_text(), str(path))
     names = []
@@ -202,6 +239,8 @@ def test_the_scan_covers_every_port_package():
     scanned_files = set(PORT.rglob("*.py"))
     assert PORT / "core" / "distributed.py" in scanned_files
     assert PORT / "relational" / "oracle.py" in scanned_files
+    assert PORT / "launch" / "storage.py" in scanned_files
+    assert PORT / "analysis" / "__main__.py" in scanned_files
     scanned = {p.parent.name for p in PORT.rglob("*.py")}
     packages = {p.parent.name for p in PORT.rglob("__init__.py")}
     assert {
