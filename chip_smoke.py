@@ -118,7 +118,7 @@ Run from the root of a checkout on a machine with a CUDA card.  It
    ``Q.maintain`` handle over the mounted database equal to one over the
    in-memory twin through three 100-row R2 inserts;
 12. drives the serve leg: ``JoinAggServer(db, device="cuda", workers=8,
-   fusion_window=0.002)`` over C1 at ``--n`` with the reference demo's
+   fusion_window=0.002)`` over C1 at ``--n`` / 2 with the reference demo's
    integer ``R2.w`` in [1, 100) (``launch/serve.py``), answering its five
    shapes (count, sum, multi, minmax, two_group) and ``count`` with
    ``.fused(True)``; every answer is held against a solo
@@ -162,6 +162,19 @@ Run from the root of a checkout on a machine with a CUDA card.  It
    ``--check-n`` whose group attributes take 2 codes (the last two
    shards own no rows) runs meshed and alone, bit for bit, and rank 0
    holds its largest launches against the plain versions (tolerance 0).
+   The S = 2 group then serves meshed on the same C1: every rank calls
+   ``serve_mesh(db, device="cuda", workers=4)``, and rank 0's server
+   answers the bundle ``.mesh(2)`` cold and 5 times warm, then with
+   ``.fused(True)`` cold and warm, a burst of 4
+   concurrent ``.mesh(2)`` count/sum specs (one channel merge, one lane
+   execute) with one unmeshed sum sent in its middle, and one TCP request
+   with ``"mesh": 2``, then closes, which ends rank 1's follower loop.
+   Every served answer must equal the rank's direct ``.mesh(2)`` execute
+   and 2's single-device answer bit for bit (the count/sum columns and
+   the TCP answer those of the served bundle); it prints ``serve-mesh
+   leg:`` lines with cold and warm ms per shape, the lane's own ms per
+   execute (control message and confirm, apart from ``execute()``), the
+   compiles and the kernel launches on each rank.
 14. drives the comparison leg, the paper's Tables II and III on the card
    through the port's own baselines and oracle (``repro_torch.baselines``,
    ``repro_torch.relational.oracle``; host numpy in the reference, torch
@@ -2444,7 +2457,8 @@ def client_load(srv, shapes, clients: int, per_client: int, on_answer=None) -> d
 
 def serve_leg(torch, tag, args, tpch) -> dict:
     """The query server on the card: ``JoinAggServer(db, device="cuda")``
-    over C1 at ``--n`` with the reference demo's integer ``R2.w``,
+    over C1 at ``--n`` / 2 (the shard leg serves C1 at ``--n``, meshed)
+    with the reference demo's integer ``R2.w``,
     answering the five demo shapes and a fused ``count`` from concurrent
     clients, fusing bursts, merging channels, serving two maintained
     views under writes (``by_g1``, whose R1 batches recompute because the
@@ -2465,9 +2479,10 @@ def serve_leg(torch, tag, args, tpch) -> dict:
     from repro_torch.serve import JoinAggServer, connect, serve_tcp
 
     t_leg = time.perf_counter()
-    db = demo_database(args.n, seed=args.seed)
+    n = args.n // 2
+    db = demo_database(n, seed=args.seed)
     shapes = serve_shapes()
-    say(tag, f"data: serve leg: C1 n={args.n} seed={args.seed}, R2.w in [1, 100); shapes "
+    say(tag, f"data: serve leg: C1 n={n} seed={args.seed}, R2.w in [1, 100); shapes "
              f"{list(shapes)}; {SERVE_WORKERS} workers, fusion window 0.002 s")
 
     # solo oracles on the card, and the view's prefix oracles from a
@@ -2905,6 +2920,8 @@ def fused_hop_row(torch, tag, path: str, captured) -> dict:
 
 SHARD_COUNTS = (1, 2, 4)
 SHARD_TIMEOUT_S = 480  # one group's ranks, spawn to exit
+SERVED_WORLD = 2  # the group that also serves meshed
+SERVED_WARM = 5
 
 
 def result_digest(res) -> str:
@@ -2975,7 +2992,8 @@ def shard_rank_run(torch, dist, rank: int, world: int, job: dict) -> dict:
     numpy's.  With ``job["kernels"]`` every rank captures a warm
     execute's launches and rank 0 holds the largest against the plain
     versions; with ``job["skew"]`` a C1 whose last shards own no rows
-    runs meshed and alone on this rank's card, bit for bit."""
+    runs meshed and alone on this rank's card, bit for bit.  With
+    ``job["serve"]`` the ranks then serve meshed (:func:`served_mesh`)."""
     from repro_torch.core.distributed import DistributedSparseProgram
     from repro_torch.kernels import ops
 
@@ -3024,6 +3042,8 @@ def shard_rank_run(torch, dist, rank: int, world: int, job: dict) -> dict:
         res, cold = execute(plan)
         launches = ops.launch_counts()
         res, warm = execute(plan)
+        if not fused:
+            direct_digest = result_digest(res)
         peak = torch.cuda.max_memory_allocated() - resident
         (prog,) = plan.prep.shard_programs.values()
         check(prog.num_shards == world and prog.axis.rank == rank,
@@ -3062,6 +3082,9 @@ def shard_rank_run(torch, dist, rank: int, world: int, job: dict) -> dict:
             dist.barrier()
         del plan, res, prog
 
+    if job["serve"]:
+        out["serve_mesh"] = served_mesh(torch, rank, world, job, db, direct_digest)
+
     if job["skew"]:
         sdb = skew_chain_db(job["check_n"], job["seed"])
         for fused in (False, True):
@@ -3084,6 +3107,122 @@ def shard_rank_run(torch, dist, rank: int, world: int, job: dict) -> dict:
             }
             check(same, f"{label}: skewed C1 meshed differs from the single-device execute")
             del meshed, res, alone, prog
+    return out
+
+
+def served_mesh(torch, rank: int, world: int, job: dict, db, direct_digest: str) -> dict:
+    """The served mesh on a shard-leg group (every rank calls it, on the
+    C1 it holds): ``serve_mesh``; rank 0's server answers the bundle
+    ``.mesh(world)`` cold and ``SERVED_WARM`` times warm, then with
+    ``.fused(True)`` cold and warm, a burst of 4
+    concurrent meshed count/sum specs with one unmeshed sum sent in its
+    middle, and one TCP request with ``"mesh": world``, then closes,
+    which ends the other ranks' follower loops.  Each served bundle must
+    equal this rank's direct meshed execute (``direct_digest``) and the
+    single-device one (``job["digest"]``) bit for bit, with Σ COUNT / Σ
+    SUM numpy's; the burst's columns and the TCP answer those of the
+    served bundle; the burst must merge into one lane execute.  Rank 0
+    returns its timings, the lane's records and every rank's compiles
+    and launches (gathered at close); the others their launches."""
+    import numpy as np
+
+    from repro_torch.api import Count, Q, Sum
+    from repro_torch.kernels import ops
+    from repro_torch.serve.mesh import serve_mesh
+    from repro_torch.serve.server import serve_tcp
+    from repro_torch.serve.session import connect
+
+    label = f"serve-mesh leg, S={world}"
+    check(direct_digest == job["digest"], f"{label} rank {rank}: direct execute digest differs")
+    ops.reset_launch_counts()
+    t_start = time.perf_counter()
+    srv = serve_mesh(db, device="cuda", workers=4)
+    if srv is None:
+        return {"seconds": time.perf_counter() - t_start, "launches": ops.launch_counts()}
+    lane = srv._lane
+    out: dict = {}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, (time.perf_counter() - t0) * 1e3
+
+    try:
+        bundle = bundle_query("torch").mesh(world)
+        runs = []
+        for i in range(1 + SERVED_WARM):
+            res, ms = timed(lambda: srv.query(bundle))
+            check(result_digest(res) == direct_digest,
+                  f"{label}: served bundle {i} differs from the direct .mesh({world}) execute")
+            got = (int(res.column("n").sum()), int(res.column("s").sum()))
+            check(got == tuple(job["totals"]), f"{label}: served Σ count / Σ sum {got} vs "
+                                               f"numpy {job['totals']}")
+            runs.append({"ms": ms, **lane.records[-1]})
+        out["bundle"] = {"cold": runs[0], "warm": runs[1:], "rows": res.num_rows}
+        cols = res.relation.columns
+
+        fused = []
+        for i in range(2):
+            fres, ms = timed(lambda: srv.query(bundle.fused(True)))
+            check(result_digest(fres) == direct_digest,
+                  f"{label}: served fused bundle {i} differs from the direct execute")
+            fused.append({"ms": ms, **lane.records[-1]})
+        out["fused"] = {"cold": fused[0], "warm": fused[1]}
+        del fres
+
+        base = Q.over("R1", "R2", "R3", "R4").group_by("R1.g1", "R4.g2")
+        count_q, sum_q = base.agg(n=Count()), base.agg(s=Sum("R3.m"))
+        fusion, executes = srv.stats()["fusion"], lane.executes
+
+        def burst():
+            futs = [srv.submit(count_q.mesh(world)), srv.submit(sum_q.mesh(world))]
+            plain = srv.submit(sum_q)
+            futs += [srv.submit(count_q.mesh(world)), srv.submit(sum_q.mesh(world))]
+            return ([f.result(timeout=SHARD_TIMEOUT_S) for f in futs],
+                    plain.result(timeout=SHARD_TIMEOUT_S))
+
+        (answers, plain), burst_ms = timed(burst)
+        after = srv.stats()["fusion"]
+        merged = after["merged_channels"] - fusion["merged_channels"]
+        batches = after["batches"] - fusion["batches"]
+        lane_runs = lane.executes - executes
+        check(merged == 4 and batches == 1 and lane_runs == 1,
+              f"{label}: the burst did not fuse into one lane execute: merged {merged}, "
+              f"batches {batches}, lane executes {lane_runs}")
+        for a, agg in zip(answers, ("n", "s", "n", "s")):
+            same = all(np.array_equal(a.relation.columns[c], cols[c]) for c in ("g1", "g2", agg))
+            check(same, f"{label}: a burst {agg} answer differs from the served bundle's column")
+        check(same_result(answers[1], plain),
+              f"{label}: the unmeshed sum differs from the meshed one")
+        out["burst"] = {"ms": burst_ms, "lane": lane.records[-1], "fusion": after}
+
+        tcp, _ = serve_tcp(srv)
+        try:
+            spec = {"relations": ["R1", "R2", "R3", "R4"], "group_by": ["R1.g1", "R4.g2"],
+                    "where": [["R1", "g1", "<", 40], ["R4", "g2", "<", 40]],
+                    "aggs": {"n": {"kind": "count"}}, "mesh": world}
+            with connect(*tcp.server_address) as remote:
+                remote_res, tcp_ms = timed(lambda: remote.query(spec))
+        finally:
+            tcp.shutdown()
+            tcp.server_close()
+        keep = (cols["g1"] < 40) & (cols["g2"] < 40)
+        want = {(int(a), int(b)): float(v)
+                for a, b, v in zip(cols["g1"][keep], cols["g2"][keep], cols["n"][keep])}
+        got = remote_res.to_dict("n")
+        check(len(got) > 0 and {(int(a), int(b)): v for (a, b), v in got.items()} == want,
+              f"{label}: the TCP answer differs from the served bundle's g1 < 40, g2 < 40 rows")
+        out["tcp"] = {"ms": tcp_ms, "lane": lane.records[-1], "rows": len(got)}
+    finally:
+        srv.close()
+    out.update(seconds=time.perf_counter() - t_start, ranks=lane.final,
+               plan_cache=srv.stats()["plan_cache"], executes=lane.executes)
+    for r, f in enumerate(lane.final):
+        check(f["error"] is None, f"{label}: rank {r} reports {f['error']}")
+        check(all(f["launches"][k] > 0 for k in HOP_KERNELS + ("segment_reduce",)),
+              f"{label}: rank {r} served without launching every hop kernel: {f['launches']}")
     return out
 
 
@@ -3166,7 +3305,8 @@ def shard_leg(torch, tag, args, digest: str, totals: tuple[int, int]) -> dict:
             backend = "nccl" if cards >= world else "gloo"
             job = {"n": args.n, "seed": args.seed, "check_n": args.check_n, "tag": tag,
                    "backend": backend, "digest": digest, "totals": list(totals),
-                   "kernels": world == max(SHARD_COUNTS), "skew": world == max(SHARD_COUNTS)}
+                   "kernels": world == max(SHARD_COUNTS), "skew": world == max(SHARD_COUNTS),
+                   "serve": world == SERVED_WORLD}
             ranks, seconds = shard_group(world, job, tmp)
             per_card = -(-world // cards)
             say(tag, f"shard leg: S={world}: backend {backend}, {world} rank(s) on "
@@ -3214,9 +3354,53 @@ def shard_leg(torch, tag, args, digest: str, totals: tuple[int, int]) -> dict:
     kernels = groups[max(SHARD_COUNTS)]["ranks"][0]["kernels"]
     for name in ("segment_sum", "segment_reduce", "fused_hop"):
         check(name in kernels, f"shard leg: {name} was not held against its plain version")
-    summary["launches"] = {"shard": {k: totals_by_kernel.get(k, 0) for k in KERNEL_SOURCES}}
+    served = served_lines(tag, groups[SERVED_WORLD])
+    summary["launches"] = {"shard": {k: totals_by_kernel.get(k, 0) for k in KERNEL_SOURCES},
+                           "serve-mesh": served.pop("launches")}
     summary["kernels"] = kernels
+    summary["serve_mesh"] = served
     return summary
+
+
+def served_lines(tag, group: dict) -> dict:
+    """Print the served mesh's ``serve-mesh leg:`` lines; its numbers and
+    every rank's launches summed."""
+    world = len(group["ranks"])
+    sm = group["ranks"][0]["serve_mesh"]
+
+    def lane_text(rec):
+        return (f"lane {rec['lane_ms']:.2f} ms (control message and confirm), rank 0 lookup "
+                f"{rec['lookup_ms']:.2f} ms, execute {rec['execute_ms']:.1f} ms")
+
+    b = sm["bundle"]
+    say(tag, f"serve-mesh leg: S={world}: bundle .mesh({world}), {b['rows']} rows: cold "
+             f"{b['cold']['ms']:.1f} ms ({lane_text(b['cold'])})")
+    for i, w in enumerate(b["warm"]):
+        say(tag, f"serve-mesh leg: S={world}: bundle warm {i + 1}: {w['ms']:.1f} ms "
+                 f"({lane_text(w)})")
+    fz = sm["fused"]
+    say(tag, f"serve-mesh leg: S={world}: bundle .fused(True).mesh({world}): cold "
+             f"{fz['cold']['ms']:.1f} ms ({lane_text(fz['cold'])}), warm "
+             f"{fz['warm']['ms']:.1f} ms ({lane_text(fz['warm'])})")
+    say(tag, f"serve-mesh leg: S={world}: burst of 4 meshed count/sum specs and 1 unmeshed "
+             f"sum, cold: {sm['burst']['ms']:.1f} ms; one merged lane execute: "
+             f"{lane_text(sm['burst']['lane'])}; fusion counters {sm['burst']['fusion']}")
+    say(tag, f"serve-mesh leg: S={world}: TCP request \"mesh\": {world}, g1 < 40 and g2 < 40, "
+             f"cold: {sm['tcp']['ms']:.1f} ms, {sm['tcp']['rows']} rows "
+             f"({lane_text(sm['tcp']['lane'])})")
+    launches: dict[str, int] = {}
+    for r, f in enumerate(sm["ranks"]):
+        say(tag, f"serve-mesh leg: S={world} rank {r}: compiles {f['compiles']}, kernel "
+                 f"launches {f['launches']}")
+        for k, v in f["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    say(tag, f"serve-mesh leg: S={world}: {sm['executes']} lane executes; served from "
+             f"serve_mesh to close in {sm['seconds']:.1f} s of the group's "
+             f"{group['seconds']:.1f} s from spawn to exit; rank 0 plan cache "
+             f"{sm['plan_cache']}")
+    return {"seconds": sm["seconds"], "bundle": b, "fused": fz, "burst": sm["burst"],
+            "tcp": sm["tcp"],
+            "ranks": sm["ranks"], "launches": {k: launches.get(k, 0) for k in KERNEL_SOURCES}}
 
 
 # ----------------------------------------------------------------------
@@ -3688,6 +3872,10 @@ def main() -> int:
         results[name]["max_abs_err"] = max(results[name]["max_abs_err"], row["max_abs_err"])
         results[name]["shard"] = row
     done("13. shard leg")
+    served_s = sharded["serve_mesh"]["seconds"]
+    say(tag, f"chip_smoke: 13. shard leg without the served group done at "
+             f"{time.perf_counter() - t_script - served_s:.1f} s (the served group took "
+             f"{served_s:.1f} s)")
 
     # 14. comparison leg ---------------------------------------------------
     torch.cuda.empty_cache()

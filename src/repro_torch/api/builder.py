@@ -178,6 +178,7 @@ class Q:
                     relation,
                     f"{attr} {op} {value!r}",
                     lambda cols, a=attr, v=value, f=opfn: f(cols[a], v),
+                    (attr, op, value),
                 )
             )
         for attr, value in eq.items():
@@ -186,6 +187,7 @@ class Q:
                     relation,
                     f"{attr} == {value!r}",
                     lambda cols, a=attr, v=value: cols[a] == v,
+                    (attr, "==", value),
                 )
             )
         if not preds:

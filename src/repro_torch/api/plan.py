@@ -81,11 +81,15 @@ COPY_SUFFIX = "__grp"
 
 @dataclass(frozen=True)
 class Predicate:
-    """A pushed-down per-relation selection: ``fn(columns) -> bool mask``."""
+    """A pushed-down per-relation selection: ``fn(columns) -> bool mask``.
+    ``form`` is the ``(attr, op, value)`` that built a declarative
+    predicate (None for a callable), so that it can be rebuilt in
+    another process (``repro_torch.serve.mesh``)."""
 
     relation: str
     label: str
     fn: Callable[[dict[str, np.ndarray]], np.ndarray]
+    form: "tuple[str, str, object] | None" = None
 
 
 @dataclass

@@ -59,6 +59,9 @@ class Axis:
     group: object | None
 
 
+LOCAL = Axis(1, 0, None)
+
+
 def _is_device_mesh(mesh) -> bool:
     if not dist.is_available():
         return False
@@ -84,7 +87,11 @@ def resolve_mesh(mesh) -> Axis:
     """Accept a ``torch.distributed.device_mesh.DeviceMesh`` or a shard
     count.  A count needs an initialised process group of exactly that
     many ranks (this rank's shard is its rank); with no group only ``1``
-    is accepted, and it runs locally."""
+    is accepted, and it runs locally.  An :class:`Axis` passes through as
+    already resolved: :data:`LOCAL` runs one shard here whatever group is
+    initialised (the query server's ``.mesh(1)``)."""
+    if isinstance(mesh, Axis):
+        return mesh
     if _is_device_mesh(mesh):
         axis = mesh_axis(mesh)
         return Axis(_axis_size(mesh, axis), mesh.get_local_rank(axis), mesh.get_group(axis))

@@ -18,11 +18,23 @@ batcher, a maintained view read under writes — and exits non-zero
 unless every result is bit-identical to a single-shot ``Plan.execute()``
 on the same device.
 
+Under ``torchrun --nproc-per-node S`` (``WORLD_SIZE`` > 1) every rank
+joins one process group (NCCL when there are at least S cards, else
+gloo; ``--device cpu``: gloo on the CPU), computes on
+``cuda:{LOCAL_RANK}`` (modulo the cards present) and starts through
+:func:`repro_torch.serve.mesh.serve_mesh`: rank 0 serves, the others
+follow its meshed requests.  ``--smoke`` then also runs each demo shape
+with ``.mesh(S)`` and requires it to equal the solo execute bit for bit
+(``serve-smoke solo`` and ``serve-smoke mesh(S)`` lines, one digest
+each).
+
 Port of the JAX package's ``launch/serve.py``.
 """
 from __future__ import annotations
 
 import argparse
+import hashlib
+import os
 import sys
 import threading
 
@@ -33,6 +45,7 @@ from repro_torch.api.builder import Q
 from repro_torch.api.engines import TorchChannelEngine
 from repro_torch.data.synth import chain
 from repro_torch.relational.relation import Database
+from repro_torch.serve.mesh import serve_mesh
 from repro_torch.serve.server import JoinAggServer, serve_tcp
 from repro_torch.serve.session import connect
 
@@ -67,19 +80,63 @@ def as_rows(res) -> dict[str, dict[tuple, float]]:
     return {n: res.to_dict(n) for n in res.agg_names}
 
 
+def digest(res) -> str:
+    """sha256 over every column's name, dtype and bytes: equal digests
+    are results equal bit for bit."""
+    h = hashlib.sha256()
+    for name, col in res.relation.columns.items():
+        col = np.ascontiguousarray(col)
+        h.update(f"{name}:{col.dtype.str}:{col.shape}:".encode())
+        h.update(col.tobytes())
+    return h.hexdigest()
+
+
+def mesh_world() -> int:
+    """The ranks ``torchrun`` started (1 outside it)."""
+    return int(os.environ.get("WORLD_SIZE", "1"))
+
+
+def join_mesh(args) -> str:
+    """Join the ``torchrun`` process group; the device this rank
+    computes on."""
+    import torch
+    import torch.distributed as dist
+
+    world = mesh_world()
+    if args.device == "cpu":
+        backend, device = "gloo", "cpu"
+    else:
+        cards = torch.cuda.device_count()
+        if cards == 0:
+            from repro_torch.core.torch_engine import require_device
+
+            require_device(args.device)  # raises: no card
+        device = f"cuda:{int(os.environ.get('LOCAL_RANK', '0')) % cards}"
+        torch.cuda.set_device(device)
+        backend = "nccl" if cards >= world else "gloo"
+    dist.init_process_group(backend, init_method="env://")
+    return device
+
+
+def start_server(db, args, **kwargs):
+    """The server on this process, or None on a follower rank (which has
+    followed rank 0's lane until it closed)."""
+    if mesh_world() > 1:
+        return serve_mesh(db, device=args.device, **kwargs)
+    return JoinAggServer(db, device=args.device, **kwargs)
+
+
 def run_smoke(args) -> int:
     db = demo_database(args.scale, seed=0)
+    srv = start_server(
+        db, args, workers=args.workers, fusion_window=args.fusion_window,
+    )
+    if srv is None:
+        return 0
     queries = demo_queries()
     engine = TorchChannelEngine(device=args.device)
-    oracles = {
-        name: as_rows(q.engine(engine).plan(db).execute())
-        for name, q in queries.items()
-    }
-
-    srv = JoinAggServer(
-        db, device=args.device, workers=args.workers,
-        fusion_window=args.fusion_window,
-    )
+    solo = {name: q.engine(engine).plan(db).execute() for name, q in queries.items()}
+    oracles = {name: as_rows(res) for name, res in solo.items()}
     view_q = queries["count"]
     srv.create_view("by_g1", view_q)
 
@@ -141,6 +198,15 @@ def run_smoke(args) -> int:
         t.join(timeout=600)
     failures.extend(f"{t.name} did not finish" for t in threads if t.is_alive())
 
+    world = mesh_world()
+    if world > 1:
+        for name, q in queries.items():
+            want, got = digest(solo[name]), digest(srv.query(q.mesh(world)))
+            print(f"serve-smoke solo {name}: {want}")
+            print(f"serve-smoke mesh({world}) {name}: {got}")
+            if got != want:
+                failures.append(f"{name}: .mesh({world}) != the solo execute")
+
     # TCP round-trip: remote result must equal the in-process oracle
     tcp, _ = serve_tcp(srv, args.host, 0)
     host, port = tcp.server_address
@@ -190,6 +256,38 @@ def run_smoke(args) -> int:
     return 0
 
 
+def serve(args) -> int:
+    if args.smoke:
+        return run_smoke(args)
+
+    db = demo_database(args.scale)
+    core = start_server(
+        db,
+        args,
+        workers=args.workers,
+        plan_cache_size=args.plan_cache,
+        fusion_window=args.fusion_window,
+    )
+    if core is None:
+        return 0
+    core.create_view(
+        "by_g1", demo_queries()["count"]
+    )  # a live maintained view, queryable via view_read/view_apply
+    srv, thread = serve_tcp(core, args.host, args.port)
+    host, port = srv.server_address
+    print(f"JOIN-AGG server on {host}:{port}, device {core.device} "
+          f"(C1 chain, {args.scale} rows/relation; view 'by_g1' maintained)")
+    print("protocol: newline-delimited JSON — see repro_torch/serve/wire.py")
+    try:
+        thread.join()
+    except KeyboardInterrupt:
+        print("shutting down")
+        srv.shutdown()
+        srv.server_close()
+        core.close()
+    return 0
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(
         description="Serve concurrent JOIN-AGG queries over TCP/JSON"
@@ -214,32 +312,16 @@ def main() -> None:
                     help="(smoke) delta batches applied to the view")
     args = ap.parse_args()
 
-    if args.smoke:
-        sys.exit(run_smoke(args))
+    if mesh_world() > 1:
+        import torch.distributed as dist
 
-    db = demo_database(args.scale)
-    core = JoinAggServer(
-        db,
-        device=args.device,
-        workers=args.workers,
-        plan_cache_size=args.plan_cache,
-        fusion_window=args.fusion_window,
-    )
-    core.create_view(
-        "by_g1", demo_queries()["count"]
-    )  # a live maintained view, queryable via view_read/view_apply
-    srv, thread = serve_tcp(core, args.host, args.port)
-    host, port = srv.server_address
-    print(f"JOIN-AGG server on {host}:{port}, device {core.device} "
-          f"(C1 chain, {args.scale} rows/relation; view 'by_g1' maintained)")
-    print("protocol: newline-delimited JSON — see repro_torch/serve/wire.py")
-    try:
-        thread.join()
-    except KeyboardInterrupt:
-        print("shutting down")
-        srv.shutdown()
-        srv.server_close()
-        core.close()
+        args.device = join_mesh(args)
+        try:
+            code = serve(args)
+        finally:
+            dist.destroy_process_group()
+        sys.exit(code)
+    sys.exit(serve(args))
 
 
 if __name__ == "__main__":

@@ -12,6 +12,8 @@ Pieces:
   protocol.
 * :mod:`repro_torch.serve.session` — in-process sessions and the TCP
   client.
+* :mod:`repro_torch.serve.mesh`    — meshed requests: ``serve_mesh`` on
+  every rank, an ordered lane on rank 0, followers on the others.
 
 This ``__init__`` is lazy (PEP 562), as the JAX package's is: importing
 it loads none of the modules above.
@@ -31,6 +33,8 @@ _EXPORTS = {
     "Session": "repro_torch.serve.session",
     "RemoteSession": "repro_torch.serve.session",
     "connect": "repro_torch.serve.session",
+    "serve_mesh": "repro_torch.serve.mesh",
+    "MeshLane": "repro_torch.serve.mesh",
 }
 
 __all__ = sorted(_EXPORTS)

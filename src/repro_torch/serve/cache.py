@@ -14,9 +14,10 @@
 Port of the JAX package's ``serve/cache.py``.  The port has no jit and
 no program memo, so the LRU serves the plan cache alone; the shape key
 also carries the ``.fused`` option, which picks the kernels a plan
-launches.  The cache compiles no meshed spec (:func:`refuse_mesh`): a
-meshed execute is a collective call, and no other rank runs a follower
-loop to join it.
+launches.  A meshed spec compiles and caches like any other; executing
+it is a collective call, which the server routes through
+:mod:`repro_torch.serve.mesh` (every rank of a lane compiles through its
+own cache under the same key).
 """
 from __future__ import annotations
 
@@ -25,7 +26,6 @@ from collections import OrderedDict
 from dataclasses import dataclass, field, replace
 from typing import Any, Callable
 
-from repro_torch.core.operator import UnsupportedPlanOption
 
 
 @dataclass
@@ -213,18 +213,6 @@ def plan_shape_key(spec, generation: int = 0, stats_generation: int = 0):
     )
 
 
-def refuse_mesh(spec) -> None:
-    """Raise :class:`UnsupportedPlanOption` for a meshed spec: a served
-    execute runs on one worker of one process, and a meshed execute
-    would wait forever in its ``all_gather`` for ranks that never join."""
-    if spec.mesh_opt is not None:
-        raise UnsupportedPlanOption(
-            "the query server runs no meshed query: a meshed execute is a "
-            "collective call that every rank of its process group makes, and "
-            "the server's other ranks run no follower loop; drop .mesh(...)"
-        )
-
-
 @dataclass
 class PlanCacheStats:
     """Plan-cache counters: LRU traffic plus actual compiles/bypasses."""
@@ -269,15 +257,21 @@ class PlanCache:
     def __len__(self) -> int:
         return len(self._lru)
 
-    def _compile(self, spec, db):
+    def _compile(self, spec, db, physical: bool = True):
         from repro_torch.api.plan import compile_plan
 
         if spec.engine_name == "torch":
             spec = replace(spec, engine_name=self._engine)
-        return compile_plan(spec, db)
+        return compile_plan(spec, db, physical=physical)
+
+    def check(self, spec, db, generation: int = 0, stats_generation: int = 0) -> None:
+        """Raise what compiling ``spec`` would raise in its logical stage
+        (rewrites, names, measures, options), unless its plan is cached;
+        compiles nothing and counts nothing."""
+        if plan_shape_key(spec, generation, stats_generation) not in self._lru:
+            self._compile(spec, db, physical=False)
 
     def lookup(self, spec, db, generation: int = 0, stats_generation: int = 0):
-        refuse_mesh(spec)
         key = plan_shape_key(spec, generation, stats_generation)
         if key is None:
             with self._stats_lock:

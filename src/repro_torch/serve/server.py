@@ -15,7 +15,16 @@ batcher, and any maintained views.  Query paths, fastest first:
    :class:`~repro_torch.serve.batcher.FusionBatcher`, so compatible
    queries landing within the window run as one contraction pass;
 3. **solo** — uncacheable shapes (anonymous predicates, engine
-   instances) compile fresh and run alone.
+   instances, mesh objects) compile fresh and run alone.
+
+A ``.mesh(1)`` spec is served like any other and runs here, with no
+collective.  A spec meshed over more shards is a collective call that
+every rank of a process group makes: a server started on every rank
+through :func:`repro_torch.serve.mesh.serve_mesh` runs it through the
+ordered lane of its rank 0 (its fusion and caching unchanged), and any
+other server refuses it in :meth:`JoinAggServer.submit`.  A maintained
+view of a meshed spec is maintained here alone, as the reference's
+``Plan.maintain()`` ignores the mesh.
 
 Every spec whose engine is the name ``"torch"`` (the ``Q`` default, and
 what every wire request carries) runs on the server's engine, so
@@ -43,17 +52,39 @@ import socketserver
 import threading
 import warnings
 from concurrent.futures import Future, ThreadPoolExecutor
+from dataclasses import dataclass
+from functools import partial
 from pathlib import Path
+from typing import Callable
 
 from repro_torch.api.engines import TorchChannelEngine
+from repro_torch.core.distributed import LOCAL, mesh_shards
+from repro_torch.core.operator import UnsupportedPlanOption
 from repro_torch.core.torch_engine import require_device
 from repro_torch.kernels import ops
 from repro_torch.relational.relation import Database, Relation
 from repro_torch.relational.source import as_source, is_source
 from repro_torch.serve import wire
 from repro_torch.serve.batcher import FusionBatcher, _Pending, run_group
-from repro_torch.serve.cache import PlanCache, plan_shape_key, refuse_mesh
+from repro_torch.serve.cache import PlanCache, plan_shape_key
 from repro_torch.serve.views import ServedView
+
+
+@dataclass(frozen=True)
+class _MeshedPlan:
+    """What ``run_group`` executes for a meshed spec in place of its
+    compiled plan: ``execute()`` runs the plan on one shard here, or
+    through the server's mesh lane."""
+
+    run: Callable
+
+    def execute(self):
+        return self.run()
+
+
+def _local_mesh(spec) -> bool:
+    """``.mesh(1)``: one shard, run here with no collective."""
+    return isinstance(spec.mesh_opt, int) and spec.mesh_opt == 1
 
 
 class JoinAggServer:
@@ -100,6 +131,12 @@ class JoinAggServer:
         self._views: dict[str, ServedView] = {}
         self._views_lock = threading.Lock()
         self._closed = False
+        # the ordered lane of meshed executes, set by serve_mesh on rank 0
+        self._lane = None
+
+    def _snapshot(self):
+        with self._db_lock:
+            return self._db, self._generation, self._stats_generation
 
     # -- data registration ---------------------------------------------
     @property
@@ -117,7 +154,13 @@ class JoinAggServer:
     def bump_stats(self) -> int:
         """Invalidate cached plans after an out-of-band statistics
         refresh (e.g. a maintained view's deltas drifted the sketches the
-        planner chose roots/splits on)."""
+        planner chose roots/splits on).  Mirrored on every rank of a mesh
+        lane."""
+        if self._lane is not None:
+            return self._lane.mirror({"op": "bump_stats"}, self._bump_stats)
+        return self._bump_stats()
+
+    def _bump_stats(self) -> int:
         with self._db_lock:
             self._stats_generation += 1
             return self._stats_generation
@@ -132,6 +175,9 @@ class JoinAggServer:
         The database is swapped, not mutated: queries already compiled
         keep their snapshot, and the generation bump makes every cached
         plan key unreachable so the next lookup recompiles on new data.
+        On rank 0 of a mesh lane every rank registers the same relation
+        (its columns, or a stored relation's directory) and bumps the same
+        generations.
         """
         if not is_source(columns):
             warnings.warn(
@@ -151,6 +197,13 @@ class JoinAggServer:
 
             rel = write_relation(rel, self._storage_dir / name)
             self._write_catalog(name)
+        if self._lane is not None:
+            from repro_torch.serve.mesh import register_message
+
+            return self._lane.mirror(register_message(name, rel), partial(self._swap_in, rel))
+        return self._swap_in(rel)
+
+    def _swap_in(self, rel) -> int:
         with self._db_lock:
             new_db = Database(dict(self._db.relations))
             new_db.add(rel)
@@ -174,15 +227,13 @@ class JoinAggServer:
     # -- queries --------------------------------------------------------
     def submit(self, spec) -> Future:
         """Queue one query; resolves to its
-        :class:`~repro_torch.api.plan.AggResult`.  A meshed spec is
-        refused here, before it compiles (:func:`~repro_torch.serve.cache
-        .refuse_mesh`)."""
+        :class:`~repro_torch.api.plan.AggResult`.  A spec meshed over more
+        than one shard is refused here, before it compiles, unless the
+        server has a mesh lane that can run it (:meth:`_admit_mesh`)."""
         if self._closed:
             raise RuntimeError("server is closed")
-        refuse_mesh(spec)
-        with self._db_lock:
-            generation = self._generation
-            stats_gen = self._stats_generation
+        self._admit_mesh(spec)
+        _, generation, stats_gen = self._snapshot()
         key = plan_shape_key(spec, generation, stats_gen)
         item = _Pending(spec=spec, shape_key=key, future=Future())
         if self._fuse and key is not None:
@@ -201,18 +252,43 @@ class JoinAggServer:
     def _run_items(self, items: list[_Pending]) -> None:
         run_group(items, self._lookup_plan, self._batcher.stats)
 
+    def _admit_mesh(self, spec) -> None:
+        if spec.mesh_opt is None or _local_mesh(spec):
+            return
+        if self._lane is None:
+            raise UnsupportedPlanOption(
+                f"this server runs no query meshed over {mesh_shards(spec.mesh_opt)} "
+                "shards: a meshed execute is a collective call that every rank of "
+                "a process group makes, and this server was not started on one, "
+                "so no rank runs a follower loop to join it. Start it on every "
+                "rank with repro_torch.serve.mesh.serve_mesh(db, ...) after "
+                "init_process_group (or `torchrun --nproc-per-node S -m "
+                "repro_torch.launch.serve`), or drop .mesh(...)"
+            )
+        self._lane.admit(spec)
+
     def _lookup_plan(self, spec):
-        with self._db_lock:
-            db, generation = self._db, self._generation
-            stats_gen = self._stats_generation
-        return self.plan_cache.lookup(spec, db, generation, stats_gen)
+        """The compiled plan of ``spec``, or for a meshed spec its
+        :class:`_MeshedPlan`.  A lane spec compiles in the lane, on every
+        rank at once; its logical stage is checked here first, so that
+        the batcher sees a rejected channel merge (duplicate names,
+        measures) as it sees an unmeshed one."""
+        db, generation, stats_gen = self._snapshot()
+        if spec.mesh_opt is None:
+            return self.plan_cache.lookup(spec, db, generation, stats_gen)
+        if _local_mesh(spec):
+            plan = self.plan_cache.lookup(spec, db, generation, stats_gen)
+            return _MeshedPlan(partial(plan.execute, mesh=LOCAL))
+        self.plan_cache.check(spec, db, generation, stats_gen)
+        return _MeshedPlan(partial(self._lane.execute, self, spec))
 
     # -- maintained views -----------------------------------------------
     def create_view(self, name: str, spec) -> ServedView:
         """Compile ``spec``, hand it to the incremental-maintenance stack
         (its message caches on the server's device), and serve it under
-        ``name`` via epoch-swapped snapshots."""
-        plan = self._lookup_plan(spec)
+        ``name`` via epoch-swapped snapshots.  A meshed spec is maintained
+        here alone: maintenance never executes over the mesh."""
+        plan = self.plan_cache.lookup(spec, *self._snapshot())
         handle = plan.maintain()
         on_applied = self._persist_delta if self._storage_dir is not None else None
         with self._views_lock:
@@ -256,8 +332,9 @@ class JoinAggServer:
     # -- introspection / lifecycle --------------------------------------
     def stats(self) -> dict:
         """Counters for reporting: the plan cache, the batcher, the
-        views' epochs, the server's device and the process's kernel
-        launches (the port has no jit cache to report)."""
+        views' epochs, the server's device, the process's kernel
+        launches (the port has no jit cache to report) and the mesh
+        lane's counters (None without one)."""
         with self._views_lock:
             views = {n: v.epoch for n, v in self._views.items()}
         return {
@@ -269,6 +346,7 @@ class JoinAggServer:
             "views": views,
             "device": str(self.device),
             "kernels": ops.launch_counts(),
+            "mesh": None if self._lane is None else self._lane.snapshot(),
         }
 
     def close(self) -> None:
@@ -283,6 +361,8 @@ class JoinAggServer:
             self._views.clear()
         for v in views:
             v.close()
+        if self._lane is not None:
+            self._lane.close(self.plan_cache)
 
     def __enter__(self) -> "JoinAggServer":
         return self

@@ -21,8 +21,10 @@ exception text instead of tearing the connection down.  A request's
 ``"engine"`` names a registered engine (``Q.engine(name)``): ``"torch"``
 runs on the server's own, any other name on the engine registered under
 it, and an unknown name comes back as an error that lists the
-registered ones.  A ``"mesh"`` builds ``Q.mesh``, which the server
-refuses (its other ranks run no follower loop to join the collective).
+registered ones.  A ``"mesh"`` builds ``Q.mesh``: a server started
+through :func:`repro_torch.serve.mesh.serve_mesh` runs it on every rank,
+and any other server answers a mesh of more than one shard with an
+error.
 
 Port of the JAX package's ``serve/wire.py``.
 """
@@ -46,7 +48,7 @@ def q_from_spec(obj: dict) -> Q:
     "measure": "R.m"}``), ``where`` (``[rel, attr, op, value]`` rows),
     ``renames`` (rel -> {old: new}), ``engine`` (a registered name),
     ``memory_budget``, ``stream`` (``[attr, tile]``), ``mesh`` (a shard
-    count; the server refuses it).
+    count).
     """
     rels = [tuple(r) if isinstance(r, (list, tuple)) else r
             for r in obj.get("relations", ())]

@@ -399,15 +399,21 @@ def test_a_world_size_that_does_not_match_raises(tmp_path):
 
 
 def test_the_server_refuses_a_mesh_before_it_compiles():
+    """A server not started through ``serve_mesh`` refuses a mesh of 2
+    in ``submit``, before it compiles; it serves a mesh of 1 here, and
+    maintains a meshed view here (maintenance never executes over the
+    mesh)."""
     cols = chain_cols()
     q = Q.over("R1", "R2", "R3").group_by("R1.g1").agg(n=Count())
     with JoinAggServer(Database.from_mapping(cols), device="cpu", workers=2) as srv:
-        with pytest.raises(UnsupportedPlanOption, match="follower loop"):
+        with pytest.raises(UnsupportedPlanOption, match="follower loop.*serve_mesh"):
             srv.submit(q.mesh(2))
-        with pytest.raises(UnsupportedPlanOption, match="follower loop"):
-            srv.create_view("v", q.mesh(1))
         assert srv.plan_cache.stats.compiles == 0
-        assert srv.query(q).num_rows > 0
+        want = srv.query(q)
+        assert want.num_rows > 0
+        assert_identical(want, srv.query(q.mesh(1)))
+        view = srv.create_view("v", q.mesh(2))
+        assert view.read().result == want.to_dict()
 
 
 def test_a_mesh_supersedes_the_split():

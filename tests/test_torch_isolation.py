@@ -3,7 +3,9 @@ neither JAX nor the JAX package ``repro`` (an acyclic, a split, a cyclic
 and a dense-path query are answered, explained and verified, a
 maintained bundle takes an insert, a stored database is written,
 mounted and answered, a query server on the CPU answers in process
-and over TCP and applies a view batch, a meshed plan runs on a
+(also a ``.mesh(1)`` spec rebuilt from the description that
+``serve/mesh.py`` sends across ranks) and over TCP and applies a view
+batch, a meshed plan runs on a
 local mesh of one and explains a mesh of 8, and the brute-force oracle,
 both baselines and the legacy ``join_agg`` agree with the planner, all
 with both packages refused; the storage gate and the catalog verifier
@@ -89,11 +91,13 @@ with tempfile.TemporaryDirectory() as td:
     stored_explained = "storage: chunked" in stored.explain()
     stored_findings = len(stored.verify(strict=False))
 from repro_torch.serve import JoinAggServer, connect, serve_tcp
+from repro_torch.serve.mesh import describe_spec, rebuild_spec
 
 served_db = Database.from_mapping(db)
 with JoinAggServer(served_db, device="cpu", workers=2) as srv:
     bundle = Q.over("R1", "R2").group_by("R1.g1", "R2.g2").agg(n=Count(), s=Sum("R2.m"))
     served = srv.query(bundle)
+    served_mesh_one = srv.query(rebuild_spec(describe_spec(bundle.mesh(1)), {}))
     tcp, _ = serve_tcp(srv)
     try:
         with connect(*tcp.server_address) as remote:
@@ -130,7 +134,9 @@ baselines_same = (
     ).items()} == res.to_dict("hi")
 )
 meshed_explained = "torch path: distributed-sparse" in meshed_q.mesh(8).plan(db).explain()
-served_same = all((served.column(c) == res.column(c)).all() for c in ("n", "s"))
+served_same = all(
+    (r.column(c) == res.column(c)).all() for r in (served, served_mesh_one) for c in ("n", "s")
+)
 remote_same = remote_res.to_dict("n") == res.to_dict("n")
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in {"jax", "jaxlib", "repro"})
 print(json.dumps({"rows": res.num_rows, "n": float(res.column("n").sum()),
@@ -241,6 +247,7 @@ def test_the_scan_covers_every_port_package():
     assert PORT / "relational" / "oracle.py" in scanned_files
     assert PORT / "launch" / "storage.py" in scanned_files
     assert PORT / "analysis" / "__main__.py" in scanned_files
+    assert PORT / "serve" / "mesh.py" in scanned_files
     scanned = {p.parent.name for p in PORT.rglob("*.py")}
     packages = {p.parent.name for p in PORT.rglob("__init__.py")}
     assert {

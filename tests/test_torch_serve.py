@@ -300,9 +300,10 @@ def _raw_call(host, port, req: dict) -> dict:
 
 
 def test_wire_refuses_foreign_engines_and_meshes(db):
-    """``"engine": "jax"`` and ``"mesh"`` come back as ``{"ok": false}``
-    responses (the mesh refused by the server, before it compiles); the
-    server keeps answering."""
+    """``"engine": "jax"`` and ``"mesh": 2`` come back as ``{"ok": false}``
+    responses (the mesh refused by a server not started on a process
+    group, before it compiles, with the way to start one); the server
+    keeps answering."""
     q = {"relations": ["R1", "R2", "R3", "R4"], "group_by": ["R1.g1"],
          "aggs": {"n": {"kind": "count"}}}
     with JoinAggServer(db, device="cpu", workers=2) as srv:
@@ -317,7 +318,7 @@ def test_wire_refuses_foreign_engines_and_meshes(db):
             tcp.server_close()
     assert jax_resp["ok"] is False and "jax" in jax_resp["error"]
     assert mesh_resp["ok"] is False and "UnsupportedPlanOption" in mesh_resp["error"]
-    assert "follower loop" in mesh_resp["error"]
+    assert "serve_mesh" in mesh_resp["error"]
     assert ok_resp["ok"] is True
 
 

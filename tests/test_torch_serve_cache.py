@@ -11,7 +11,7 @@ import weakref
 import pytest
 
 from repro.serve.cache import PlanCache as JPlanCache
-from repro_torch.api import Count, Q, Sum, TorchChannelEngine, UnsupportedPlanOption
+from repro_torch.api import Count, Q, Sum, TorchChannelEngine
 from repro_torch.core import torch_engine
 from repro_torch.serve.batcher import fusion_key
 from repro_torch.serve.cache import LRUCache, PlanCache, plan_shape_key
@@ -122,7 +122,7 @@ def test_shape_key_stable_and_generation_scoped():
     assert plan_shape_key(base_q(), generation=1) != k1
 
 
-def test_shape_key_distinguishes_aggregates_and_options():
+def test_shape_key_distinguishes_aggregates_and_options(db):
     q = base_q()
     assert plan_shape_key(q) != plan_shape_key(
         Q.over("R1", "R2", "R3", "R4").group_by("R1.g1").agg(n=Sum("R2.w"))
@@ -130,14 +130,18 @@ def test_shape_key_distinguishes_aggregates_and_options():
     assert plan_shape_key(q) != plan_shape_key(q.engine("jax"))
     assert plan_shape_key(q) != plan_shape_key(q.stats(False))
     assert plan_shape_key(q) != plan_shape_key(q.memory_budget(1 << 20))
-    # a shard count is keyed, as the reference keys it; the cache refuses
-    # to compile it (no other rank would join its collective)
+    # a shard count is keyed, as the reference keys it; the cache compiles
+    # it (every rank of a mesh lane compiles through its own cache), and
+    # only its execute is a collective call, which needs a group of 2
     assert plan_shape_key(q.mesh(2)) != plan_shape_key(q)
     assert plan_shape_key(q.mesh(2))[9] == 2
     pc = PlanCache(8, engine=CPU)
-    with pytest.raises(UnsupportedPlanOption, match="follower loop"):
-        pc.lookup(q.mesh(2), None)
-    assert pc.stats.compiles == 0
+    plan = pc.lookup(q.mesh(2), db)
+    assert pc.stats.compiles == 1 and plan.mesh == 2
+    with pytest.raises(ValueError, match="needs a process group of 2 ranks"):
+        plan.execute()
+    assert pc.lookup(q.mesh(2), db) is plan
+    assert pc.stats.compiles == 1
 
 
 def test_shape_key_keeps_the_fused_option(db):
