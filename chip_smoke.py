@@ -205,6 +205,27 @@ Run from the root of a checkout on a machine with a CUDA card.  It
    ``.engine(TorchChannelEngine(mode="sparse"))``, and must launch
    ``segment_sum``, ``coo_spmm`` and ``segment_reduce``.  Any non-zero
    exit code fails the script; it prints each part's seconds.
+16. drives the ref leg, the paper's own engine (``"ref"``: the data graph
+   built on the card and walked breadth-first over tiles of sources,
+   ``repro_torch.core.datagraph`` and ``core/ref_engine.py``).  Table I:
+   the data graph of every ``synth.ALL`` dataset at 500,000 rows
+   (``TABLE_ONE_N``), its rows, nodes, edges, ``memory_bytes()``, device
+   bytes and build seconds; at ``--check-n`` each graph built on the card
+   equals the one built with ``device="cpu"``, tensor for tensor.  The
+   main path's C1 bundle on leg 2's data through ``.engine("ref")``, its
+   launch counts set to 0 just before and read just after
+   (``segment_sum`` and ``segment_reduce`` must launch): bit-identical
+   to leg 2's result by digest, Σ COUNT and Σ SUM against numpy, Stage 2
+   and Stage 3 seconds, the frontier's peak rows, tiles, and the device
+   peak against the torch engine's.  B2 COUNT/SUM over (g1, g2, g3) at
+   ``REF_B2_N`` rows, path-ids and cross products, bit-identical to the
+   torch engine and Σ COUNT against numpy; C1 and B2 at ``--check-n``
+   on the card bit-identical to ``RefChannelEngine(device="cpu")``; a
+   ``"ref"`` COUNT handle on B2 at ``REF_MAINTAIN_N`` rows through three
+   inserts and a delete, each equal to a from-scratch ``"ref"`` run.  The
+   largest ``segment_sum`` and ``segment_reduce`` launches of the C1 run
+   are held against their plain versions (tolerance 0) and timed beside
+   the bound and the library call.
 
 Every leg prints its ``torch path:`` line — per key range for the split
 leg — and checks the path each run took against ``choose_path``: a dense
@@ -426,17 +447,21 @@ class Launch(NamedTuple):
     size: int  # elements read and written
 
 
-def capture_launches(run, key_of) -> dict:
-    """Run ``run()`` with the engine's kernel wrappers wrapped, keeping
-    for each key ``key_of(name, args, kwargs)`` (None: not kept) the
-    largest launch (by elements read and written) and the number of
-    launches.  This run is outside any counted or timed one."""
+def capture_launches(run, key_of, modules=()) -> dict:
+    """Run ``run()`` with the engine's kernel wrappers wrapped (those
+    that ``torch_engine`` and ``modules`` call), keeping for each key
+    ``key_of(name, args, kwargs)`` (None: not kept) the largest launch
+    (by elements read and written) and the number of launches.  This run
+    is outside any counted or timed one."""
     from repro_torch.core import torch_engine
 
     largest: dict = {}
     counts: dict = {}
     names = UNFUSED_KERNELS + ("fused_hop",)
-    originals = {name: getattr(torch_engine, name) for name in names}
+    originals = {
+        (mod, name): getattr(mod, name)
+        for mod in (torch_engine, *modules) for name in names if hasattr(mod, name)
+    }
 
     def wrap(name, fn):
         def capturing(*args, **kwargs):
@@ -455,13 +480,13 @@ def capture_launches(run, key_of) -> dict:
 
         return capturing
 
-    for name, fn in originals.items():
-        setattr(torch_engine, name, wrap(name, fn))
+    for (mod, name), fn in originals.items():
+        setattr(mod, name, wrap(name, fn))
     try:
         run()
     finally:
-        for name, fn in originals.items():
-            setattr(torch_engine, name, fn)
+        for (mod, name), fn in originals.items():
+            setattr(mod, name, fn)
     return {
         key: Launch(args, kw, offset, counts[key], size)
         for key, (size, args, kw, offset) in largest.items()
@@ -2924,6 +2949,211 @@ SERVED_WORLD = 2  # the group that also serves meshed
 SERVED_WARM = 5
 
 
+TABLE_ONE_N = 500_000  # the paper's scale (Table I)
+REF_B2_N = 500_000
+REF_MAINTAIN_N = 100_000
+
+
+def table_one(torch, tag, args) -> list[dict]:
+    """The paper's Table I on the card: the data graph of every
+    synthetic dataset at ``TABLE_ONE_N`` rows per relation; at
+    ``--check-n`` the card's graph equals the CPU's, tensor for tensor."""
+    from repro_torch.core.datagraph import build_data_graph
+    from repro_torch.core.prepare import prepare
+    from repro_torch.data import synth
+
+    rows = []
+    for name in synth.ALL:
+        db, q = synth.make(name, TABLE_ONE_N, seed=args.seed)
+        prep = prepare(q, db)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g = build_data_graph(prep)
+        torch.cuda.synchronize()
+        row = dict(dataset=name, rows=TABLE_ONE_N, nodes=g.num_nodes, edges=g.num_edges,
+                   memory_bytes=g.memory_bytes(), device_bytes=g.device_bytes(),
+                   seconds=time.perf_counter() - t0)
+        del g, prep, db
+        small_db, small_q = synth.make(name, args.check_n, seed=args.seed)
+        small = prepare(small_q, small_db)
+        card, cpu = build_data_graph(small), build_data_graph(small, device="cpu")
+        same = (
+            (card.num_nodes, card.num_edges, card.memory_bytes())
+            == (cpu.num_nodes, cpu.num_edges, cpu.memory_bytes())
+            and all(torch.equal(getattr(card, a).cpu(), getattr(cpu, a))
+                    for a in ("offsets", "edge_dst", "edge_mult", "node_type"))
+            and all(torch.equal(card.blocks[k].codes.cpu(), b.codes)
+                    for k, b in cpu.blocks.items())
+        )
+        say(tag, f"ref leg: Table I: {name} n={TABLE_ONE_N}: {row['nodes']} nodes, "
+                 f"{row['edges']} edges, memory_bytes() {row['memory_bytes']} B, device "
+                 f"{row['device_bytes']} B, built in {row['seconds']:.3f} s; at "
+                 f"n={args.check_n} card = device='cpu' ({cpu.num_nodes} nodes, "
+                 f"{cpu.num_edges} edges): {same}")
+        check(same, f"ref leg: {name}: the card's data graph differs from the CPU's")
+        rows.append(row)
+    return rows
+
+
+def ref_execute(torch, plan):
+    """``plan.execute()`` on the ref engine with the launch counts set to
+    0 just before and read just after: the result, wall seconds (ending
+    in a synchronise), launches, device peak above what was allocated
+    before, and the engine's own ``RefRun`` (stage seconds, peak rows)."""
+    from repro_torch.core import ref_engine
+    from repro_torch.kernels import ops
+
+    runs = []
+    real = ref_engine.ref_run
+
+    def spy(*a, **kw):
+        runs.append(real(*a, **kw))
+        return runs[-1]
+
+    ref_engine.ref_run = spy
+    try:
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = plan.execute()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = ops.launch_counts()
+    finally:
+        ref_engine.ref_run = real
+    check(len(runs) == 1, "ref leg: the plan did not run the ref engine once")
+    return res, secs, launches, torch.cuda.max_memory_allocated() - resident, runs[0]
+
+
+def ref_run_line(run) -> str:
+    return (f"data graph {run.graph_s:.3f} s, Stage 2 {run.stage2_s:.3f} s, Stage 3 "
+            f"{run.stage3_s:.3f} s, peak rows {run.peak_rows}, {run.tiles} tiles "
+            f"({run.splits} splits)")
+
+
+def ref_leg(torch, tag, args, db, cols, digest: str, main: dict) -> dict:
+    """The paper's own engine on the card (see 16 in the module
+    docstring)."""
+    from repro_torch.api import Count, Q, RefChannelEngine, Sum
+    from repro_torch.core import ref_engine
+
+    t_leg = time.perf_counter()
+    seconds = {}
+    table = table_one(torch, tag, args)
+    seconds["table I"] = time.perf_counter() - t_leg
+
+    # the main path's C1 bundle through "ref", on leg 2's data
+    t0 = time.perf_counter()
+    plan = bundle_query("ref").plan(db)
+    prepare_s = time.perf_counter() - t0
+    res, secs, launches, peak, run = ref_execute(torch, plan)
+    want_n, want_s = chain_totals(cols)
+    got_n, got_s = res.column("n").sum(), res.column("s").sum()
+    same = result_digest(res) == digest
+    say(tag, f"ref leg: C1 n={args.n} bundle through .engine('ref'): prepare {prepare_s:.3f} "
+             f"s, execute {secs:.3f} s ({ref_run_line(run)}), {res.num_rows} rows, "
+             f"launches {launches}; device peak {peak} B above resident against the "
+             f"torch engine's {main['peak_above_resident_bytes']} B (warm execute "
+             f"{main['warm_execute_s']:.3f} s)")
+    say(tag, f"check: ref leg: C1: Σ count {got_n:.0f} vs numpy {want_n}; Σ sum {got_s:.0f} "
+             f"vs numpy {want_s}; result digest equal to the main path's: {same}")
+    check(same, "ref leg: the C1 bundle through ref differs from the main path's result")
+    check(got_n == want_n and got_s == want_s, "ref leg: C1 Σ count / Σ sum disagree with numpy")
+    for name in SEGMENT_KERNELS:
+        check(launches[name] > 0, f"ref leg: the C1 bundle never launched {name}")
+    c1 = dict(prepare_s=prepare_s, execute_s=secs, rows=res.num_rows, graph_s=run.graph_s,
+              stage2_s=run.stage2_s, stage3_s=run.stage3_s, peak_rows=run.peak_rows,
+              tiles=run.tiles, splits=run.splits, peak_above_resident_bytes=peak,
+              torch_peak_above_resident_bytes=main["peak_above_resident_bytes"])
+    captured = capture_launches(plan.execute, main_path_key, modules=(ref_engine,))
+    del plan, res, run
+    seconds["C1"] = time.perf_counter() - t_leg - seconds["table I"]
+
+    # B2: path-ids and cross products, against the torch engine
+    t0 = time.perf_counter()
+    b2c, bq = b2_cols(REF_B2_N, args.seed)
+
+    def b2_spec(engine):
+        return (Q.over(*bq.relations).group_by("R1.g1", "R3.g2", "R4.g3")
+                .agg(n=Count(), s=Sum("R2.m")).engine(engine))
+
+    torch_res = b2_spec("torch").execute(b2c)
+    bres, bsecs, blaunches, bpeak, brun = ref_execute(torch, b2_spec("ref").plan(b2c))
+    same = same_result(bres, torch_res)
+    total = b2_total(b2c)
+    say(tag, f"ref leg: B2 n={REF_B2_N} COUNT/SUM through .engine('ref'): execute "
+             f"{bsecs:.3f} s ({ref_run_line(brun)}), {bres.num_rows} rows, launches "
+             f"{blaunches}, device peak {bpeak} B above resident")
+    say(tag, f"check: ref leg: B2: every column bit-identical to .engine('torch'): {same}; "
+             f"Σ count {bres.column('n').sum():.0f} vs numpy {total}")
+    check(same and bres.num_rows > 0, "ref leg: B2 through ref differs from the torch engine")
+    check(bres.column("n").sum() == total, "ref leg: B2 Σ count disagrees with numpy")
+    b2 = dict(execute_s=bsecs, rows=bres.num_rows, graph_s=brun.graph_s,
+              stage2_s=brun.stage2_s, stage3_s=brun.stage3_s, peak_rows=brun.peak_rows,
+              tiles=brun.tiles, splits=brun.splits, peak_above_resident_bytes=bpeak)
+    del torch_res, bres, brun, b2c
+    seconds["B2"] = time.perf_counter() - t0
+
+    # the card against the CPU at --check-n
+    t0 = time.perf_counter()
+    small, _ = chain_db(args.check_n, args.seed)
+    small_b2, _ = b2_cols(args.check_n, args.seed)
+    cpu = RefChannelEngine(device="cpu")
+    for label, card_q, cpu_q, data in (
+        ("C1 bundle", bundle_query("ref"), bundle_query(cpu), small),
+        ("B2 COUNT/SUM", b2_spec("ref"), b2_spec(cpu), small_b2),
+    ):
+        gpu, host = card_q.execute(data), cpu_q.execute(data)
+        same = same_result(gpu, host)
+        say(tag, f"check: ref leg: {label} n={args.check_n}: {host.num_rows} rows, every "
+                 f"column bit-identical to device='cpu': {same}")
+        check(same and host.num_rows > 0, f"ref leg: {label}: the card differs from the CPU")
+    seconds["card = cpu"] = time.perf_counter() - t0
+
+    # maintenance: a "ref" COUNT handle on B2
+    t0 = time.perf_counter()
+    mcols, mq = b2_cols(REF_MAINTAIN_N, args.seed)
+
+    def count_spec():
+        return (Q.over(*mq.relations).group_by("R1.g1", "R3.g2", "R4.g3")
+                .agg(n=Count()).engine("ref"))
+
+    handle = count_spec().maintain(mcols)
+    check(handle.result() == count_spec().execute(mcols).to_dict("n"),
+          "ref leg: the maintained handle starts off the fresh answer")
+    batches = b2_batches(mcols, args.seed)
+    refreshes = []
+    for label, op, rel, batch in (batches[2], batches[6], batches[7], batches[5]):
+        row = timed_refresh(torch, handle, op, rel, batch)
+        mcols = mirrored(mcols, op, rel, batch)
+        fresh, fresh_ms, _ = from_scratch(torch, count_spec(), mcols)
+        same = handle.result() == fresh.to_dict("n")
+        say(tag, f"ref leg: maintain B2 n={REF_MAINTAIN_N}: {label}: refresh {row['ms']:.1f} "
+                 f"ms (rows rescanned {row['rows_rescanned']}, recomputes "
+                 f"{row['fallback_recomputes']}, launches {row['launches']}) against a "
+                 f"from-scratch ref run {fresh_ms:.1f} ms; equal to it: {same}")
+        check(same, f"ref leg: maintain: {label}: the handle differs from a fresh run")
+        refreshes.append(dict(batch=label, ms=row["ms"], scratch_ms=fresh_ms,
+                              rows_rescanned=row["rows_rescanned"]))
+    seconds["maintain"] = time.perf_counter() - t0
+
+    # the C1 run's largest segment launches against their plain versions
+    kernels = {}
+    for name in SEGMENT_KERNELS:
+        seg = [lc for key, lc in captured.items() if isinstance(key, tuple) and key[0] == name]
+        check(bool(seg), f"ref leg: no {name} launch captured")
+        kernels[name] = segment_regime(torch, tag, name, "largest C1 ref launch",
+                                       max(seg, key=lambda lc: lc.size), path="ref leg")
+    leg_s = time.perf_counter() - t_leg
+    say(tag, f"ref leg: the leg took {leg_s:.1f} s ("
+             + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items()) + ")")
+    return {"seconds": leg_s, "part_seconds": seconds, "table_one": table, "c1": c1,
+            "b2": b2, "maintain": refreshes, "kernels": kernels,
+            "launches": {"ref": launches}}
+
+
 def result_digest(res) -> str:
     """sha256 over every column's name, dtype, shape and bytes: equal
     digests are results equal bit for bit."""
@@ -3887,14 +4117,24 @@ def main() -> int:
     launched = launcher_leg(torch, tag, args)
     done("15. launcher leg")
 
+    # 16. ref leg ------------------------------------------------------------
+    torch.cuda.empty_cache()
+    reffed = ref_leg(torch, tag, args, db, cols, main_digest, main)
+    for name, row in reffed.pop("kernels").items():
+        results[name]["max_abs_err"] = max(results[name]["max_abs_err"], row["max_abs_err"])
+        results[name]["ref"] = row
+    done("16. ref leg")
+
     legs = {"main": launches, "fused": flaunches}
-    for leg in (split, cyclic, dense, maintain, stored, served, sharded, compared, launched):
+    for leg in (split, cyclic, dense, maintain, stored, served, sharded, compared, launched,
+                reffed):
         legs.update(leg.pop("launches"))
     for label, summary in (("main path", main), ("fused path", fused), *split.items(),
                            *cyclic.items(), *dense.items(), *maintain.items(),
                            *(("storage leg, " + k, v) for k, v in stored.items()),
                            ("serve leg", served), ("shard leg", sharded),
-                           ("comparison leg", compared), ("launcher leg", launched)):
+                           ("comparison leg", compared), ("launcher leg", launched),
+                           ("ref leg", reffed)):
         say(tag, f"{label} summary: {json.dumps(summary)}")
     paths = {name: "main" for name in UNFUSED_KERNELS}
     paths.update(fused_hop="fused", semiring_matmul=None)
@@ -3916,7 +4156,7 @@ def main() -> int:
             entry.update(regimes=r["regimes"], launches_by_width=r["launches_by_width"])
         if name == "coo_spmm":
             entry.update(walk=r["walk"])
-        for leg in ("maintain", "storage", "serve", "shard"):
+        for leg in ("maintain", "storage", "serve", "shard", "ref"):
             if leg in r:
                 entry[leg] = r[leg]
         if name == "fused_hop":

@@ -24,6 +24,7 @@ from repro_torch.api.engines import (
     Engine,
     EngineOutput,
     MinMaxRequest,
+    RefChannelEngine,
     TorchChannelEngine,
     register_engine,
     resolve_engine,
@@ -46,6 +47,7 @@ __all__ = [
     "MinMaxRequest",
     "Plan",
     "Q",
+    "RefChannelEngine",
     "Sum",
     "TorchChannelEngine",
     "UnsupportedPlanOption",

@@ -14,8 +14,10 @@ tiles on one device: CUDA unless the caller asks for the CPU.  It is the
 port of the JAX package's ``JaxChannelEngine.run`` (the dense einsum
 program or the sparse kernel walk, chosen per run; over a mesh, the
 sharded sparse walk of ``repro_torch.core.distributed``) and is
-registered under the name ``"torch"``.  Any other backend that meets the
-:class:`Engine` protocol joins it through :func:`register_engine`.
+registered under the name ``"torch"``.  :class:`RefChannelEngine`, the
+paper's own data-graph traversal (``repro_torch.core.ref_engine``), is
+registered as ``"ref"``.  Any other backend that meets the
+:class:`Engine` protocol joins them through :func:`register_engine`.
 """
 from __future__ import annotations
 
@@ -265,6 +267,60 @@ class TorchChannelEngine:
         ]
 
 
+class RefChannelEngine:
+    """The paper-faithful engine on one device: the data graph built on
+    the card and walked breadth-first over tiles of sources, carrying k
+    COUNT/SUM channels (:func:`~repro_torch.core.ref_engine.ref_run`),
+    each keyed sum on the ``segment_sum`` kernel.  MIN/MAX at the
+    joined groups come from ``SparseProgram.run_minmax`` on the same
+    device (``segment_reduce`` hops), as the torch engine's dense path
+    takes them.  No streaming, no fused hops, no mesh, no split plans:
+    the reference's ``"ref"`` has none either.
+
+    ``device`` defaults to ``"cuda"``; a plan fails at compile time when
+    no card is present, and ``RefChannelEngine(device="cpu")`` is the
+    only way onto the CPU."""
+
+    name = "ref"
+    supports_streaming = False
+
+    def __init__(self, device: str | torch.device = "cuda"):
+        self._device = torch.device(device)
+
+    @property
+    def device(self) -> torch.device:
+        """The device to run on; raises when it is a card that is absent."""
+        return require_device(
+            self._device, "engine 'ref'", '.engine(RefChannelEngine(device="cpu"))'
+        )
+
+    def run(self, prep, channels, minmax, stream=None):
+        """All channels in one traversal; one output, its groups those
+        with COUNT > 0 in ascending order."""
+        from repro_torch.core.ref_engine import ref_run
+
+        if stream is not None:
+            raise ValueError("the ref engine cannot tile a stream")
+        device = self.device
+        cm = tuple(ch.measure[0] if ch.kind == "sum" else None for ch in channels)
+        run = ref_run(prep, cm, device)
+        keep = run.values[:, channels.index(COUNT_CHANNEL)] > 0
+        codes, vals = run.codes[keep], run.values[keep]
+        mm = {}
+        if minmax:
+            prog = build_sparse_program(prep, cm, device)
+            at = tuple(codes.T)
+            mm = {req: prog.run_minmax(req.kind, req.measure[0])[at] for req in minmax}
+        k = len(channels)
+        values = torch.cat(
+            [vals.T.to(torch.float64)] + [m[None].to(torch.float64) for m in mm.values()]
+        )
+        codes_h, values_h = _to_host(codes.T.contiguous()), _to_host(values)
+        return [EngineOutput(
+            codes_h.T, values_h[:k].T, {req: values_h[k + j] for j, req in enumerate(mm)},
+        )]
+
+
 _REGISTRY: dict[str, Engine] = {}
 
 
@@ -287,3 +343,4 @@ def resolve_engine(engine: str | Engine) -> Engine:
 
 
 register_engine(TorchChannelEngine())
+register_engine(RefChannelEngine())

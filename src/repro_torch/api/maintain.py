@@ -10,8 +10,8 @@ group-attribute copies are applied to every batch before it reaches the
 handles, so callers never re-implement the plan's rewrites.  Every
 handle keeps its caches on the plan engine's device.
 
-Port of the JAX package's ``api/maintain.py``; the one maintainable
-engine is ``"torch"``.
+Port of the JAX package's ``api/maintain.py``; the maintainable engines
+are ``"torch"`` and ``"ref"`` (COUNT only, as the reference).
 """
 from __future__ import annotations
 
@@ -23,7 +23,7 @@ from repro_torch.core.query import JoinAggQuery
 from repro_torch.incremental.maintained import MaintainedJoinAgg, _columns_of
 from repro_torch.relational.relation import Relation
 
-_MAINTAINABLE = ("torch",)
+_MAINTAINABLE = ("torch", "ref")
 
 
 def _engine_name(plan: Plan) -> str:

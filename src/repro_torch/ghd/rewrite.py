@@ -310,8 +310,10 @@ def ghd_join_agg(
 ) -> dict[tuple, float]:
     """Execute a cyclic join-aggregate query through the GHD compiler.
 
-    ``engine`` is ``"torch"`` (on CUDA; raises when no card is present)
-    or an engine instance such as ``TorchChannelEngine(device="cpu")``.
+    ``engine`` is ``"torch"`` or ``"ref"`` (on CUDA; raises when no card
+    is present) or an engine instance such as
+    ``TorchChannelEngine(device="cpu")``.  ``"ref"`` runs ``execute_ref``
+    on the derived query, COUNT only, as the reference does.
     Pass a precompiled ``plan`` (from :func:`compile_ghd`) to amortize
     bag materialization across runs.  The derived plan runs on the
     engine's device as a cyclic ``Plan`` runs (auto-streaming past
@@ -342,6 +344,12 @@ def ghd_join_agg(
         from repro_torch.core import distributed
 
         return distributed.run_query(prep, mesh, device=device)
+    if eng.name == "ref":
+        # the reference runs its DFS on the derived query directly: COUNT
+        # only, and the budget and stream options go unused
+        from repro_torch.core.ref_engine import execute_ref
+
+        return execute_ref(plan.derived_query, None, prep=prep, device=device)
     display = _display_names(prep.group_attrs)
     name = "value"
     while name in display:  # the aggregate's column sits beside the groups'

@@ -16,13 +16,17 @@ engine: the cached messages stay on the engine's device (CUDA unless the
 caller asks for ``device="cpu"``) and every delta hop runs on the
 hand-written ``coo_spmm`` / ``segment_sum`` kernels
 (:class:`~repro_torch.incremental.torch_delta.KernelDeltaEngine`), for
-COUNT, SUM and AVG.  There is one engine, ``"torch"``: the reference's
-``"ref"`` engine re-walks the paper's data graph, which the port does
-not have.
+COUNT, SUM and AVG.  ``engine="ref"`` (COUNT only, as the reference)
+re-walks only *dirty sources* instead: the signed delta is semi-joined
+outward through the decomposition tree on the host, and the paper's
+data-graph traversal (:mod:`repro_torch.core.ref_engine`) runs on that
+restricted sub-database on the handle's device; its contribution adds
+onto the cached result by linearity of COUNT.
 
 Non-invertible cases fall back to a path recompute over the maintained
 encoded state (never a re-encode of the unchanged data) through
-:func:`~repro_torch.core.torch_engine.execute_torch` on the same device:
+:func:`~repro_torch.core.torch_engine.execute_torch` (``"ref"``:
+:func:`~repro_torch.core.ref_engine.execute_ref`) on the same device:
 MIN/MAX under deletes (payload rebuilt from retained raw tuples), and
 any query whose fold rewrite baked a dirty relation into a host.  Cyclic
 queries compose with the GHD compiler: a delta re-materializes only the
@@ -43,8 +47,9 @@ import numpy as np
 import torch
 
 from repro_torch.aggregates.semiring import Count, Sum
-from repro_torch.core.prepare import encode_query, finish_prepare
+from repro_torch.core.prepare import Prepared, encode_query, finish_prepare
 from repro_torch.core.query import JoinAggQuery, resolve_schema
+from repro_torch.core.ref_engine import execute_ref
 from repro_torch.core.tensor_engine import _decode_result
 from repro_torch.core.torch_engine import execute_torch, require_device
 from repro_torch.incremental.delta import DeltaBatch, MaintainedRelation, encode_delta
@@ -52,7 +57,7 @@ from repro_torch.incremental.planner import MessageCache
 from repro_torch.relational.encoding import EncodedRelation, encode_relation
 from repro_torch.relational.relation import Database, Relation
 
-ENGINES = ("torch",)
+ENGINES = ("torch", "ref")
 
 
 @dataclass
@@ -101,6 +106,8 @@ class MaintainedJoinAgg:
         self.engine = engine
         self.kind = query.agg.kind
         self.stats = RefreshStats()
+        if engine == "ref" and self.kind != "count":
+            raise NotImplementedError("ref engine maintains COUNT only")
         self.cyclic = is_cyclic_query(query, db)
         self._init_raw(query, db)
         if self.cyclic:
@@ -134,9 +141,14 @@ class MaintainedJoinAgg:
         self.caches: dict[str, MessageCache] | None = None
         if self.kind in ("min", "max"):
             self.result_dict = self._full_result()
+        elif self.engine == "ref":
+            self.result_dict = self._execute_ref(self.prep)
         else:
             self._build_caches()
             self.result_dict = self._decode_full()
+
+    def _execute_ref(self, prep) -> dict[tuple, float]:
+        return execute_ref(prep.query, None, prep=prep, device=self.device)
 
     def _sync_fold_affected(self) -> None:
         """Relations whose maintained encoding the fold rewrite replaced
@@ -244,6 +256,8 @@ class MaintainedJoinAgg:
             self._refresh_minmax(rel)
         elif self.fold_mode and rel in self._fold_affected:
             self._refresh_fold(rel)
+        elif self.engine == "ref":
+            self._refresh_ref(rel, delta)
         else:
             self._refresh_propagate(rel, delta)
         return self.result()
@@ -358,6 +372,51 @@ class MaintainedJoinAgg:
             else:
                 self.result_dict[key] = v
 
+    # --- ref engine: re-walk only dirty sources ----------------------
+    def _refresh_ref(self, rel: str, delta: DeltaBatch) -> None:
+        """Semi-join the delta outward through the decomposition tree and
+        run the data-graph traversal on the restricted signed
+        sub-database; the restricted root rows are exactly the *dirty
+        sources*, and by linearity of COUNT the contribution adds onto
+        the cached result."""
+        deco = self.prep.decomposition
+        enc: dict[str, EncodedRelation] = {
+            rel: EncodedRelation(rel, delta.attrs, delta.codes, delta.count, {})
+        }
+        queue = [rel]
+        while queue:
+            a = queue.pop(0)
+            na = deco.nodes[a]
+            for b in list(na.children) + ([na.parent] if na.parent else []):
+                if b in enc:
+                    continue
+                # the folded plan's encodings (== the maintained ones for
+                # every fold-unaffected relation)
+                eb = self.prep.encoded[b]
+                ea = enc[a]
+                shared = [x for x in eb.attrs if x in set(ea.attrs)]
+                bi = [eb.attrs.index(x) for x in shared]
+                ai = [ea.attrs.index(x) for x in shared]
+                mask = _member_mask(eb.codes[:, bi], ea.codes[:, ai])
+                enc[b] = EncodedRelation(
+                    b, eb.attrs, eb.codes[mask], eb.count[mask], {}
+                )
+                self.stats.rows_rescanned += int(mask.sum())
+                queue.append(b)
+        small = Prepared(
+            self.prep.query, self.prep.schema, self.dicts, enc,
+            deco, self.prep.folded, self.prep.fold_hosts,
+        )
+        self.stats.charge(
+            sum(e.codes.nbytes + e.count.nbytes for e in enc.values())
+        )
+        for k, v in self._execute_ref(small).items():
+            nv = self.result_dict.get(k, 0.0) + v
+            if nv == 0.0:
+                self.result_dict.pop(k, None)
+            else:
+                self.result_dict[k] = nv
+
     # --- fallbacks ----------------------------------------------------
     def _current_encoded(self, live: bool) -> dict[str, EncodedRelation]:
         """``live=True`` drops zero-count rows (required by MIN/MAX whose
@@ -386,6 +445,9 @@ class MaintainedJoinAgg:
             self.query, self.schema, self.dicts, self._current_encoded(live=False)
         )
         self._sync_fold_affected()
+        if self.engine == "ref":
+            self.result_dict = self._execute_ref(self.prep)
+            return
         self._build_caches()
         self.result_dict = self._decode_full()
 
@@ -468,10 +530,12 @@ class MaintainedJoinAgg:
 
     def _run_derived(self) -> dict[tuple, float]:
         """The derived (bag) query on the handle's device through
-        ``execute_torch``; AVG, which ``execute_torch`` leaves to the
-        planner, as SUM / COUNT per group, as the propagate path
-        divides."""
+        ``execute_torch`` (``"ref"``: ``execute_ref``); AVG, which
+        ``execute_torch`` leaves to the planner, as SUM / COUNT per group,
+        as the propagate path divides."""
         prep = self.prep
+        if self.engine == "ref":
+            return self._execute_ref(prep)
         if self.kind != "avg":
             return execute_torch(prep.query, None, prep=prep, device=self.device)
         q = prep.query
@@ -528,3 +592,15 @@ class MaintainedJoinAgg:
                 plan.derived_query, schema_d, plan.derived_dicts, encoded_d
             )
         self.result_dict = self._run_derived()
+
+
+def _member_mask(rows: np.ndarray, members: np.ndarray) -> np.ndarray:
+    """Mask of ``rows`` whose key tuple occurs in ``members`` (same cols)."""
+    if rows.shape[1] == 0:
+        return np.ones(len(rows), dtype=bool)
+    _, inv = np.unique(
+        np.concatenate([members, rows], axis=0), axis=0, return_inverse=True
+    )
+    inv = inv.ravel()
+    im, ir = inv[: len(members)], inv[len(members):]
+    return np.isin(ir, np.unique(im))

@@ -5,8 +5,9 @@
 
 Generates the medium measured-chain catalog, writes it to an on-disk
 database, mounts it back with :func:`repro_torch.storage.open_database`,
-and exits non-zero unless, on the ``"torch"`` engine
-(``TorchChannelEngine(device=--device)``, CUDA by default),
+and exits non-zero unless, on the ``"torch"`` and ``"ref"`` engines
+(``TorchChannelEngine(device=--device)``, then
+``RefChannelEngine(device=--device)``, CUDA by default),
 
 * ``prepare`` + ``execute`` through the mounted (memmap-backed) database
   is bit-identical to the in-memory run,
@@ -34,7 +35,7 @@ import numpy as np
 
 from repro_torch.aggregates.semiring import Avg, Count, Max, Min, Sum
 from repro_torch.api.builder import Q
-from repro_torch.api.engines import TorchChannelEngine
+from repro_torch.api.engines import RefChannelEngine, TorchChannelEngine
 from repro_torch.core.torch_engine import require_device
 from repro_torch.relational.relation import Database
 from repro_torch.storage import open_database, write_database
@@ -93,24 +94,26 @@ def smoke(rows: int, keep: str | None, device: str = "cuda") -> int:
     try:
         write_database(db, path + "/db")
         disk = open_database(path + "/db")
-        eq = _query().engine(engine)
-        want = eq.execute(db)
-        if not _same(want, eq.execute(disk)):
-            failures.append(f"{engine.name}: mounted run diverged")
-        # chunk far below every relation: multi-run external sorts +
-        # k-way aggregating merges on every prepare
-        before = os.environ.get("REPRO_CHUNK_ROWS")
-        os.environ["REPRO_CHUNK_ROWS"] = str(max(64, rows // 64))
-        try:
-            forced = eq.execute(open_database(path + "/db"))
-        finally:
-            if before is None:
-                del os.environ["REPRO_CHUNK_ROWS"]
-            else:
-                os.environ["REPRO_CHUNK_ROWS"] = before
-        if not _same(want, forced):
-            failures.append(f"{engine.name}: forced-chunk run diverged")
-        print(f"storage-smoke: {engine.name} ok ({want.num_rows} groups)")
+        for eng in (engine, RefChannelEngine(device=device)):
+            eq = _query().engine(eng)
+            want = eq.execute(db)
+            if not _same(want, eq.execute(disk)):
+                failures.append(f"{eng.name}: mounted run diverged")
+            # chunk far below every relation: multi-run external sorts +
+            # k-way aggregating merges on every prepare (the ref engine
+            # rejects memory_budget, so force via the env knob)
+            before = os.environ.get("REPRO_CHUNK_ROWS")
+            os.environ["REPRO_CHUNK_ROWS"] = str(max(64, rows // 64))
+            try:
+                forced = eq.execute(open_database(path + "/db"))
+            finally:
+                if before is None:
+                    del os.environ["REPRO_CHUNK_ROWS"]
+                else:
+                    os.environ["REPRO_CHUNK_ROWS"] = before
+            if not _same(want, forced):
+                failures.append(f"{eng.name}: forced-chunk run diverged")
+            print(f"storage-smoke: {eng.name} ok ({want.num_rows} groups)")
         mq = Q.over("R1", "R2", "R3").group_by("R1.g1").agg(s=Sum("R2.m")).engine(engine)
         hm, hd = mq.maintain(db), mq.maintain(open_database(path + "/db"))
         rng = np.random.default_rng(1)

@@ -239,9 +239,11 @@ class PlanCache:
 
     ``engine`` (the server's :class:`~repro_torch.api.engines
     .TorchChannelEngine`) runs every spec whose engine is the name
-    ``"torch"``: the key keeps the name, the plan gets the instance, so
-    such specs stay cacheable on whatever device the server serves.  Any
-    other name resolves through the engine registry
+    ``"torch"``, and a :class:`~repro_torch.api.engines.RefChannelEngine`
+    on its device every spec named ``"ref"``: the key keeps the name, the
+    plan gets the instance, so such specs stay cacheable on whatever
+    device the server serves.  Any other name resolves through the
+    engine registry
     (:func:`~repro_torch.api.engines.register_engine`) and keys the same
     way.
     """
@@ -249,6 +251,7 @@ class PlanCache:
     def __init__(self, maxsize: int = 64, *, engine):
         self._lru = LRUCache(maxsize, name="plans")
         self._engine = engine
+        self._ref = None  # the "ref" engine on the same device, made at first use
         # counters see concurrent lookup() callers, and build() runs
         # OUTSIDE the LRU's per-key latch lock — they need their own lock
         self._stats_lock = threading.Lock()
@@ -262,6 +265,12 @@ class PlanCache:
 
         if spec.engine_name == "torch":
             spec = replace(spec, engine_name=self._engine)
+        elif spec.engine_name == "ref":
+            if self._ref is None:
+                from repro_torch.api.engines import RefChannelEngine
+
+                self._ref = RefChannelEngine(device=self._engine.device)
+            spec = replace(spec, engine_name=self._ref)
         return compile_plan(spec, db, physical=physical)
 
     def check(self, spec, db, generation: int = 0, stats_generation: int = 0) -> None:

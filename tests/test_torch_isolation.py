@@ -8,7 +8,8 @@ mounted and answered, a query server on the CPU answers in process
 batch, a meshed plan runs on a
 local mesh of one and explains a mesh of 8, and the brute-force oracle,
 both baselines and the legacy ``join_agg`` agree with the planner, all
-with both packages refused; the storage gate and the catalog verifier
+with both packages refused, and so do the ``"ref"`` engine and a ``"ref"``
+maintained handle; the storage gate and the catalog verifier
 run as ``python -m`` the same way), and the port's default engine
 refuses to run without a CUDA card instead of quietly using the CPU."""
 import ast
@@ -138,6 +139,17 @@ served_same = all(
     (r.column(c) == res.column(c)).all() for r in (served, served_mesh_one) for c in ("n", "s")
 )
 remote_same = remote_res.to_dict("n") == res.to_dict("n")
+from repro_torch.api import RefChannelEngine
+
+ref_cpu = RefChannelEngine(device="cpu")
+ref_res = (
+    Q.over("R1", "R2").group_by("R1.g1", "R2.g2")
+    .agg(n=Count(), s=Sum("R2.m"), lo=Min("R2.m"), hi=Max("R2.m")).engine(ref_cpu).execute(db)
+)
+ref_same = all((ref_res.column(c) == res.column(c)).all() for c in res.relation.columns)
+ref_handle = Q.over("R1", "R2").group_by("R1.g1").agg(n=Count()).engine(ref_cpu).maintain(db)
+ref_handle.insert("R2", {"j": np.array([1, 2]), "g2": np.array([0, 4]), "m": np.array([3, 5])})
+ref_maintained = sum(ref_handle.result().values())
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in {"jax", "jaxlib", "repro"})
 print(json.dumps({"rows": res.num_rows, "n": float(res.column("n").sum()),
                   "split": split.split is not None,
@@ -153,7 +165,8 @@ print(json.dumps({"rows": res.num_rows, "n": float(res.column("n").sum()),
                   "served_same": bool(served_same), "remote_same": remote_same,
                   "view_epoch": epoch, "server_device": server_device,
                   "meshed_same": bool(meshed_same), "meshed_explained": meshed_explained,
-                  "baselines_same": baselines_same, "loaded": loaded}))
+                  "baselines_same": baselines_same, "ref_same": bool(ref_same),
+                  "ref_maintained": ref_maintained, "loaded": loaded}))
 """
 
 
@@ -182,6 +195,7 @@ def test_port_answers_a_query_with_jax_and_repro_refused():
     assert out["view_epoch"] == 1 and out["server_device"] == "cpu"
     assert out["meshed_same"] and out["meshed_explained"]
     assert out["baselines_same"]
+    assert out["ref_same"] and out["ref_maintained"] > out["n"]
 
 
 # the same refusal, then one of the port's launchers run as ``python -m``

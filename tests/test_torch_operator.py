@@ -21,7 +21,7 @@ from repro.data import queries as jqueries
 from repro.data import synth as jsynth
 from repro.ghd import rewrite as jrewrite
 from repro.relational.relation import Database as JDatabase
-from repro_torch.api import TorchChannelEngine
+from repro_torch.api import RefChannelEngine, TorchChannelEngine, resolve_engine
 from repro_torch.core import join_agg
 from repro_torch.core import operator
 from repro_torch.core.operator import UnsupportedPlanOption
@@ -73,9 +73,12 @@ def test_join_agg_on_a_cyclic_query_matches_reference():
 
 def test_join_agg_engines():
     _, _, db, q = catalog("DBLP", 100)
-    for name in ("tensor", "ref", "jax"):
+    for name in ("tensor", "jax"):
         with pytest.raises(ValueError, match=f"unknown engine {name!r}"):
             join_agg(q, db, engine=name)
+    # "ref" resolves to the port's paper-faithful engine, on CUDA by default
+    assert resolve_engine("ref").name == "ref"
+    assert join_agg(q, db, engine=RefChannelEngine(device="cpu")) == join_agg(q, db, engine=CPU)
 
 
 def test_join_agg_runs_on_the_cpu_only_when_asked(monkeypatch):

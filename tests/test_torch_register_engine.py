@@ -133,7 +133,7 @@ def test_engine_and_register_engine_are_exported():
 
 def test_unknown_engine_lists_registry():
     db = Database.from_mapping(chain_cols())
-    with pytest.raises(ValueError, match=r"unknown engine 'nope'; registered: \['torch'\]"):
+    with pytest.raises(ValueError, match=r"unknown engine 'nope'; registered: \['ref', 'torch'\]"):
         Q.over("R1", "R2", "R3").group_by("R1.g1").engine("nope").plan(db)
     assert resolve_engine("torch").name == "torch"
 
@@ -147,7 +147,7 @@ def test_unknown_engine_lists_registry():
     custom = Custom()
     assert register_engine(custom) is custom
     assert resolve_engine("custom-null") is custom
-    with pytest.raises(ValueError, match=r"registered: \['custom-null', 'torch'\]"):
+    with pytest.raises(ValueError, match=r"registered: \['custom-null', 'ref', 'torch'\]"):
         resolve_engine("nope")
 
 
@@ -297,7 +297,7 @@ def test_an_unknown_engine_comes_back_as_an_error_reply():
             with connect(host, port) as remote:
                 with pytest.raises(RuntimeError) as err:
                     remote.query({**q, "engine": "nope"})
-                assert "unknown engine 'nope'; registered: ['torch']" in str(err.value)
+                assert "unknown engine 'nope'; registered: ['ref', 'torch']" in str(err.value)
                 assert remote.ping()  # the connection was not torn down
                 assert remote.query({**q, "engine": "torch"}).num_rows > 0
             resp = _raw_call(host, port, {"op": "query", "q": {**q, "engine": "nope"}})
@@ -305,7 +305,7 @@ def test_an_unknown_engine_comes_back_as_an_error_reply():
             tcp.shutdown()
             tcp.server_close()
     assert resp["ok"] is False
-    assert resp["error"] == "ValueError: unknown engine 'nope'; registered: ['torch']"
+    assert resp["error"] == "ValueError: unknown engine 'nope'; registered: ['ref', 'torch']"
 
 
 def test_maintenance_refuses_a_registered_engine_as_the_reference_does():
@@ -317,7 +317,7 @@ def test_maintenance_refuses_a_registered_engine_as_the_reference_does():
                        match="maintenance supports the built-in engines .* not 'legacy-torch'"):
         JQ.over("R1", "R2", "R3").group_by("R1.g1").engine("legacy-torch").maintain(jdb)
     with pytest.raises(UnsupportedPlanOption,
-                       match=r"maintenance supports the built-in engines \('torch',\), "
+                       match=r"maintenance supports the built-in engines \('torch', 'ref'\), "
                              r"not 'legacy-torch'"):
         Q.over("R1", "R2", "R3").group_by("R1.g1").engine("legacy-torch").maintain(db)
     with pytest.raises(UnsupportedPlanOption, match="not 'legacy-torch'"):
