@@ -21,7 +21,13 @@ Run from the root of a checkout on a machine with a CUDA card.  It
    idle share in a warm execute under ``torch.profiler``;
 3. drives the fused path, the same bundle on the same data with
    ``.fused(True)``, and prints the same numbers; there only
-   ``fused_hop`` may launch, once per hop, per pass, per stream tile;
+   ``fused_hop`` may launch, once per hop, per pass, per stream tile,
+   besides the launches with which the cold execute times each hop
+   shape's candidate launch shapes (``kernels/autotune.py``: the script
+   points ``REPRO_TORCH_AUTOTUNE_CACHE`` at a file in a temporary
+   directory of its own, removed at the end, so every run tunes from
+   scratch; the later legs' fused plans run tuned too); each launch must
+   take its tuned shape, on the routes and sizes that ``explain`` shows;
 4. checks the results: Σ COUNT and Σ SUM against an independent numpy
    count of the chain join, every fused column bit-identical to the
    unfused one, and, at ``--check-n`` rows, each path's result on the
@@ -226,6 +232,22 @@ Run from the root of a checkout on a machine with a CUDA card.  It
    largest ``segment_sum`` and ``segment_reduce`` launches of the C1 run
    are held against their plain versions (tolerance 0) and timed beside
    the bound and the library call.
+17. drives the autotune leg, the fused hop's launch shapes tuned on the
+   card (``kernels/autotune.py``, ``launch/roofline.py``): for every hop
+   shape of 3's fused C1 bundle that 3 tuned, each measured candidate's
+   ms, the model's pick, the winner and the fixed plan's ms (the hop's own
+   operands, in a fused execute of the bundle), every candidate's output
+   bit-identical to the fixed plan's; the two few-row one-child sum hops
+   of PERF.md §6 (2,530,424 edges into 32 rows of d = 64 from a
+   (100000, 64) operand, 81,675 into 50 rows of d = 2,600 from a
+   (50000, 2600) one; integer-valued from ``--seed``) tuned by their first
+   launch through the engine's ``contract_hop``, tuned against fixed ms
+   beside the bound and ``torch.sparse.mm``, every candidate and the
+   plain version bit-identical; then ``reset_cache()`` and the bundle
+   again: no measurement, the same plans read back from the file, 2's
+   digest; and what tuning cost 3's cold execute.  The leg must take
+   less than 30 s.  The ``fused_hop`` entry of the kernels line carries
+   each tuned key's plan, ms and fixed ms (``tuned``).
 
 Every leg prints its ``torch path:`` line — per key range for the split
 leg — and checks the path each run took against ``choose_path``: a dense
@@ -247,8 +269,10 @@ import gc
 import json
 import os
 import pstats
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from pathlib import Path
@@ -1227,45 +1251,72 @@ def check_paths(tag, label, plan, launches) -> list[str]:
     return paths
 
 
+def hop_shape_of(args, kwargs=None):
+    """``(autotune.HopShape, dims)`` of a ``fused_hop`` call with the
+    engine's positional arguments, as the engine's ``_fused_contract``
+    makes them."""
+    import math
+
+    from repro_torch.kernels import autotune
+
+    keys, w, msgs, idxs, s, k, kind = args
+    widths = tuple(m.shape[1] // k for m in msgs)
+    shape = autotune.hop_shape(keys.shape[0], tuple(m.shape[0] for m in msgs), k=k, kind=kind,
+                               child_widths=widths, num_segments=s)
+    return shape, (keys.shape[0], s, math.prod(widths) * k)
+
+
 def check_launch_shapes(torch, tag, label, plan) -> None:
-    """Execute a fused plan once with a spy on ``ops.walk_plan`` and
-    ``ops.gather_plan`` and hold the launch shapes its ``fused_hop``
-    launches were given against what ``explain`` prints and V-KERN
-    checks (``plan.fused_runs()`` × ``hop_launch_shapes``), pass by
-    pass: per key range, per stream tile, MIN/MAX passes."""
+    """Execute a fused plan once to tune any shape not tuned yet, then once
+    more with a spy on the engine's ``fused_hop`` calls, and hold what
+    they launched against ``explain`` and V-KERN (``plan.fused_runs()`` x
+    ``hop_launch_shapes``), pass by pass (per key range, per stream tile,
+    MIN/MAX passes): the same route, edges, segments and width, and as
+    launch shape the card's tuned plan from ``kernels/autotune.py``'s
+    cache (explain shows the model's pick; it prints where they differ)."""
+    from repro_torch.core import torch_engine
     from repro_torch.core.torch_engine import hop_launch_shapes
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.fused_hop import gathers_one_child
 
+    plan.execute()
+    torch.cuda.synchronize()
     made = []
-    real = {"tile": ops.walk_plan, "gather": ops.gather_plan}
+    real = torch_engine.fused_hop
 
-    def spy(walk):
-        def wrapped(n, rows, d):
-            p = real[walk](n, rows, d)
-            made.append((walk, n, rows, d, bytes(p)))
-            return p
+    def spy(*args, plan=None, **kw):
+        shape, dims = hop_shape_of(args)
+        if dims[1] and dims[2]:
+            walk = "gather" if gathers_one_child(len(args[2]), dims[2]) else "tile"
+            tuned = autotune.cached_plan_for(shape, args[0].device, dims)
+            want = None if tuned is None else bytes(tuned.make(*dims))
+            made.append(((walk, *dims), bytes(plan) if plan is not None else None, want))
+        return real(*args, plan=plan, **kw)
 
-        return wrapped
-
-    ops.walk_plan, ops.gather_plan = spy("tile"), spy("gather")
+    torch_engine.fused_hop = spy
     try:
         plan.execute()
         torch.cuda.synchronize()
     finally:
-        ops.walk_plan, ops.gather_plan = real["tile"], real["gather"]
-    passes = []
+        torch_engine.fused_hop = real
+    passes, models = [], []
     for r in plan.fused_runs():
-        one = sorted((e["walk"], e["edges"], e["num_segments"], e["width"], bytes(e["plan"]))
-                     for e in hop_launch_shapes(r["prep"], r["k"], r["encoded"], r["domains"]))
+        entries = hop_launch_shapes(r["prep"], r["k"], r["encoded"], r["domains"])
+        one = sorted((e["walk"], e["edges"], e["num_segments"], e["width"]) for e in entries)
         passes.extend([one] * r["repeat"])
+        models.extend([bytes(e["plan"]) for e in entries] * r["repeat"])
     got, at = [], 0
     for one in passes:
-        got.append(sorted(made[at:at + len(one)]))
+        got.append(sorted(route for route, _, _ in made[at:at + len(one)]))
         at += len(one)
     same = at == len(made) and got == passes
-    say(tag, f"check: {label}: {len(made)} fused_hop launch shapes made on the card in "
-             f"{len(passes)} passes equal fused_runs() x hop_launch_shapes: {same}")
-    check(same and made, f"{label}: the launch shapes explain prints are not the launched ones")
+    tuned = all(launched is not None and launched == want for _, launched, want in made)
+    off_model = sum(launched not in models for _, launched, _ in made)
+    say(tag, f"check: {label}: {len(made)} fused_hop launches in {len(passes)} passes: routes "
+             f"and shapes equal fused_runs() x hop_launch_shapes: {same}; each took the card's "
+             f"tuned plan: {tuned} ({off_model} of them not the model's pick that explain shows)")
+    check(same and made, f"{label}: the launches are not the hops explain prints")
+    check(tuned, f"{label}: a launch did not take its tuned plan")
 
 
 # ----------------------------------------------------------------------
@@ -2188,9 +2239,6 @@ def storage_leg(torch, tag, args) -> dict:
     ``open_database``; prepare's host peak, mounted and in memory; the
     Table XIV SUM query on both, bit for bit; the storage smoke bundle
     on the mounted database, driven; Σ COUNT / Σ SUM against numpy."""
-    import shutil
-    import tempfile
-
     import numpy as np
 
     from repro_torch.aggregates.semiring import Sum
@@ -2914,10 +2962,32 @@ def fused_hop_row(torch, tag, path: str, captured) -> dict:
     from repro_torch.kernels import ref
     from repro_torch.kernels.fused_hop import fused_hop
 
-    (_, _, uniform), lc = max(captured.items(), key=lambda kv: kv[1].size)
+    _, lc = max(captured.items(), key=lambda kv: kv[1].size)
     err = compare(torch, tag, "fused_hop", f"{path}, largest launch", fused_hop,
                   ref.fused_hop, lc.args)
     keys, w, msgs, idxs, s, k, kind = lc.args
+    row = dict(
+        shapes={"edges": keys.shape[0], "k": k, "num_segments": s, "kind": kind,
+                "messages": [list(m.shape) for m in msgs]},
+        launches=lc.count, max_abs_err=err, ms=time_ms(torch, lambda: fused_hop(*lc.args)),
+        **hop_yardsticks(torch, lc.args),
+    )
+    library_ms = row["library_ms"]
+    say(tag, f"kernels: fused_hop [{path}] at {row['shapes']}: {row['ms']:.4f} ms, bound "
+             f"{row['bound_ms']:.4f} ms by {row['bound_by']}, plain {row['plain_ms']:.4f} ms, "
+             f"library {row['library']} "
+             f"{library_ms if library_ms is None else f'{library_ms:.4f}'} ms")
+    return row
+
+
+def hop_yardsticks(torch, args) -> dict:
+    """What one ``fused_hop`` launch (``args`` as the engine passes them)
+    is held against: its bound from bytes and operations, its plain
+    version's ms and the ms of the library call of its hop class
+    (``fused_library``)."""
+    from repro_torch.kernels import ref
+
+    keys, w, msgs, idxs, s, k, kind = args
     n = keys.shape[0]
     width, nbytes = 1, n * 8 + n * k * 4
     for msg, idx in zip(msgs, idxs):
@@ -2925,18 +2995,9 @@ def fused_hop_row(torch, tag, path: str, captured) -> dict:
         nbytes += n * 8 + int(torch.unique(idx).numel()) * msg.shape[1] * 4
     nbytes += s * width * k * 4
     b, by = bound(nbytes, n * width * k * (len(msgs) + 1))
-    library, library_ms = fused_library(torch, lc.args, uniform)
-    row = dict(
-        shapes={"edges": n, "k": k, "num_segments": s, "kind": kind,
-                "messages": [list(m.shape) for m in msgs]},
-        launches=lc.count, max_abs_err=err, ms=time_ms(torch, lambda: fused_hop(*lc.args)),
-        plain_ms=time_ms(torch, lambda: ref.fused_hop(*lc.args), reps=3),
-        library=library, library_ms=library_ms, bound_ms=b, bound_by=by,
-    )
-    say(tag, f"kernels: fused_hop [{path}] at {row['shapes']}: {row['ms']:.4f} ms, bound "
-             f"{b:.4f} ms by {by}, plain {row['plain_ms']:.4f} ms, library {library} "
-             f"{library_ms if library_ms is None else f'{library_ms:.4f}'} ms")
-    return row
+    library, library_ms = fused_library(torch, args, bool((w == w[:, :1]).all()))
+    return dict(bound_ms=b, bound_by=by, library=library, library_ms=library_ms,
+                plain_ms=time_ms(torch, lambda: ref.fused_hop(*args), reps=3))
 
 
 # ----------------------------------------------------------------------
@@ -3152,6 +3213,173 @@ def ref_leg(torch, tag, args, db, cols, digest: str, main: dict) -> dict:
     return {"seconds": leg_s, "part_seconds": seconds, "table_one": table, "c1": c1,
             "b2": b2, "maintain": refreshes, "kernels": kernels,
             "launches": {"ref": launches}}
+
+
+# PERF.md §6's few-row hops as one-child sum hops: (label, edges, rows,
+# d, operand rows): the storage root hop and the maintain root rescan
+FEW_ROW_HOPS = (
+    ("storage root hop", 2_530_424, 32, 64, 100_000),
+    ("maintain root rescan", 81_675, 50, 2600, 50_000),
+)
+
+
+def tuned_candidates(torch, tag, label, entry, args, fixed_out) -> list[dict]:
+    """Launch every candidate that a tuned key measured (``entry`` of
+    ``autotune.measurement_log()``) on the hop ``args`` and fail unless
+    each output equals the fixed plan's ``fixed_out`` bit for bit; the
+    candidates' ms are the measurement's own."""
+    from repro_torch.kernels.fused_hop import fused_hop
+
+    dims = entry["dims"]
+    rows = []
+    for plan, ms in entry["measured"]:
+        got = fused_hop(*args, plan=plan.make(*dims))
+        same = bool(torch.equal(got, fixed_out))
+        check(same, f"autotune leg: {label}: {plan.key()} differs from the fixed plan")
+        rows.append({"plan": plan.key(), "ms": ms, "equal_to_fixed": same})
+    say(tag, f"autotune leg: {label}: measured " + ", ".join(
+        f"{r['plan']} {r['ms']:.4f} ms" for r in rows) + f"; model pick {entry['model'].key()}, "
+        f"winner {entry['winner'].key()}, fixed {entry['fixed'].key()}; every candidate "
+        f"bit-identical to the fixed plan: {all(r['equal_to_fixed'] for r in rows)}")
+    return rows
+
+
+def autotune_leg(torch, tag, args, db, digest: str, fused: dict) -> dict:
+    """The fused hop's tuned launch shapes (see 17 in the module
+    docstring)."""
+    from repro_torch.core import torch_engine
+    from repro_torch.kernels import autotune, ref
+    from repro_torch.kernels.fused_hop import fused_hop
+
+    t_leg = time.perf_counter()
+    dev = torch.device("cuda")
+    log = autotune.measurement_log()
+    plan = bundle_query("torch").fused(True).plan(db)
+    c1_keys = {}
+    for r in plan.fused_runs():
+        for e in torch_engine.hop_launch_shapes(r["prep"], r["k"], r["encoded"], r["domains"]):
+            for kind in (("sum",) if r["pass"] != "min/max" else ("min", "max")):
+                shape = autotune.hop_shape(e["edges"], e["child_rows"], k=r["k"], kind=kind,
+                                           child_widths=e["child_widths"],
+                                           num_segments=e["num_segments"])
+                c1_keys[autotune.cache_key(shape, dev)] = shape
+    tuned_c1 = {key: log[key] for key in c1_keys if key in log}
+    check(tuned_c1, "autotune leg: leg 3 tuned none of the C1 bundle's hops")
+    say(tag, f"autotune leg: the fused C1 bundle has {len(c1_keys)} hop shape keys, "
+             f"{len(tuned_c1)} tuned in leg 3 ({fused['tuning']['measurements']} measurements, "
+             f"{fused['tuning']['timing_launches']} timing launches)")
+
+    # (a) every tuned key of the C1 bundle: its candidates on the hop's own
+    # operands, each bit-identical to the fixed plan, the fixed plan timed
+    rows, seen = [], set()
+    real = torch_engine.fused_hop
+
+    def spy(*a, plan=None, **kw):
+        shape, dims = hop_shape_of(a)
+        key = autotune.cache_key(shape, dev) if dims[1] and dims[2] else None
+        if key in tuned_c1 and key not in seen:
+            seen.add(key)
+            entry = tuned_c1[key]
+            fixed_out = fused_hop(*a).clone()
+            cands = tuned_candidates(torch, tag, f"C1 {shape.key()}", entry, a, fixed_out)
+            fixed_ms = time_ms(torch, lambda: fused_hop(*a), reps=5)
+            won = entry["winner"].make(*dims)
+            tuned_ms = time_ms(torch, lambda: fused_hop(*a, plan=won), reps=5)
+            row = {"key": shape.key(), "dims": list(dims), "plan": entry["winner"].key(),
+                   "model": entry["model"].key(), "ms": tuned_ms, "fixed_ms": fixed_ms,
+                   "candidates": cands}
+            if entry["winner"] != entry["fixed"]:  # a shape PERF.md §6 has no row for
+                row.update(hop_yardsticks(torch, a))
+            rows.append(row)
+            say(tag, f"autotune leg: C1 {shape.key()} at {dims}: tuned {entry['winner'].key()} "
+                     f"{tuned_ms:.4f} ms, fixed {entry['fixed'].key()} {fixed_ms:.4f} ms"
+                     + ("" if "bound_ms" not in row else
+                        f"; bound {row['bound_ms']:.4f} ms by {row['bound_by']}, plain "
+                        f"{row['plain_ms']:.4f} ms, library {row['library']} "
+                        f"{row['library_ms']} ms"))
+        return real(*a, plan=plan, **kw)
+
+    torch_engine.fused_hop = spy
+    try:
+        res = plan.execute()
+        torch.cuda.synchronize()
+    finally:
+        torch_engine.fused_hop = real
+    check(seen == set(tuned_c1), "autotune leg: a tuned C1 key was not launched again")
+    check(result_digest(res) == digest, "autotune leg: the fused C1 bundle changed its bits")
+
+    # (b) the few-row hops, tuned on their first launch through the engine
+    g = torch.Generator(device="cpu").manual_seed(args.seed + 17)
+    few = []
+    for label, n, s, d, operand_rows in FEW_ROW_HOPS:
+        keys = torch.sort(torch.randint(0, s, (n,), generator=g)).values.to(dev)
+        idx = torch.randint(0, operand_rows, (n,), generator=g).to(dev)
+        w = torch.randint(0, 4, (n, 1), generator=g).float().to(dev)
+        m2 = torch.randint(-3, 4, (operand_rows, d), generator=g).float().to(dev)
+        hop = (keys, w, [m2], [idx], s, 1, "sum")
+        shape, dims = hop_shape_of(hop)
+        key = autotune.cache_key(shape, dev)
+        before = autotune.stats()
+        t0 = time.perf_counter()
+        out = torch_engine.contract_hop(keys, keys.cpu().numpy(), w, [(m2, idx)], s, "sum", True)
+        torch.cuda.synchronize()
+        miss_s = time.perf_counter() - t0
+        check(autotune.stats()["measurements"] == before["measurements"] + 1,
+              f"autotune leg: {label}: the first launch did not tune")
+        fixed_out = fused_hop(*hop).clone()
+        check(bool(torch.equal(out, fixed_out)), f"autotune leg: {label}: tuned != fixed")
+        check(bool(torch.equal(fixed_out, ref.fused_hop(*hop))),
+              f"autotune leg: {label}: the kernel differs from its plain version")
+        entry = autotune.measurement_log()[key]
+        cands = tuned_candidates(torch, tag, label, entry, hop, fixed_out)
+        won = entry["winner"].make(*dims)
+        tuned_ms = time_ms(torch, lambda: fused_hop(*hop, plan=won), reps=3)
+        fixed_ms = time_ms(torch, lambda: fused_hop(*hop), reps=3)
+        row = {"key": shape.key(), "label": label, "dims": list(dims),
+               "operand": [operand_rows, d], "plan": entry["winner"].key(),
+               "model": entry["model"].key(), "ms": tuned_ms, "fixed_ms": fixed_ms,
+               "first_launch_s": miss_s, "candidates": cands, **hop_yardsticks(torch, hop)}
+        few.append(row)
+        say(tag, f"autotune leg: {label}, {n} edges into {s} rows of d = {d} from a "
+                 f"({operand_rows}, {d}) operand: tuned {entry['winner'].key()} "
+                 f"{tuned_ms:.4f} ms against fixed {fixed_ms:.4f} ms ({fixed_ms / tuned_ms:.2f}x); "
+                 f"bound {row['bound_ms']:.4f} ms by {row['bound_by']}; plain "
+                 f"{row['plain_ms']:.4f} ms; {row['library']} {row['library_ms']:.4f} ms; the "
+                 f"first, tuning launch took {miss_s:.3f} s; bit-identical to the fixed plan and "
+                 "to the plain version")
+        del keys, idx, w, m2, hop, out, fixed_out
+
+    # (c) the memory cache dropped: the bundle again, every plan read back
+    # from the file, nothing measured, the same bits
+    plans_before = {key: autotune.cached_plan_for(shape, dev) for key, shape in c1_keys.items()}
+    autotune.reset_cache()
+    before = autotune.stats()
+    t0 = time.perf_counter()
+    res = plan.execute()
+    torch.cuda.synchronize()
+    reread_s = time.perf_counter() - t0
+    after = autotune.stats()
+    plans_after = {key: autotune.cached_plan_for(shape, dev) for key, shape in c1_keys.items()}
+    same = result_digest(res) == digest
+    say(tag, f"autotune leg: after reset_cache() the fused C1 bundle took "
+             f"{after['measurements'] - before['measurements']} measurements, read "
+             f"{sum(v is not None for v in plans_after.values())} plans back from "
+             f"{autotune.cache_path()} equal to the tuned ones: {plans_after == plans_before}; "
+             f"{reread_s:.3f} s; digest equal to leg 2's: {same}")
+    check(after["measurements"] == before["measurements"], "autotune leg: a hit measured")
+    check(plans_after == plans_before, "autotune leg: the file gave other plans back")
+    check(same, "autotune leg: the bundle changed its bits after reset_cache()")
+
+    # (d) what tuning cost leg 3's cold execute
+    say(tag, f"autotune leg: leg 3's cold fused execute with tuning {fused['cold_execute_s']:.3f} s "
+             f"({fused['tuning']['measurements']} measurements, "
+             f"{fused['tuning']['timing_launches']} timing launches), its warm execute "
+             f"{fused['warm_execute_s']:.3f} s, the execute after reset_cache() {reread_s:.3f} s")
+    seconds = time.perf_counter() - t_leg
+    say(tag, f"autotune leg: {seconds:.1f} s")
+    check(seconds < 30, f"autotune leg: took {seconds:.1f} s, over its 30 s")
+    return {"tuned": rows + few, "seconds": seconds, "reread_execute_s": reread_s,
+            "measurements": autotune.stats()["measurements"]}
 
 
 def result_digest(res) -> str:
@@ -3940,7 +4168,17 @@ def main() -> int:
                     help="rows per relation of the storage leg")
     args = ap.parse_args()
     t_script = time.perf_counter()
+    # the fused hops tune their launch shapes from scratch, into a cache
+    # file of this run's own, which goes with the run
+    tune_dir = tempfile.mkdtemp(prefix="chip_smoke_autotune_")
+    os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = str(Path(tune_dir) / "autotune.json")
+    try:
+        return smoke(args, t_script)
+    finally:
+        shutil.rmtree(tune_dir, ignore_errors=True)
 
+
+def smoke(args, t_script: float) -> int:
     if not (SRC / "repro_torch" / "kernels" / "ops.py").is_file():
         print(f"chip_smoke: {SRC / 'repro_torch'} not found; run from the "
               "root of a repository checkout", file=sys.stderr)
@@ -3954,7 +4192,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(SRC))
     from repro_torch.api import TorchChannelEngine
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import autotune, ops
 
     tag = card_line()
     dev_name = torch.cuda.get_device_name(0)
@@ -3990,20 +4228,26 @@ def main() -> int:
     main["paths"] = check_paths(tag, "main path", plan, launches)
 
     # 3. fused path -------------------------------------------------------
+    tuned0 = autotune.stats()
     fplan, fres, fused = drive(
         torch, tag, "fused path", lambda: bundle_query("torch").fused(True).plan(db)
     )
+    fused["tuning"] = {k: v - tuned0[k] for k, v in autotune.stats().items()}
     flaunches = fused["launches"]
     hops = len(fplan.prep.decomposition.nodes)
     passes = 1 + len(fplan.minmax)
     fstream = fplan.resolved_stream()
     tiles = 1 if fstream is None else -(-fplan.prep.dicts[fstream[0]].size // fstream[1])
+    timing = fused["tuning"]["timing_launches"]
     say(tag, f"fused path: launches reckoned as {hops} hops x {passes} passes (1 "
              f"channel pass + {len(fplan.minmax)} MIN/MAX) x {tiles} stream tiles = "
-             f"{hops * passes * tiles}; counted {flaunches['fused_hop']}")
+             f"{hops * passes * tiles}, plus {timing} launches that timed candidate launch "
+             f"shapes in {fused['tuning']['measurements']} measurements (kernels/autotune.py); "
+             f"counted {flaunches['fused_hop']}")
     check(flaunches["fused_hop"] > 0, "fused path never launched fused_hop")
-    check(flaunches["fused_hop"] == hops * passes * tiles,
-          "fused_hop launches differ from hops x passes x stream tiles")
+    check(fused["tuning"]["measurements"] > 0, "the cold fused execute tuned nothing")
+    check(flaunches["fused_hop"] == hops * passes * tiles + timing,
+          "fused_hop launches differ from hops x passes x stream tiles + timing launches")
     for name in UNFUSED_KERNELS + ("semiring_matmul",):
         check(flaunches[name] == 0, f"fused path launched {name}")
     fused["paths"] = check_paths(tag, "fused path", fplan, flaunches)
@@ -4125,6 +4369,12 @@ def main() -> int:
         results[name]["ref"] = row
     done("16. ref leg")
 
+    # 17. autotune leg -------------------------------------------------------
+    torch.cuda.empty_cache()
+    tuned = autotune_leg(torch, tag, args, db, main_digest, fused)
+    results["fused_hop"]["tuned"] = tuned["tuned"]
+    done("17. autotune leg")
+
     legs = {"main": launches, "fused": flaunches}
     for leg in (split, cyclic, dense, maintain, stored, served, sharded, compared, launched,
                 reffed):
@@ -4134,7 +4384,8 @@ def main() -> int:
                            *(("storage leg, " + k, v) for k, v in stored.items()),
                            ("serve leg", served), ("shard leg", sharded),
                            ("comparison leg", compared), ("launcher leg", launched),
-                           ("ref leg", reffed)):
+                           ("ref leg", reffed),
+                           ("autotune leg", {k: v for k, v in tuned.items() if k != "tuned"})):
         say(tag, f"{label} summary: {json.dumps(summary)}")
     paths = {name: "main" for name in UNFUSED_KERNELS}
     paths.update(fused_hop="fused", semiring_matmul=None)
@@ -4161,7 +4412,8 @@ def main() -> int:
                 entry[leg] = r[leg]
         if name == "fused_hop":
             entry.update(three_dispatch_ms=r["three_dispatch_ms"], library=r["library"],
-                         hops=r["hops"], walk=r["walk"])
+                         hops=r["hops"], walk=r["walk"], tuned=r["tuned"],
+                         tuning_launches=fused["tuning"]["timing_launches"])
         if name == "semiring_matmul":
             entry.update(note="no path launches it; held and timed on its own",
                          semirings=r["semirings"])

@@ -1,4 +1,10 @@
-"""CLI of the plan verifier.
+"""CLI of the plan verifier and the lint.
+
+``python -m repro_torch.analysis --check [PATH ...]``
+    Lint the given files and directories (default: ``src/repro_torch``)
+    with :mod:`repro_torch.analysis.lint` (``lock-guard``,
+    ``tile-floordiv``); print each finding as ``path:line:col: CODE
+    message`` and exit 1 on any.  Needs no card.
 
 ``python -m repro_torch.analysis --verify-catalog [--device cuda|cpu]``
     Compile every catalog query at golden scales on the ``"torch"``
@@ -7,15 +13,18 @@
     variant and the SKEWCHAIN per-split plan); exit 1 on any diagnostic.
     Without a card and without ``--device cpu`` it exits non-zero.
 
-Port of the JAX package's ``analysis/__main__.py`` without its
-``--check`` lint, which checks jit purity in JAX code.
+Port of the JAX package's ``analysis/__main__.py``.  With neither flag
+it prints its usage and exits 2 (the reference lints ``src`` then).
 """
 from __future__ import annotations
 
 import argparse
 import sys
 
+from repro_torch.analysis.lint import lint_paths
+
 PROG = "python -m repro_torch.analysis"
+DEFAULT_CHECK = "src/repro_torch"
 
 # golden scales — mirror benchmarks/plan_goldens.py so the verified
 # plans are the same ones the plan-choice gate snapshots
@@ -76,6 +85,13 @@ def main(argv: list[str] | None = None) -> int:
 
     ap = argparse.ArgumentParser(prog=PROG)
     ap.add_argument(
+        "--check",
+        nargs="*",
+        metavar="PATH",
+        default=None,
+        help=f"lint the given files/directories (default: {DEFAULT_CHECK})",
+    )
+    ap.add_argument(
         "--verify-catalog",
         action="store_true",
         help="compile + verify every catalog golden plan",
@@ -83,15 +99,31 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--device", default="cuda",
                     help="device the engine runs on (cuda, or cpu)")
     args = ap.parse_args(argv)
-    if not args.verify_catalog:
+    if not args.verify_catalog and args.check is None:
         ap.print_usage(sys.stderr)
         return 2
-    try:
-        device = require_device(args.device, PROG, "--device cpu")
-    except RuntimeError as e:
-        print(e, file=sys.stderr)
-        return 2
-    return _verify_catalog(device)
+    rc = 0
+    if args.verify_catalog:
+        try:
+            device = require_device(args.device, PROG, "--device cpu")
+        except RuntimeError as e:
+            print(e, file=sys.stderr)
+            return 2
+        rc |= _verify_catalog(device)
+    if args.check is not None:
+        rc |= _check(args.check or [DEFAULT_CHECK])
+    return rc
+
+
+def _check(paths: list[str]) -> int:
+    findings = lint_paths(paths)
+    for f in findings:
+        print(f)
+    if findings:
+        print(f"{len(findings)} finding(s)", file=sys.stderr)
+        return 1
+    print(f"lint: clean ({len(paths)} path(s))")
+    return 0
 
 
 if __name__ == "__main__":

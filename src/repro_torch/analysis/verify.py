@@ -649,8 +649,9 @@ def check_kernels(plan) -> list[Diagnostic]:
     """V-KERN: every hop of every pass of the fused path
     (``plan.fused_runs()``: key ranges, stream tiles, MIN/MAX passes) has
     a launch shape its kernel takes
-    (:func:`~repro_torch.core.torch_engine.hop_launch_shapes`):
-    ``walk_plan``/``gather_plan`` could make one, every block dimension
+    (:func:`~repro_torch.core.torch_engine.hop_launch_shapes`, the cost
+    model's pick of ``kernels/autotune.py``, never a card's measured one):
+    ``make_walk_plan``/``make_gather_plan`` could make one, every block dimension
     is positive, blocks stay within one launch's :data:`ops.MAX_BLOCKS`,
     edges within the 32-bit run bounds :data:`ops.MAX_EDGES`, dynamic
     shared memory within :data:`ops.SMEM_LIMIT` (what a block gets

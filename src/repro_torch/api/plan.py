@@ -551,14 +551,16 @@ class Plan:
         """Per-hop launch shapes of every fused pass (when fused hops are
         on; :meth:`fused_runs`), from
         :func:`~repro_torch.core.torch_engine.hop_launch_shapes` —
-        computed from the plan's sizes alone, so the same on every
-        machine.  A plan of one run and one pass lists its hops; others
-        head each pass with its run and kind."""
+        computed from the plan's sizes alone: the cost model's pick and
+        its modelled µs, the same on every machine (a card's launches take
+        the measured pick of ``kernels/autotune.py``).  A plan of one run
+        and one pass lists its hops; others head each pass with its run
+        and kind."""
         if not fused_enabled(self.fused):
             return []
         lines = [
             "kernels: fused hop (gather+product+scatter in one launch; "
-            "launch shapes of ops.walk_plan / ops.gather_plan)"
+            "model-ranked launch shapes, measured per card)"
         ]
         runs = self.fused_runs()
         for r in runs:
@@ -572,7 +574,8 @@ class Plan:
                 shape = repr(e["plan"]) if e["plan"] is not None else e["error"]
                 lines.append(
                     f"{indent}{e['rel']}: {e['walk']} walk {shape}  edges={e['edges']}  "
-                    f"segs={e['num_segments']}  width={e['width']}  acc={e['acc_dtype']}"
+                    f"segs={e['num_segments']}  width={e['width']}  acc={e['acc_dtype']}  "
+                    f"est {e['est_us']:.2f}us"
                 )
         return lines
 

@@ -77,9 +77,9 @@ from repro_torch.core.tensor_engine import (
     TensorEngine,
     _decode_result,
 )
-from repro_torch.kernels import ops
+from repro_torch.kernels import autotune, ops
 from repro_torch.kernels.coo_spmm import coo_spmm
-from repro_torch.kernels.fused_hop import fused_hop, gathers_one_child
+from repro_torch.kernels.fused_hop import fused_hop
 from repro_torch.kernels.ops import fused_enabled
 from repro_torch.kernels.segment_reduce import segment_reduce
 from repro_torch.kernels.segment_sum import segment_sum
@@ -601,10 +601,7 @@ def contract_hop(
     k = w.shape[1]
     gathers = [(m2.reshape(m2.shape[0], m2.shape[1], k), idx) for m2, idx in gathers]
     if fused:
-        return fused_hop(
-            keys, w, [m2.reshape(m2.shape[0], -1) for m2, _ in gathers],
-            [idx for _, idx in gathers], knum, k, kind,
-        )
+        return _fused_contract(keys, w, gathers, knum, k, kind)
     if kind == "sum" and len(gathers) == 1 and uniform:
         m2, idx = gathers[0]
         return coo_spmm(
@@ -625,6 +622,30 @@ def contract_hop(
         ).reshape(sl.stop - sl.start, width * k),
         reduce, merge,
     )
+
+
+def _fused_contract(keys, w, gathers, knum: int, k: int, kind: str) -> torch.Tensor:
+    """One ``fused_hop`` launch at the launch shape that
+    ``autotune.plan_for`` gives the hop: tuned on a card (a miss times the
+    top candidates on this hop's own operands, the winner last), the
+    model's pick on the CPU."""
+    msgs = [m2.reshape(m2.shape[0], -1) for m2, _ in gathers]
+    idxs = [idx for _, idx in gathers]
+    widths = tuple(m2.shape[1] for m2, _ in gathers)
+    dims = (keys.shape[0], knum, math.prod(widths) * k)
+    if knum == 0 or dims[2] == 0:
+        return fused_hop(keys, w, msgs, idxs, knum, k, kind)
+    shape = autotune.hop_shape(dims[0], tuple(m.shape[0] for m in msgs), k=k, kind=kind,
+                               child_widths=widths, num_segments=knum)
+    out = torch.empty((knum, dims[2]), dtype=torch.float32, device=w.device)
+    launched = []
+
+    def run(plan: autotune.HopPlan) -> torch.Tensor:
+        launched.append(plan)
+        return fused_hop(keys, w, msgs, idxs, knum, k, kind, out=out, plan=plan.make(*dims))
+
+    plan = autotune.plan_for(shape, w.device, run, dims)
+    return out if launched else run(plan)
 
 
 class _KernelChannelEngine(_CsrHopMixin, ChannelTensorEngine):
@@ -843,15 +864,19 @@ def hop_launch_shapes(
     """Per-hop launch shapes of one fused pass of ``k`` channels over
     ``prep`` (or a stream tile's ``encoded`` relations and ``domains``),
     in tree order (root first; the walk launches children first): each
-    hop's ``fused_hop`` launch takes :func:`ops.gather_plan` (one child,
-    rows of 32 floats or more) or :func:`ops.walk_plan` for its edges
-    into ``(num_segments, width·k)``.  Entries hold ``rel``, ``walk`` ("gather" | "tile"),
-    ``edges``, ``num_segments``, ``width`` (floats per output row),
-    ``plan`` (None where the launch shape cannot be made, ``error`` then
-    says why) and ``acc_dtype``.  Hops with no output row launch nothing
-    and have no entry.  ``Plan.fused_runs()`` names every pass of an
-    execute; ``Plan.explain()`` renders their shapes and the verifier
-    checks them."""
+    hop's ``fused_hop`` launch runs the slab-major warp walk ("gather":
+    one child, rows of 32 floats or more) or the sorted-run tile walk
+    ("tile") for its edges into ``(num_segments, width·k)``, at the launch
+    shape that ``autotune.model_plan_for`` picks: the model's pick, the
+    same on every machine, never the card's measured one.  Entries hold
+    ``rel``, ``walk``, ``edges``, ``num_segments``, ``width`` (floats per
+    output row), ``child_rows`` and ``child_widths``, ``shape`` (the
+    bucketed ``autotune.HopShape``), ``pick`` (its ``HopPlan``), ``plan``
+    (the launch plan it makes; None where none can be made, ``error`` then
+    says why), ``est_us`` (its modelled µs) and ``acc_dtype``.  Hops with
+    no output row launch nothing and have no entry.  ``Plan.fused_runs()``
+    names every pass of an execute; ``Plan.explain()`` renders their
+    shapes and the verifier checks them."""
     deco = prep.decomposition
     group_of = prep.schema.group_of
     encoded = prep.encoded if encoded is None else encoded
@@ -866,28 +891,39 @@ def hop_launch_shapes(
             width *= group_width(c)
         return width
 
+    def up(rel: str) -> tuple[str, ...]:
+        parent = deco.nodes[rel].parent
+        if parent is None:
+            return ()
+        return tuple(sorted(set(encoded[rel].attrs) & set(encoded[parent].attrs)))
+
     out: list[dict] = []
     for rel in deco.order:
         node = deco.nodes[rel]
         er = encoded[rel]
-        up: tuple[str, ...] = ()
-        if node.parent is not None:
-            up = tuple(sorted(set(er.attrs) & set(encoded[node.parent].attrs)))
         own_g = group_of.get(rel)
-        knum = math.prod(dom(a) for a in up + ((own_g,) if own_g else ()))
-        d = math.prod(group_width(c) for c in node.children) * k
+        knum = math.prod(dom(a) for a in up(rel) + ((own_g,) if own_g else ()))
+        child_rows = tuple(math.prod(dom(a) for a in up(c)) for c in node.children)
+        child_widths = tuple(group_width(c) for c in node.children)
+        d = math.prod(child_widths) * k
         if knum < 1 or d < 1:
             continue
-        walk = "gather" if gathers_one_child(len(node.children), d) else "tile"
+        shape = autotune.hop_shape(er.num_rows, child_rows, k=k, child_widths=child_widths,
+                                   num_segments=knum)
         entry = {
-            "rel": rel, "walk": walk, "edges": er.num_rows, "num_segments": knum,
-            "width": d, "plan": None, "error": None, "acc_dtype": "float32",
+            "rel": rel, "walk": shape.walk, "edges": er.num_rows, "num_segments": knum,
+            "width": d, "child_rows": child_rows, "child_widths": child_widths,
+            "shape": shape, "pick": None, "plan": None, "est_us": math.nan, "error": None,
+            "acc_dtype": "float32",
         }
         try:
-            make = ops.gather_plan if walk == "gather" else ops.walk_plan
-            entry["plan"] = make(er.num_rows, knum, d)
+            entry["pick"] = autotune.model_plan_for(shape, (er.num_rows, knum, d))
+            entry["plan"] = entry["pick"].make(er.num_rows, knum, d)
         except ValueError as e:
             entry["error"] = str(e)
+        else:
+            entry["est_us"] = 1e6 * autotune.model_seconds(
+                shape, entry["pick"], (er.num_rows, knum, d))
         out.append(entry)
     return out
 

@@ -1,2 +1,3 @@
-"""Hand-written Hopper kernels, their plain PyTorch versions and the
-build/dispatch policy (``ops.py``)."""
+"""Hand-written Hopper kernels, their plain PyTorch versions, the
+build/dispatch policy (``ops.py``) and the fused hop's per-card
+launch-shape tuning (``autotune.py``)."""

@@ -5,11 +5,12 @@ The CUDA source is ``csrc/fused_hop.cu``; ``ref.fused_hop`` is its plain
 version.  Hops with one child and rows of 32 floats or more run the
 slab-major warp walk (``csrc/gathered_rows.cuh``, launch shape
 :func:`ops.gather_plan`), the others the sorted-run tile walk
-(:func:`ops.walk_plan`).  Under ``.fused(True)`` (or ``REPRO_FUSED``)
-the sparse engine sends every hop here — sum hops with any children and
-weights, and MIN/MAX hops — in place of the gather, product and
-``segment_sum`` / ``coo_spmm`` / ``segment_reduce`` launches of the
-three-dispatch path.
+(:func:`ops.walk_plan`); the engine's hops pass the launch shape that
+``kernels/autotune.py`` tuned for the card instead.  Under
+``.fused(True)`` (or ``REPRO_FUSED``) the sparse engine sends every hop
+here — sum hops with any children and weights, and MIN/MAX hops — in
+place of the gather, product and ``segment_sum`` / ``coo_spmm`` /
+``segment_reduce`` launches of the three-dispatch path.
 """
 from __future__ import annotations
 
@@ -65,6 +66,7 @@ def fused_hop(
     k: int = 1,
     kind: str = "sum",
     out: torch.Tensor | None = None,
+    plan: ops.GatherPlan | ops.WalkPlan | None = None,
 ) -> torch.Tensor:
     """One hop: ``keys (n,)`` output row per edge, ``weights (n, k)``
     float32, per child ``msgs[i] (rows_i, width_i·k)`` float32 (width-
@@ -75,7 +77,12 @@ def fused_hop(
     column's child columns ``col_i`` run row-major over the widths, last
     child fastest.  Rows no edge reaches hold 0 or ±inf; edges whose key
     or any child index is out of range are dropped.  ``out``, when given,
-    is written in full and returned.
+    is written in full and returned.  ``plan``, when given, is the launch
+    shape on a card (a :class:`ops.GatherPlan` for a hop that
+    :func:`gathers_one_child`, else a :class:`ops.WalkPlan`, made for this
+    launch's edges and output; ``kernels/autotune.py`` picks it for the
+    engine's hops); without one the launch takes :func:`ops.gather_plan`
+    or :func:`ops.walk_plan`.  No plan changes the result's bits.
 
     Every call requires: ``keys`` and ``idxs`` int64, float32 weights and
     messages, at most :data:`MAX_CHILDREN` children, all tensors
@@ -112,6 +119,10 @@ def fused_hop(
         widths.append(msg.shape[1] // k)
     width = math.prod(widths)
     ops.check_width("fused_hop", width * k)
+    gathers = gathers_one_child(len(msgs), width * k)
+    want = ops.GatherPlan if gathers else ops.WalkPlan
+    if plan is not None and not isinstance(plan, want):
+        raise ValueError(f"fused_hop: this hop takes a {want.__name__}, got {plan!r}")
     device = ops.device_of(keys, weights, *msgs, *idxs, out)
     if device.type == "cpu":
         res = ref.fused_hop(keys, weights, msgs, idxs, num_segments, k, kind)
@@ -125,8 +136,8 @@ def fused_hop(
         _Child(msg.data_ptr(), idx.data_ptr(), msg.shape[0], w)
         for msg, idx, w in zip(msgs, idxs, widths)
     ))
-    if gathers_one_child(len(msgs), width * k):
-        plan = ops.gather_plan(n, num_segments, width * k)
+    if gathers:
+        plan = plan if plan is not None else ops.gather_plan(n, num_segments, width * k)
         fn = ops.load("fused_hop", "repro_fused_hop_one_child", _ONE_CHILD_ARGTYPES)
         rc = fn(
             device.index, keys.data_ptr(), n, weights.data_ptr(), k, children,
@@ -134,7 +145,7 @@ def fused_hop(
             ops.stream_of(device),
         )
     else:
-        plan = ops.walk_plan(n, num_segments, width * k)
+        plan = plan if plan is not None else ops.walk_plan(n, num_segments, width * k)
         fn = ops.load("fused_hop", "repro_fused_hop", _ARGTYPES)
         rc = fn(
             device.index, keys.data_ptr(), n, weights.data_ptr(), k, children,

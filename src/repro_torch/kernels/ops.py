@@ -109,11 +109,42 @@ class WalkPlan(ctypes.Structure):
         ) + ")"
 
 
-def _ceil_div(a: int, b: int) -> int:
+def _ceil_div(a: int, b: int) -> int:  # tile-math
     return -(-a // b)
 
 
-def walk_plan(n: int, num_rows: int, d: int) -> WalkPlan:
+def make_walk_plan(n: int, num_rows: int, d: int, rows: int, slabs: int) -> WalkPlan:  # tile-math
+    """A sorted-run walk plan for ``n`` edges into a ``(num_rows, d)``
+    output with tiles of ``rows`` rows (at most ``num_rows``), each row cut
+    into ``slabs`` column slabs (a multiple of 4 columns when more than
+    one; rows narrower than a warp take the narrow walk, one slab); raises
+    on what the kernel cannot take.  ``tools/walk_sweep.py`` and
+    ``kernels/autotune.py`` time such candidates."""
+    if n > MAX_EDGES:
+        raise ValueError(f"the sorted-run walk takes at most {MAX_EDGES} edges, got {n}")
+    if num_rows < 1 or d < 1:
+        raise ValueError(f"walk_plan needs num_rows >= 1 and d >= 1, got {num_rows}, {d}")
+    if rows < 1 or slabs < 1:
+        raise ValueError(f"a walk tile has rows >= 1 and slabs >= 1, got {rows}, {slabs}")
+    narrow = d < NARROW_WIDTH
+    if narrow and slabs != 1:
+        raise ValueError(f"rows of {d} < {NARROW_WIDTH} floats take the narrow walk, one slab")
+    slab = d if slabs == 1 else 4 * _ceil_div(d, 4 * slabs)
+    slabs = _ceil_div(d, slab)
+    rows = min(rows, num_rows)
+    blocks = _ceil_div(num_rows, rows) * slabs
+    if blocks > MAX_BLOCKS:
+        raise ValueError(f"a ({num_rows}, {d}) output needs {blocks} blocks, more than one launch has")
+    smem = 0 if narrow else 8 * rows  # the row walk's run bounds
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"{rows} rows a tile need {smem} B of run bounds, over {SMEM_LIMIT}")
+    if rows * (d if narrow else slab) >= 2**31:
+        raise ValueError(f"a tile of {rows} rows of {d if narrow else slab} floats passes "
+                         "the kernel's 32-bit element index")
+    return WalkPlan(rows, slab, slabs, blocks, smem, int(narrow))
+
+
+def walk_plan(n: int, num_rows: int, d: int) -> WalkPlan:  # tile-math
     """Launch shape of the sorted-run walk for ``n`` edges into a
     ``(num_rows, d)`` output, both at least 1 wide.
 
@@ -125,26 +156,22 @@ def walk_plan(n: int, num_rows: int, d: int) -> WalkPlan:
     rows per tile for about :data:`WIDE_TILE_ELEMS` output floats per
     block and two int32 of shared memory per row.  One block per tile
     and slab; the tile sizes are the fastest of ``tools/walk_sweep.py``'s
-    candidates on an H100."""
-    if n > MAX_EDGES:
-        raise ValueError(f"the sorted-run walk takes at most {MAX_EDGES} edges, got {n}")
+    candidates on an H100.  The fused hop's launches tune their shape
+    instead (``kernels/autotune.py``)."""
     if num_rows < 1 or d < 1:
         raise ValueError(f"walk_plan needs num_rows >= 1 and d >= 1, got {num_rows}, {d}")
-    narrow = d < NARROW_WIDTH
-    if narrow:
-        slab, slabs = d, 1
-        rows = max(1, NARROW_TILE_ELEMS // d)
-    else:
-        slabs = _ceil_div(d, MAX_SLAB)
-        slab = d if slabs == 1 else 4 * _ceil_div(d, 4 * slabs)
-        slabs = _ceil_div(d, slab)
-        rows = max(1, WIDE_TILE_ELEMS // slab)
-    rows = min(rows, num_rows)
-    blocks = _ceil_div(num_rows, rows) * slabs
-    if blocks > MAX_BLOCKS:
-        raise ValueError(f"a ({num_rows}, {d}) output needs {blocks} blocks, more than one launch has")
-    smem = 0 if narrow else 8 * rows  # the row walk's run bounds
-    return WalkPlan(rows, slab, slabs, blocks, smem, int(narrow))
+    rows, slabs = walk_tile(d)
+    return make_walk_plan(n, num_rows, d, rows, slabs)
+
+
+def walk_tile(d: int) -> tuple[int, int]:  # tile-math
+    """``(rows, slabs)`` of :func:`walk_plan`'s tiles for rows of ``d``
+    floats: as many whole rows as a tile's floats hold, so a floor."""
+    if d < NARROW_WIDTH:
+        return max(1, NARROW_TILE_ELEMS // d), 1  # lint-ok: tile-floordiv (whole rows a tile)
+    slabs = _ceil_div(d, MAX_SLAB)
+    slab = d if slabs == 1 else 4 * _ceil_div(d, 4 * slabs)
+    return max(1, WIDE_TILE_ELEMS // slab), slabs  # lint-ok: tile-floordiv (whole rows a tile)
 
 
 # ----------------------------------------------------------------------
@@ -187,7 +214,7 @@ class GatherPlan(ctypes.Structure):
         ) + ")"
 
 
-def make_gather_plan(
+def make_gather_plan(  # tile-math
     n: int,
     num_rows: int,
     d: int,
@@ -226,7 +253,7 @@ def make_gather_plan(
                       in_flight, warps)
 
 
-def gather_plan(n: int, num_rows: int, d: int) -> GatherPlan:
+def gather_plan(n: int, num_rows: int, d: int) -> GatherPlan:  # tile-math
     """Launch shape of the slab-major warp walk for ``n`` edges into a
     ``(num_rows, d)`` output: slabs of :data:`GATHER_SLAB` columns walked
     slab by slab, :data:`GATHER_ROWS` rows and :data:`GATHER_WARPS` warps
@@ -234,9 +261,16 @@ def gather_plan(n: int, num_rows: int, d: int) -> GatherPlan:
     the fastest of ``tools/walk_sweep.py``'s candidates on an H100.  At
     the main path's shape a slab of the (50000, 4500) operand is 25.6 MB
     of the 50 MB L2.  An output of more rows than one launch's blocks can
-    take at that tile height gets taller tiles."""
-    rows = max(GATHER_ROWS, _ceil_div(num_rows * _ceil_div(d, GATHER_SLAB), MAX_BLOCKS))
-    return make_gather_plan(n, num_rows, d, rows=rows)
+    take at that tile height gets taller tiles.  The fused hop's launches
+    tune their shape instead (``kernels/autotune.py``)."""
+    return make_gather_plan(n, num_rows, d, rows=gather_rows(num_rows, d))
+
+
+def gather_rows(num_rows: int, d: int) -> int:  # tile-math
+    """Rows a block of :func:`gather_plan`: :data:`GATHER_ROWS`, or more
+    where a ``(num_rows, d)`` output would need more blocks than one
+    launch has."""
+    return max(GATHER_ROWS, _ceil_div(num_rows * _ceil_div(d, GATHER_SLAB), MAX_BLOCKS))
 
 
 # ----------------------------------------------------------------------
@@ -287,7 +321,7 @@ def alignment(*tensors: torch.Tensor) -> int:
     )
 
 
-def matmul_plan(
+def matmul_plan(  # tile-math
     m: int,
     n: int,
     kd: int,
@@ -367,12 +401,20 @@ def _nvcc() -> str:
     )
 
 
-def _library_path(name: str) -> Path:
+@functools.cache
+def source_digest(name: str) -> str:
+    """Digest of kernel ``name``'s sources and flags: what its built
+    library's file name carries, so a changed source builds anew (and
+    ``kernels/autotune.py`` tunes it anew)."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
-    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+    return digest.hexdigest()[:16]
+
+
+def _library_path(name: str) -> Path:
+    return BUILD_DIR / f"{name}-{source_digest(name)}.so"
 
 
 # one build per process: concurrent first launches (the query server's

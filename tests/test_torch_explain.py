@@ -77,8 +77,9 @@ def test_explain_equals_the_golden(name, monkeypatch):
 def _launched_shapes(plan, monkeypatch) -> list[tuple]:
     """Run ``plan.execute()`` with a spy on the walk's ``fused_hop``
     calls; for each call that launches (an output row and a column),
-    the route and launch shape the wrapper gives it on a card, as
-    ``(walk, edges, segments, width, plan bytes)``."""
+    the route and launch shape the wrapper gives it on a card (the
+    ``plan`` the engine passes, else the wrapper's own), as ``(walk,
+    edges, segments, width, plan bytes)``."""
     from repro_torch.core import torch_engine
     from repro_torch.kernels import ops
     from repro_torch.kernels.fused_hop import gathers_one_child
@@ -86,15 +87,16 @@ def _launched_shapes(plan, monkeypatch) -> list[tuple]:
     calls = []
     real = torch_engine.fused_hop
 
-    def spy(keys, weights, msgs, idxs, num_segments, k=1, kind="sum", out=None):
+    def spy(keys, weights, msgs, idxs, num_segments, k=1, kind="sum", out=None, plan=None):
         msgs = list(msgs)
         d = k * math.prod(m.shape[1] // k for m in msgs)
         if num_segments and d:
             walk = "gather" if gathers_one_child(len(msgs), d) else "tile"
             make = ops.gather_plan if walk == "gather" else ops.walk_plan
             n = keys.shape[0]
-            calls.append((walk, n, num_segments, d, bytes(make(n, num_segments, d))))
-        return real(keys, weights, msgs, idxs, num_segments, k, kind, out)
+            launched = plan if plan is not None else make(n, num_segments, d)
+            calls.append((walk, n, num_segments, d, bytes(launched)))
+        return real(keys, weights, msgs, idxs, num_segments, k, kind, out, plan)
 
     monkeypatch.setattr(torch_engine, "fused_hop", spy)
     plan.execute()

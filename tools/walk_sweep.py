@@ -9,9 +9,13 @@ Run from the root of a checkout.  For the shapes the C1 n=500,000 bundle
 launches the walks with, it builds synthetic inputs of the same sizes from
 ``--seed``, then launches the kernels' C entry points with each candidate
 launch plan (an argument, so no rebuild) and prints the device time of
-each beside the plan that ``kernels/ops.py`` chooses.  Every candidate's
-output must equal the chosen plan's bit for bit.  Integer-valued float32,
-so every sum is exact.
+each beside the plan that ``kernels/ops.py`` chooses.  The walks'
+candidates are the grid that ``kernels/autotune.py`` tunes the fused hop
+over (``autotune.candidates``), each printed with the cost model's ms
+(``launch/roofline.py``), so the sweep and the tuner time one grid and
+the sweep's results fit the model's constants.  Every candidate's output
+must equal the chosen plan's bit for bit.  Integer-valued float32, so
+every sum is exact.
 
 * ``segment``: the sorted-run tile walk (``ops.walk_plan``) of the leaf
   hops (~500,000 edges into 112,500,000 rows of d = 1 or 2) and the edge
@@ -20,9 +24,12 @@ so every sum is exact.
 * ``gather``: the slab-major warp walk (``ops.gather_plan``) of
   ``coo_spmm`` (499,948 edges into 50,000 rows of d = 4,500, gathering
   from a (50000, 4500) operand) and of the one-child ``fused_hop`` hops
-  (sum with k = 2 at d = 4,500; min and max at d = 2,250), over slab
-  width, edges in flight, rows and warps per block, and slab-major or
-  tile-major block order.  Three probes time the ``coo_spmm`` walk with
+  (sum with k = 2 at d = 4,500; min and max at d = 2,250), and the
+  few-row one-child sum hops of PERF.md §6 (2,530,424 edges into 32 rows
+  of d = 64 from a (100000, 64) operand; 81,675 edges into 50 rows of
+  d = 2,600 from a (50000, 2600) operand), over slab width, edges in
+  flight, rows and warps per block, and slab-major or tile-major block
+  order.  Three probes time the ``coo_spmm`` walk with
   the chosen plan on other data and are not compared: every column out
   of range (no gathers: the search, marking and stores alone), an
   operand of 1,000 rows (18 MB: every gather hits L2), and every edge on
@@ -37,7 +44,6 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import itertools
 import json
 import subprocess
 import sys
@@ -51,15 +57,24 @@ sys.path.insert(0, str(ROOT))
 SPIN_CYCLES = 100_000_000
 
 
-def walk_plan_of(num_rows: int, d: int, narrow: bool, rows: int, slabs: int):
-    """A WalkPlan with the given tile rows and slab count."""
-    from repro_torch.kernels import ops
+def grid(n: int, num_rows: int, d: int, k: int = 1, child_rows: tuple[int, ...] = ()):
+    """The launch plans that ``kernels/autotune.py`` chooses among for a
+    hop of this shape (rows of ``d`` floats, ``k`` channels, children of
+    ``child_rows`` rows: one child of width ``d / k`` gathers, none takes
+    the tile walk), fixed plan first, each made for this launch, with
+    its modelled ms."""
+    from repro_torch.kernels import autotune
 
-    rows = min(rows, num_rows)
-    slab = d if slabs == 1 else 4 * -(-d // (4 * slabs))
-    slabs = -(-d // slab)
-    smem = 0 if narrow else 8 * rows
-    return ops.WalkPlan(rows, slab, slabs, -(-num_rows // rows) * slabs, smem, int(narrow))
+    widths = (d // k,) if child_rows else ()
+    shape = autotune.hop_shape(n, child_rows, k=k if child_rows else d,
+                               child_widths=widths, num_segments=num_rows)
+    out = []
+    for c in autotune.candidates(shape):
+        try:
+            out.append((c, c.make(n, num_rows, d), 1e3 * autotune.model_seconds(shape, c)))
+        except ValueError:  # taken at the bucketed shape, not at this one
+            continue
+    return out
 
 
 def check(rc: int) -> None:
@@ -94,7 +109,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("walk_sweep: needs a CUDA card", file=sys.stderr)
         return 2
-    from repro_torch.kernels import ops, segment_reduce as sr, segment_sum as ss
+    from repro_torch.kernels import autotune, ops, segment_reduce as sr, segment_sum as ss
     from repro_torch.kernels import coo_spmm as cs, fused_hop as fh, semiring_matmul as sm
 
     card = subprocess.run(
@@ -164,11 +179,12 @@ def main() -> int:
 
         return run
 
-    def hop(kind, n, s, d, k):
-        ks, idx = keys(n, s), ints(0, s, (n,))
+    def hop(kind, n, s, d, k, operand_rows=None):
+        rows = operand_rows or s
+        ks, idx = keys(n, s), ints(0, rows, (n,))
         w = ints(0, 4 if kind == "sum" else 50, (n, k)).float()
-        msg = ints(-3, 4, (s, d)).float()
-        child = fh._Child(msg.data_ptr(), idx.data_ptr(), s, d // k)
+        msg = ints(-3, 4, (rows, d)).float()
+        child = fh._Child(msg.data_ptr(), idx.data_ptr(), rows, d // k)
         out = torch.empty((s, d), device=dev)
         alive.extend((msg, idx))  # the kernel reaches them through `child` alone
 
@@ -200,21 +216,25 @@ def main() -> int:
         return run
 
     segment_cases = [] if args.cases in ("gather", "matmul") else [
-        ("leaf min d=1", segment("min", 498_847, 112_500_000, 1), 498_847, 112_500_000, 1,
-         [(True, r, 1) for r in (4096, 8192, 16384, 32768)]),
-        ("leaf sum d=2", segment("sum", 498_847, 112_500_000, 2), 498_847, 112_500_000, 2,
-         [(True, r, 1) for r in (2048, 4096, 8192, 16384)]),
-        ("chunk min d=2250", segment("min", 7455, 766, 2250), 7455, 766, 2250,
-         [(False, r, sl) for r in (1, 2, 4) for sl in (1, 2, 3, 5)]),
-        ("chunk sum d=4500", segment("sum", 3725, 389, 4500), 3725, 389, 4500,
-         [(False, r, sl) for r in (1, 2, 4) for sl in (1, 3, 5, 9)]),
+        ("leaf min d=1", segment("min", 498_847, 112_500_000, 1), 498_847, 112_500_000, 1),
+        ("leaf sum d=2", segment("sum", 498_847, 112_500_000, 2), 498_847, 112_500_000, 2),
+        ("chunk min d=2250", segment("min", 7455, 766, 2250), 7455, 766, 2250),
+        ("chunk sum d=4500", segment("sum", 3725, 389, 4500), 3725, 389, 4500),
     ]
     ne, nr = 499_948, 50_000  # the main path's one-child hops
+    # (label, run, n, num_rows, d, k, operand rows, timed launches)
     gather_cases = [] if args.cases in ("segment", "matmul") else [
-        ("coo_spmm d=4500", coo(ne, nr, 4500), ne, nr, 4500),
-        ("fused one-child sum k=2 d=4500", hop("sum", ne, nr, 4500, 2), ne, nr, 4500),
-        ("fused one-child min d=2250", hop("min", ne, nr, 2250, 1), ne, nr, 2250),
-        ("fused one-child max d=2250", hop("max", ne, nr, 2250, 1), ne, nr, 2250),
+        ("coo_spmm d=4500", coo(ne, nr, 4500), ne, nr, 4500, 1, nr, 10),
+        ("fused one-child sum k=2 d=4500", hop("sum", ne, nr, 4500, 2), ne, nr, 4500, 2, nr, 10),
+        ("fused one-child min d=2250", hop("min", ne, nr, 2250, 1), ne, nr, 2250, 1, nr, 10),
+        ("fused one-child max d=2250", hop("max", ne, nr, 2250, 1), ne, nr, 2250, 1, nr, 10),
+        # the few-row hops of PERF.md §6: the storage root hop and the
+        # maintain root rescan, as one-child sum hops
+        ("fused one-child sum 32 rows d=64",
+         hop("sum", 2_530_424, 32, 64, 1, operand_rows=100_000), 2_530_424, 32, 64, 1,
+         100_000, 3),
+        ("fused one-child sum 50 rows d=2600",
+         hop("sum", 81_675, 50, 2600, 1, operand_rows=50_000), 81_675, 50, 2600, 1, 50_000, 5),
     ]
     probes = [] if args.cases in ("segment", "matmul") else [
         ("coo_spmm d=4500, every column out of range",
@@ -226,7 +246,7 @@ def main() -> int:
     ]
     results = []
     disagree = []
-    for label, run, n, s, d, candidates in segment_cases:
+    for label, run, n, s, d in segment_cases:
         chosen = ops.walk_plan(n, s, d)
         want = run(chosen).clone()
         chosen_ms = time_ms(torch, lambda: run(chosen))
@@ -235,36 +255,23 @@ def main() -> int:
         print(f"{label}: walk_plan {chosen}: {chosen_ms:.4f} ms; library {library_ms} ms "
               f"[{card}]", flush=True)
         rows = []
-        for narrow, r, sl in candidates:
-            plan = walk_plan_of(s, d, narrow, r, sl)
+        for cand, plan, model_ms in grid(n, s, d):
             got = run(plan)
             torch.cuda.synchronize()
             if not torch.equal(got, want):
                 print(f"{label}: {plan} disagrees with walk_plan's result", file=sys.stderr)
                 return 1
             ms = time_ms(torch, lambda: run(plan))
-            rows.append({"plan": repr(plan), "ms": ms})
-            print(f"{label}:   {plan}: {ms:.4f} ms", flush=True)
+            rows.append({"plan": repr(plan), "key": cand.key(), "ms": ms, "model_ms": model_ms})
+            print(f"{label}:   {plan}: {ms:.4f} ms (model {model_ms:.4f} ms)", flush=True)
         results.append({"case": label, "n": n, "num_rows": s, "d": d,
                         "walk_plan": repr(chosen), "walk_plan_ms": chosen_ms,
                         "library_ms": library_ms,
                         "candidates": rows})
-    # every slab width, edges in flight and tile height in slab-major
-    # order; tile-major order and fewer warps at the default plan's other
-    # values
-    grid = [
-        (slab, in_flight, (rows, ops.GATHER_WARPS), True)
-        for slab, in_flight, rows in itertools.product(
-            (32, 64, 128, 256), ops.GATHER_IN_FLIGHT_CHOICES, (16, 32, 64),
-        )
-    ] + [
-        (slab, ops.GATHER_IN_FLIGHT, (ops.GATHER_ROWS, ops.GATHER_WARPS), False)
-        for slab in (32, 64, 128, 256)
-    ] + [
-        (ops.GATHER_SLAB, ops.GATHER_IN_FLIGHT, (ops.GATHER_ROWS, warps), True)
-        for warps in (1, 2)
-    ]
-    for label, run, n, s, d in gather_cases:
+    # autotune.candidates' grid: every slab width, edges in flight and
+    # tile height in slab-major order; tile-major order and fewer warps at
+    # the default plan's other values
+    for label, run, n, s, d, k, operand_rows, reps in gather_cases:
         chosen = ops.gather_plan(n, s, d)
         want = run(chosen).clone()
         chosen_ms = time_ms(torch, lambda: run(chosen))
@@ -273,22 +280,24 @@ def main() -> int:
         print(f"{label}: gather_plan {chosen}: {chosen_ms:.4f} ms; library "
               f"{library_ms} ms [{card}]", flush=True)
         rows = []
-        for slab, in_flight, (r, warps), slab_major in grid:
-            plan = ops.make_gather_plan(n, s, d, slab, r, warps, in_flight, slab_major)
+        for cand, plan, model_ms in grid(n, s, d, k, (operand_rows,)):
             got = run(plan)
             torch.cuda.synchronize()
             if not torch.equal(got, want):
                 print(f"{label}: {plan} disagrees with gather_plan's result", file=sys.stderr)
                 disagree.append((label, repr(plan)))
                 continue
-            rows.append({"plan": repr(plan), "slab": slab, "in_flight": in_flight,
-                         "rows": r, "warps": warps, "slab_major": slab_major,
-                         "ms": time_ms(torch, lambda: run(plan), reps=10)})
+            rows.append({"plan": repr(plan), "key": cand.key(), "slab": cand.slab,
+                         "in_flight": cand.in_flight, "rows": cand.rows, "warps": cand.warps,
+                         "slab_major": cand.slab_major, "model_ms": model_ms,
+                         "ms": time_ms(torch, lambda: run(plan), reps=reps)})
         rows.sort(key=lambda row: row["ms"])
         for row in rows[:8]:
-            print(f"{label}:   {row['plan']}: {row['ms']:.4f} ms", flush=True)
-        for key, values in (("slab", (32, 64, 128, 256)), ("in_flight", ops.GATHER_IN_FLIGHT_CHOICES),
-                            ("slab_major", (True, False)), ("rows", (16, 32, 64)),
+            print(f"{label}:   {row['plan']}: {row['ms']:.4f} ms (model {row['model_ms']:.4f} "
+                  "ms)", flush=True)
+        for key, values in (("slab", autotune.GATHER_SLABS),
+                            ("in_flight", ops.GATHER_IN_FLIGHT_CHOICES),
+                            ("slab_major", (True, False)), ("rows", autotune.GATHER_TILE_ROWS),
                             ("warps", (1, 2, 4))):
             best = {v: min((row["ms"] for row in rows if row[key] == v), default=None)
                     for v in values}
