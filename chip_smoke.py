@@ -186,7 +186,7 @@ Run from the root of a checkout on a machine with a CUDA card.  It
    ``repro_torch.relational.oracle``; host numpy in the reference, torch
    tensors on the card here).  Table III: S1, S2 and S3
    (``data/synth.py``) at ``--n`` rows, each through the legacy
-   ``join_agg`` cold and warm, ``binary_join_agg`` and
+   ``join_agg`` (once: it prepares on every call), ``binary_join_agg`` and
    ``preagg_join_agg``, printing each one's synchronised wall ms, device
    peak above resident and largest intermediate (rows and bytes); the
    three answers must have the same groups and equal counts.  Table II:
@@ -248,6 +248,25 @@ Run from the root of a checkout on a machine with a CUDA card.  It
    digest; and what tuning cost 3's cold execute.  The leg must take
    less than 30 s.  The ``fused_hop`` entry of the kernels line carries
    each tuned key's plan, ms and fixed ms (``tuned``).
+18. drives the train leg, the LM substrate's dense decoder at full width
+   (``repro_torch.models``, ``repro_torch.train``): (a)
+   ``repro_torch.launch.train.main`` trains qwen2-1.5b (28 layers,
+   d_model 1,536, 151,936 tokens, 1,543,569,408 parameters, f32 with
+   f32 AdamW state, bf16 activations) for 6 steps of 4 x 4,096 tokens
+   (``SHAPES["train_4k"]``'s sequence; its global batch of 256 cut to 4
+   for one card), checkpointing at steps 3 and 6 into a temporary
+   directory, and prints each step's ms, tokens/s, loss, global gradient
+   norm (both must be finite) and peak device memory, and the
+   checkpoint's save, wait and restore seconds; (b) resumes from step_3
+   and holds steps 4 and 5 to the uninterrupted run's losses and norms
+   (``RESUME_RTOL``); (c) prefills 4 x 4,096 tokens, decodes 8 more on the
+   cache, and holds the last decode's logits to a prefill of all 4,104
+   within rtol = atol = 0.15 (the reference's bound for bf16
+   activations); (d) takes one train step of the reduced qwen2-1.5b on
+   the card and on the CPU from the same parameters and batch, with f32
+   activations (TF32 off; loss, norm, AdamW's moments and the
+   parameters) and with bf16 ones (loss and norm).  None of the five
+   kernels may launch.
 
 Every leg prints its ``torch path:`` line — per key range for the split
 leg — and checks the path each run took against ``choose_path``: a dense
@@ -3885,7 +3904,7 @@ def comparison_leg(torch, tag, args) -> dict:
     """The paper's comparison on the card, through the port's own copies
     of the reference's baselines and oracle (``benchmarks/tables.py``
     imports the JAX package's).  Table III: S1, S2 and S3 at ``--n``,
-    ``join_agg`` cold and warm, ``binary_join_agg`` and
+    ``join_agg`` (cold: it prepares on every call), ``binary_join_agg`` and
     ``preagg_join_agg``, each with its synchronised wall ms, device peak
     above resident and largest intermediate; the three answers must be
     equal.  Table II: B2 at the reference's five sizes (``--n`` / 16 …
@@ -3939,21 +3958,22 @@ def comparison_leg(torch, tag, args) -> dict:
         label = f"Table III {name} n={args.n}"
         out = {}
         answers = {}
+        # one join_agg call: the legacy entry prepares on every call, so a
+        # second one repeated the first (13,155.6 and 13,356.8 ms on S1)
         for method, fn in (("joinagg cold", lambda: (joinagg(q, db), None)),
-                           ("joinagg warm", lambda: (joinagg(q, db), None)),
                            ("binary", lambda: binary_join_agg(q, db)),
                            ("preagg", lambda: preagg_join_agg(q, db))):
             torch.cuda.empty_cache()
             (answers[method], stats), ms, peak = measured(torch, fn)
             out[method] = row(label, method, ms, peak, stats)
-        want = answers["joinagg warm"]
+        want = answers["joinagg cold"]
         same = all(a == want for a in answers.values())
         say(tag, f"check: comparison leg: {label}: {len(want)} groups, Σ count "
                  f"{sum(want.values()):.0f}; JOIN-AGG, binary and pre-aggregation give the "
                  f"same groups and equal counts: {same}; peak binary / JOIN-AGG "
-                 f"{out['binary']['peak_above_resident_bytes'] / out['joinagg warm']['peak_above_resident_bytes']:.1f}, "
+                 f"{out['binary']['peak_above_resident_bytes'] / out['joinagg cold']['peak_above_resident_bytes']:.1f}, "
                  f"preagg / JOIN-AGG "
-                 f"{out['preagg']['peak_above_resident_bytes'] / out['joinagg warm']['peak_above_resident_bytes']:.1f}")
+                 f"{out['preagg']['peak_above_resident_bytes'] / out['joinagg cold']['peak_above_resident_bytes']:.1f}")
         check(same and len(want) > 0, f"comparison leg: {label}: the three answers differ")
         summary["table3"][name] = out
         if name == "S3":
@@ -4156,6 +4176,242 @@ def launcher_leg(torch, tag, args) -> dict:
     say(tag, f"launcher leg: the leg took {leg_s:.1f} s ("
              + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items()) + ")")
     return {"seconds": leg_s, "part_seconds": seconds, "launches": {"launcher": launches}}
+
+
+# ----------------------------------------------------------------------
+# train leg: the LM substrate's dense decoder
+# ----------------------------------------------------------------------
+
+TRAIN_ARCH = "qwen2-1.5b"
+TRAIN_BATCH, TRAIN_SEQ = 4, 4096  # SHAPES["train_4k"]'s sequence, 4 of its 256 rows
+TRAIN_STEPS, TRAIN_CKPT_EVERY = 6, 3
+DECODE_STEPS = 8
+# the reference's bound for bf16 activations (tests/test_arch_smoke.py)
+BF16_LOGIT_TOL = 0.15
+# a resumed step runs the same code on the restored state; only the order
+# of a reduction on the card can move its result
+RESUME_RTOL = 1e-3
+BF16_LOSS_RTOL = 2e-2  # about five bf16 roundings (2**-8 each) of the loss
+F32_RTOL, UPD_RTOL = 1e-5, 1e-4
+GRAD_FLOOR = 1e-4  # 10**4 x AdamW's eps: below it an update's size rides on g's last bits
+CPU_CHECK_SEQ = 256
+
+
+def train_leg(torch, tag, args) -> dict:
+    """The trainer, resume, prefill and decode at full width, and card =
+    CPU at reduced width (see 18 in the module docstring)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.train.checkpoint import Checkpointer
+
+    t_leg = time.perf_counter()
+    seconds = {}
+    ops.reset_launch_counts()
+    say(tag, f"train leg: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated on the "
+             f"card by earlier legs")
+    # the checkpoint's own seconds: save (to the host, and for a blocking
+    # save the write too), wait (the writer thread) and restore
+    io = {"save": [], "wait": [], "restore": []}
+    originals = {name: getattr(Checkpointer, name) for name in io}
+
+    def timed(name):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return originals[name](*a, **kw)
+            finally:
+                io[name].append(round(time.perf_counter() - t0, 3))
+        return run
+
+    for name in io:
+        setattr(Checkpointer, name, timed(name))
+    ck_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    argv = ["--arch", TRAIN_ARCH, "--global-batch", str(TRAIN_BATCH), "--seq-len",
+            str(TRAIN_SEQ), "--steps", str(TRAIN_STEPS), "--ckpt-every", str(TRAIN_CKPT_EVERY),
+            "--log-every", "1", "--ckpt-dir", ck_dir]
+    cfg = get_config(TRAIN_ARCH)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    try:
+        # (a) six steps at full width, checkpoints at steps 3 and 6
+        t0 = time.perf_counter()
+        whole = train.main(argv)
+        seconds["train"] = time.perf_counter() - t0
+        check(whole["steps"] == list(range(TRAIN_STEPS)), "train leg: steps missing")
+        for i, step in enumerate(whole["steps"]):
+            loss, gnorm, ms = whole["losses"][i], whole["grad_norms"][i], whole["ms"][i]
+            say(tag, f"train leg: {TRAIN_ARCH} step {step}: {ms:.1f} ms, "
+                     f"{whole['tokens_per_s'][i]:.0f} tokens/s, loss {loss:.6f}, gnorm "
+                     f"{gnorm:.6f}, peak {whole['peak_bytes'][i] / 2**30:.2f} GiB; 6ND "
+                     f"{6 * cfg.param_count() * tokens / ms / 1e9:.1f} TFLOP/s")
+            check(np.isfinite(loss) and np.isfinite(gnorm),
+                  f"train leg: step {step}: loss {loss} or gnorm {gnorm} not finite")
+        check(Checkpointer(ck_dir).steps() == [TRAIN_CKPT_EVERY, TRAIN_STEPS],
+              "train leg: the checkpoints are not steps 3 and 6")
+
+        # (b) resumed from step_3 (4 updates taken): steps 4 and 5 again
+        shutil.rmtree(Path(ck_dir) / f"step_{TRAIN_STEPS}")
+        t0 = time.perf_counter()
+        resumed = train.main(argv)
+        seconds["resume"] = time.perf_counter() - t0
+        k = TRAIN_CKPT_EVERY + 1
+        check(resumed["steps"] == list(range(k, TRAIN_STEPS)),
+              f"train leg: the resumed run took steps {resumed['steps']}")
+        for key in ("losses", "grad_norms"):
+            got, want = np.array(resumed[key]), np.array(whole[key][k:])
+            rel = np.abs(got - want) / np.abs(want)
+            say(tag, f"check: train leg: resumed {key} {got.tolist()} vs uninterrupted "
+                     f"{want.tolist()}: largest relative difference {rel.max():.3g} "
+                     f"(tolerance {RESUME_RTOL}), bit-identical {bool((got == want).all())}")
+            check(bool((rel <= RESUME_RTOL).all()),
+                  f"train leg: the resumed {key} differ from the uninterrupted run")
+    finally:
+        for name, fn in originals.items():
+            setattr(Checkpointer, name, fn)
+        shutil.rmtree(ck_dir, ignore_errors=True)
+    say(tag, f"train leg: checkpoint seconds (a then b): save {io['save']}, wait {io['wait']}, "
+             f"restore {io['restore']}; {(cfg.param_count() * 12) / 2**30:.2f} GiB a step "
+             f"(f32 parameters, m and v)")
+    del whole, resumed
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    decode = prefill_decode(torch, tag, args, cfg)
+    seconds["prefill_decode"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    card_cpu = train_cpu_check(torch, tag, args)
+    seconds["cpu_check"] = time.perf_counter() - t0
+
+    launches = ops.launch_counts()
+    check(not any(launches.values()), f"train leg: a JOIN-AGG kernel launched: {launches}")
+    leg_s = time.perf_counter() - t_leg
+    say(tag, f"train leg: the leg took {leg_s:.1f} s ("
+             + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items()) + ")")
+    return {"seconds": leg_s, "part_seconds": seconds, "checkpoint_seconds": io,
+            "decode": decode, "card_cpu": card_cpu, "launches": {"train": launches}}
+
+
+def prefill_decode(torch, tag, args, cfg) -> dict:
+    """(c): a prompt of 4 x 4,096 tokens prefilled, 8 tokens decoded on its
+    cache, the last decode's logits against a prefill of all 4,104."""
+    import numpy as np
+
+    from repro_torch.models.model import get_model
+
+    model = get_model(cfg, "cuda").init(torch.Generator("cuda").manual_seed(args.seed))
+    rng = np.random.default_rng(args.seed)
+    total = TRAIN_SEQ + DECODE_STEPS
+    toks = torch.tensor(rng.integers(0, cfg.vocab, (TRAIN_BATCH, total)), dtype=torch.int32,
+                        device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, cache = model.prefill({"tokens": toks[:, :TRAIN_SEQ]})
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    dec = model.init_cache(TRAIN_BATCH, total)
+    for key in ("k", "v"):
+        dec[key][:, :, :TRAIN_SEQ] = cache[key]
+    del cache
+    step_ms = []
+    for pos in range(TRAIN_SEQ, total):
+        t0 = time.perf_counter()
+        logits, dec = model.decode_step(dec, toks[:, pos:pos + 1], pos)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    full, _ = model.prefill({"tokens": toks})
+    err = float((logits - full).abs().max())
+    ok = bool(torch.allclose(logits, full, rtol=BF16_LOGIT_TOL, atol=BF16_LOGIT_TOL))
+    finite = bool(torch.isfinite(logits).all())
+    say(tag, f"train leg: prefill of {TRAIN_BATCH} x {TRAIN_SEQ} tokens {prefill_ms:.1f} ms; "
+             f"decode steps at {TRAIN_SEQ}..{total - 1}: "
+             + ", ".join(f"{ms:.1f}" for ms in step_ms) + " ms")
+    say(tag, f"check: train leg: the last decode's logits {tuple(logits.shape)} vs a prefill "
+             f"of all {total} tokens: largest |difference| {err:.4g}, within rtol = atol = "
+             f"{BF16_LOGIT_TOL}: {ok}; finite: {finite}")
+    check(ok and finite, "train leg: decode disagrees with prefill")
+    del model, dec, full, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"prefill_ms": prefill_ms, "decode_ms": step_ms, "max_abs_err": err}
+
+
+def _off(torch, got, want):
+    """The elements of ``got`` beyond ``UPD_RTOL`` of ``want`` (with an
+    absolute floor of ``UPD_RTOL`` x the largest of ``want``)."""
+    return ~torch.isclose(got, want, rtol=UPD_RTOL, atol=UPD_RTOL * float(want.abs().max()))
+
+
+def train_cpu_check(torch, tag, args) -> dict:
+    """(d): one train step of the reduced qwen2-1.5b on the card and on
+    the CPU from the same parameters and batch, in f32 and in bf16."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.models import model as t_model
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init, schedule
+    from repro_torch.train.pipeline import DataPipeline, PipelineConfig
+
+    cfg = get_config(TRAIN_ARCH, reduced=True)
+    acfg = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=2)
+    lr = float(schedule(acfg, 1))
+    batch = DataPipeline(PipelineConfig(cfg.vocab, CPU_CHECK_SEQ, TRAIN_BATCH)).local_batch_at(0)
+    base = t_model.get_model(cfg, "cpu").init(torch.Generator().manual_seed(args.seed))
+    matmul = torch.backends.cuda.matmul
+    before = (t_model.ACT_DTYPE, matmul.allow_tf32)
+    out = {}
+    try:
+        matmul.allow_tf32 = False  # f32 means f32
+        for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            t_model.ACT_DTYPE = dtype
+            runs = {}
+            for dev in ("cuda", "cpu"):
+                model = t_model.get_model(cfg, dev)
+                model.load_state_dict(base.state_dict())
+                opt = adamw_init(model.params())
+                loss, metrics = train.build_train_step(model, acfg)(
+                    opt, {k: torch.tensor(v, device=dev) for k, v in batch.items()})
+                runs[dev] = (float(loss), float(metrics["grad_norm"]), model.params(), opt)
+            (gl, gg, gp, go), (cl, cg, cp, co) = runs["cuda"], runs["cpu"]
+            loss_rel, gnorm_rel = abs(gl - cl) / abs(cl), abs(gg - cg) / abs(cg)
+            row = {"loss": [gl, cl], "grad_norm": [gg, cg], "loss_rel": loss_rel,
+                   "gnorm_rel": gnorm_rel}
+            if name == "f32":
+                # m and v are (1 - b) g and (1 - b) g**2: the gradients, leaf by
+                # leaf.  One Adam step moves a parameter by lr g / (|g| + eps),
+                # which the last bits of g move by lr eps / |g|: parameters are
+                # held to UPD_RTOL where |g| > GRAD_FLOOR, to 2 lr elsewhere.
+                moment_off = sum(int(_off(torch, go[k][n].cpu(), co[k][n]).sum())
+                                 for k in ("m", "v") for n in cp)
+                param_off, near_zero, largest = 0, 0, 0.0
+                for n in cp:
+                    got, want = gp[n].detach().cpu(), cp[n].detach()
+                    above = co["m"][n].abs() / (1 - acfg.b1) > GRAD_FLOOR
+                    param_off += int((_off(torch, got, want) & above).sum())
+                    near_zero += int((~above).sum())
+                    largest = max(largest, float((got - want).abs().max()))
+                row.update(moment_off=moment_off, param_off=param_off,
+                           near_zero_grads=near_zero, param_max_diff=largest)
+                ok = (loss_rel <= F32_RTOL and gnorm_rel <= UPD_RTOL and moment_off == 0
+                      and param_off == 0 and largest <= 2 * lr * (1 + 1e-3))
+                bounds = (f"loss rtol {F32_RTOL}, gnorm rtol {UPD_RTOL}; m and v within rtol "
+                          f"{UPD_RTOL}: {moment_off} elements off; parameters within rtol "
+                          f"{UPD_RTOL} where |g| > {GRAD_FLOOR}: {param_off} off, and within "
+                          f"2 x lr = {2 * lr:.3g} at the {near_zero} elements with smaller "
+                          f"|g|: largest difference {largest:.3g}")
+            else:
+                ok = loss_rel <= BF16_LOSS_RTOL and gnorm_rel <= BF16_LOSS_RTOL
+                bounds = f"loss and gnorm rtol {BF16_LOSS_RTOL}"
+            say(tag, f"check: train leg: reduced {TRAIN_ARCH}, {name} activations, one step "
+                     f"on {TRAIN_BATCH} x {CPU_CHECK_SEQ} tokens, card vs CPU: loss {gl:.7f} vs "
+                     f"{cl:.7f} (relative {loss_rel:.3g}), gnorm {gg:.7f} vs {cg:.7f} "
+                     f"(relative {gnorm_rel:.3g}); {bounds}: {ok}")
+            check(ok, f"train leg: the card's {name} train step differs from the CPU's")
+            out[name] = row
+    finally:
+        t_model.ACT_DTYPE, matmul.allow_tf32 = before
+    return out
 
 
 def main() -> int:
@@ -4375,16 +4631,23 @@ def smoke(args, t_script: float) -> int:
     results["fused_hop"]["tuned"] = tuned["tuned"]
     done("17. autotune leg")
 
+    # 18. train leg --------------------------------------------------------
+    del db, cols
+    gc.collect()
+    torch.cuda.empty_cache()
+    trained = train_leg(torch, tag, args)
+    done("18. train leg")
+
     legs = {"main": launches, "fused": flaunches}
     for leg in (split, cyclic, dense, maintain, stored, served, sharded, compared, launched,
-                reffed):
+                reffed, trained):
         legs.update(leg.pop("launches"))
     for label, summary in (("main path", main), ("fused path", fused), *split.items(),
                            *cyclic.items(), *dense.items(), *maintain.items(),
                            *(("storage leg, " + k, v) for k, v in stored.items()),
                            ("serve leg", served), ("shard leg", sharded),
                            ("comparison leg", compared), ("launcher leg", launched),
-                           ("ref leg", reffed),
+                           ("ref leg", reffed), ("train leg", trained),
                            ("autotune leg", {k: v for k, v in tuned.items() if k != "tuned"})):
         say(tag, f"{label} summary: {json.dumps(summary)}")
     paths = {name: "main" for name in UNFUSED_KERNELS}

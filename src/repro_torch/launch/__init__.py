@@ -1,3 +1,4 @@
-"""Entry points of the port: ``python -m repro_torch.launch.serve`` and
-``python -m repro_torch.launch.storage``; and ``roofline.py``, the
-fused hop's cost model."""
+"""Entry points of the port: ``python -m repro_torch.launch.serve``,
+``python -m repro_torch.launch.storage`` and ``python -m
+repro_torch.launch.train`` (the LM substrate's trainer); and
+``roofline.py``, the fused hop's cost model."""

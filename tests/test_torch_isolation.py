@@ -9,9 +9,11 @@ batch, a meshed plan runs on a
 local mesh of one and explains a mesh of 8, and the brute-force oracle,
 both baselines and the legacy ``join_agg`` agree with the planner, all
 with both packages refused, and so do the ``"ref"`` engine and a ``"ref"``
-maintained handle; the storage gate and the catalog verifier
-run as ``python -m`` the same way), and the port's default engine
-refuses to run without a CUDA card instead of quietly using the CPU."""
+maintained handle, and the LM substrate's reduced qwen2-1.5b takes a
+train step and a decode step; the storage gate, the catalog verifier
+and the trainer run as ``python -m`` the same way), and the port's
+default engine refuses to run without a CUDA card instead of quietly
+using the CPU."""
 import ast
 import json
 import os
@@ -150,6 +152,19 @@ ref_same = all((ref_res.column(c) == res.column(c)).all() for c in res.relation.
 ref_handle = Q.over("R1", "R2").group_by("R1.g1").agg(n=Count()).engine(ref_cpu).maintain(db)
 ref_handle.insert("R2", {"j": np.array([1, 2]), "g2": np.array([0, 4]), "m": np.array([3, 5])})
 ref_maintained = sum(ref_handle.result().values())
+import torch
+from repro_torch.configs import get_config
+from repro_torch.launch.train import build_train_step
+from repro_torch.models.model import get_model
+from repro_torch.train.optimizer import AdamWConfig, adamw_init
+
+lm_cfg = get_config("qwen2-1.5b", reduced=True)
+lm = get_model(lm_cfg, device="cpu").init(torch.Generator().manual_seed(0))
+lm_opt = adamw_init(lm.params())
+lm_tokens = torch.tensor(rng.integers(0, lm_cfg.vocab, (2, 33)), dtype=torch.int32)
+lm_loss, _ = build_train_step(lm, AdamWConfig())(
+    lm_opt, {"tokens": lm_tokens[:, :-1], "labels": lm_tokens[:, 1:]})
+lm_logits, _ = lm.decode_step(lm.init_cache(2, 4), lm_tokens[:, :1], 0)
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in {"jax", "jaxlib", "repro"})
 print(json.dumps({"rows": res.num_rows, "n": float(res.column("n").sum()),
                   "split": split.split is not None,
@@ -166,7 +181,10 @@ print(json.dumps({"rows": res.num_rows, "n": float(res.column("n").sum()),
                   "view_epoch": epoch, "server_device": server_device,
                   "meshed_same": bool(meshed_same), "meshed_explained": meshed_explained,
                   "baselines_same": baselines_same, "ref_same": bool(ref_same),
-                  "ref_maintained": ref_maintained, "loaded": loaded}))
+                  "ref_maintained": ref_maintained, "lm_loss": float(lm_loss),
+                  "lm_step": int(lm_opt["step"]),
+                  "lm_decoded": list(lm_logits.shape) if bool(torch.isfinite(lm_logits).all())
+                  else None, "loaded": loaded}))
 """
 
 
@@ -196,6 +214,8 @@ def test_port_answers_a_query_with_jax_and_repro_refused():
     assert out["meshed_same"] and out["meshed_explained"]
     assert out["baselines_same"]
     assert out["ref_same"] and out["ref_maintained"] > out["n"]
+    assert 0 < out["lm_loss"] < 2.5 * np.log(512) and out["lm_step"] == 1
+    assert out["lm_decoded"] == [2, 1, 512]
 
 
 # the same refusal, then one of the port's launchers run as ``python -m``
@@ -221,8 +241,10 @@ runpy.run_module(sys.argv[0], run_name="__main__", alter_sys=True)
          "storage-smoke: maintain() deltas ok"),
         (["repro_torch.analysis", "--verify-catalog", "--device", "cpu"],
          "catalog[TPCH@fused]: ok"),
+        (["repro_torch.launch.train", "--device", "cpu", "--reduced", "--steps", "2",
+          "--global-batch", "2", "--seq-len", "32"], "[train] done: 2 steps in "),
     ],
-    ids=["storage", "analysis"],
+    ids=["storage", "analysis", "train"],
 )
 def test_launchers_run_with_jax_and_repro_refused(argv, expect):
     proc = subprocess.run(
@@ -262,11 +284,15 @@ def test_the_scan_covers_every_port_package():
     assert PORT / "launch" / "storage.py" in scanned_files
     assert PORT / "analysis" / "__main__.py" in scanned_files
     assert PORT / "serve" / "mesh.py" in scanned_files
+    assert PORT / "launch" / "train.py" in scanned_files
+    assert PORT / "models" / "model.py" in scanned_files
+    assert PORT / "train" / "checkpoint.py" in scanned_files
+    assert PORT / "configs" / "qwen2_1_5b.py" in scanned_files
     scanned = {p.parent.name for p in PORT.rglob("*.py")}
     packages = {p.parent.name for p in PORT.rglob("__init__.py")}
     assert {
-        "analysis", "api", "baselines", "core", "incremental", "kernels", "launch",
-        "planner", "relational", "serve", "storage",
+        "analysis", "api", "baselines", "configs", "core", "incremental", "kernels",
+        "launch", "models", "planner", "relational", "serve", "storage", "train",
     } <= packages == scanned
 
 
