@@ -250,16 +250,18 @@ Run from the root of a checkout on a machine with a CUDA card.  It
    each tuned key's plan, ms and fixed ms (``tuned``).
 18. drives the train leg, the LM substrate's dense decoder at full width
    (``repro_torch.models``, ``repro_torch.train``): (a)
-   ``repro_torch.launch.train.main`` trains qwen2-1.5b (28 layers,
-   d_model 1,536, 151,936 tokens, 1,543,569,408 parameters, f32 with
-   f32 AdamW state, bf16 activations) for 6 steps of 4 x 4,096 tokens
+   ``repro_torch.launch.train.main`` trains qwen2-1.5b at full width
+   (d_model 1,536, 151,936 tokens) and 8 of its 28 layers
+   (``TRAIN_LAYERS``; 607,715,328 parameters, f32 with f32 AdamW state,
+   bf16 activations) for 6 steps of 4 x 4,096 tokens
    (``SHAPES["train_4k"]``'s sequence; its global batch of 256 cut to 4
    for one card), checkpointing at steps 3 and 6 into a temporary
    directory, and prints each step's ms, tokens/s, loss, global gradient
    norm (both must be finite) and peak device memory, and the
    checkpoint's save, wait and restore seconds; (b) resumes from step_3
    and holds steps 4 and 5 to the uninterrupted run's losses and norms
-   (``RESUME_RTOL``); (c) prefills 4 x 4,096 tokens, decodes 8 more on the
+   (``RESUME_RTOL``); (c) at all 28 layers (1,543,569,408 parameters)
+   prefills 4 x 4,096 tokens, decodes 8 more on the
    cache, and holds the last decode's logits to a prefill of all 4,104
    within rtol = atol = 0.15 (the reference's bound for bf16
    activations); (d) takes one train step of the reduced qwen2-1.5b on
@@ -267,6 +269,30 @@ Run from the root of a checkout on a machine with a CUDA card.  It
    activations (TF32 off; loss, norm, AdamW's moments and the
    parameters) and with bf16 ones (loss and norm).  None of the five
    kernels may launch.
+19. drives the moe/vlm leg, the LM substrate's ``moe`` and ``vlm``
+   families at full width with ``n_layers`` cut (``MOE_VLM_RUNS``; no
+   config's state fits one card at full depth): (a) ``launch.train.main``
+   trains moonshot-v1-16b-a3b (64 experts, top-6, 48 -> 4 layers) for 3
+   steps of 4 x 4,096 tokens, no checkpoints, and prints each step's ms,
+   tokens/s, 6 N_active D rate, loss, gradient norm, summed MoE auxiliary
+   loss (all finite, the auxiliary loss above 0) and peak; then a 4 x
+   4,096 prefill (with the share of (token, choice) pairs dropped at
+   capacity) and 8 decoded tokens; (b) the same for qwen2-vl-7b (M-RoPE,
+   28 -> 8 layers) on 2 x 4,096 text tokens, each row behind its 256 zero
+   patches as the launcher adds them, and a prefill behind 256 normal
+   patches; (c) llama4-scout-17b-a16e (16 experts, top-1, 48 -> 2 layers,
+   23.2 GiB of f32 weights) prefills 4 x 4,096 tokens and decodes 8,
+   without gradients.  Decode is not held to prefill in this leg: MoE
+   capacity depends on the call's tokens and M-RoPE decodes at the raw
+   position, in the reference too.  Each model is freed before the next
+   (the GiB left allocated is printed).  (d) For each of the three
+   ``REDUCED`` configs, one f32 train step (loss, norm, AdamW's moments,
+   parameters) and one f32 prefill (logits within 1e-5) on the card and
+   the CPU, and one bf16 step (loss and norm within 2e-2); for the MoE
+   configs an f32 forward and prefill on the CPU come first, and before
+   any value is compared the leg asserts that their router probabilities
+   keep every token's k-th and (k+1)-th choice ``ROUTE_MARGIN`` apart.  None of the
+   five kernels may launch.
 
 Every leg prints its ``torch path:`` line — per key range for the split
 leg — and checks the path each run took against ``choose_path``: a dense
@@ -4185,6 +4211,10 @@ def launcher_leg(torch, tag, args) -> dict:
 TRAIN_ARCH = "qwen2-1.5b"
 TRAIN_BATCH, TRAIN_SEQ = 4, 4096  # SHAPES["train_4k"]'s sequence, 4 of its 256 rows
 TRAIN_STEPS, TRAIN_CKPT_EVERY = 6, 3
+# (a) and (b) train n_layers 28 -> 8 at full width: the checkpoint I/O
+# (12 B a parameter, three saves and a restore) and the steps scale with
+# the parameters, and the script must stay within its time
+TRAIN_LAYERS = 8
 DECODE_STEPS = 8
 # the reference's bound for bf16 activations (tests/test_arch_smoke.py)
 BF16_LOGIT_TOL = 0.15
@@ -4229,20 +4259,22 @@ def train_leg(torch, tag, args) -> dict:
     for name in io:
         setattr(Checkpointer, name, timed(name))
     ck_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
-    argv = ["--arch", TRAIN_ARCH, "--global-batch", str(TRAIN_BATCH), "--seq-len",
-            str(TRAIN_SEQ), "--steps", str(TRAIN_STEPS), "--ckpt-every", str(TRAIN_CKPT_EVERY),
-            "--log-every", "1", "--ckpt-dir", ck_dir]
-    cfg = get_config(TRAIN_ARCH)
+    argv = ["--arch", TRAIN_ARCH, "--n-layers", str(TRAIN_LAYERS), "--global-batch",
+            str(TRAIN_BATCH), "--seq-len", str(TRAIN_SEQ), "--steps", str(TRAIN_STEPS),
+            "--ckpt-every", str(TRAIN_CKPT_EVERY), "--log-every", "1", "--ckpt-dir", ck_dir]
+    published = get_config(TRAIN_ARCH)
+    cfg = published.scaled(n_layers=TRAIN_LAYERS)
     tokens = TRAIN_BATCH * TRAIN_SEQ
     try:
-        # (a) six steps at full width, checkpoints at steps 3 and 6
+        # (a) six steps at full width and cut depth, checkpoints at steps 3 and 6
         t0 = time.perf_counter()
         whole = train.main(argv)
         seconds["train"] = time.perf_counter() - t0
         check(whole["steps"] == list(range(TRAIN_STEPS)), "train leg: steps missing")
         for i, step in enumerate(whole["steps"]):
             loss, gnorm, ms = whole["losses"][i], whole["grad_norms"][i], whole["ms"][i]
-            say(tag, f"train leg: {TRAIN_ARCH} step {step}: {ms:.1f} ms, "
+            say(tag, f"train leg: {TRAIN_ARCH} ({TRAIN_LAYERS} of {published.n_layers} "
+                     f"layers) step {step}: {ms:.1f} ms, "
                      f"{whole['tokens_per_s'][i]:.0f} tokens/s, loss {loss:.6f}, gnorm "
                      f"{gnorm:.6f}, peak {whole['peak_bytes'][i] / 2**30:.2f} GiB; 6ND "
                      f"{6 * cfg.param_count() * tokens / ms / 1e9:.1f} TFLOP/s")
@@ -4279,7 +4311,7 @@ def train_leg(torch, tag, args) -> dict:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    decode = prefill_decode(torch, tag, args, cfg)
+    decode = prefill_decode(torch, tag, args, published)
     seconds["prefill_decode"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     card_cpu = train_cpu_check(torch, tag, args)
@@ -4344,20 +4376,37 @@ def _off(torch, got, want):
     return ~torch.isclose(got, want, rtol=UPD_RTOL, atol=UPD_RTOL * float(want.abs().max()))
 
 
-def train_cpu_check(torch, tag, args) -> dict:
-    """(d): one train step of the reduced qwen2-1.5b on the card and on
-    the CPU from the same parameters and batch, in f32 and in bf16."""
+def check_batch(cfg, rows: int, seq: int, seed: int) -> dict:
+    """A pipeline batch of ``rows`` x ``seq`` tokens as numpy, with normal
+    vision patches (rows, P, d) for ``vlm``."""
+    import numpy as np
+
+    from repro_torch.train.pipeline import DataPipeline, PipelineConfig
+
+    batch = DataPipeline(PipelineConfig(cfg.vocab, seq, rows)).local_batch_at(0)
+    if cfg.family == "vlm":
+        rng = np.random.default_rng(seed)
+        batch["patches"] = rng.normal(size=(rows, cfg.vision_patches, cfg.d_model)).astype(
+            np.float32)
+    return batch
+
+
+def train_cpu_check(torch, tag, args, arch=TRAIN_ARCH, leg="train leg", rows=TRAIN_BATCH,
+                    seq=CPU_CHECK_SEQ, seed=None) -> dict:
+    """(d): one train step of the reduced ``arch`` on the card and on the
+    CPU from the same parameters (``seed``, else ``--seed``) and batch, in
+    f32 and in bf16."""
     from repro_torch.configs import get_config
     from repro_torch.launch import train
     from repro_torch.models import model as t_model
     from repro_torch.train.optimizer import AdamWConfig, adamw_init, schedule
-    from repro_torch.train.pipeline import DataPipeline, PipelineConfig
 
-    cfg = get_config(TRAIN_ARCH, reduced=True)
+    cfg = get_config(arch, reduced=True)
     acfg = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=2)
     lr = float(schedule(acfg, 1))
-    batch = DataPipeline(PipelineConfig(cfg.vocab, CPU_CHECK_SEQ, TRAIN_BATCH)).local_batch_at(0)
-    base = t_model.get_model(cfg, "cpu").init(torch.Generator().manual_seed(args.seed))
+    seed = args.seed if seed is None else seed
+    batch = check_batch(cfg, rows, seq, seed)
+    base = t_model.get_model(cfg, "cpu").init(torch.Generator().manual_seed(seed))
     matmul = torch.backends.cuda.matmul
     before = (t_model.ACT_DTYPE, matmul.allow_tf32)
     out = {}
@@ -4403,14 +4452,275 @@ def train_cpu_check(torch, tag, args) -> dict:
             else:
                 ok = loss_rel <= BF16_LOSS_RTOL and gnorm_rel <= BF16_LOSS_RTOL
                 bounds = f"loss and gnorm rtol {BF16_LOSS_RTOL}"
-            say(tag, f"check: train leg: reduced {TRAIN_ARCH}, {name} activations, one step "
-                     f"on {TRAIN_BATCH} x {CPU_CHECK_SEQ} tokens, card vs CPU: loss {gl:.7f} vs "
+            say(tag, f"check: {leg}: reduced {arch}, {name} activations, one step "
+                     f"on {rows} x {seq} tokens, card vs CPU: loss {gl:.7f} vs "
                      f"{cl:.7f} (relative {loss_rel:.3g}), gnorm {gg:.7f} vs {cg:.7f} "
                      f"(relative {gnorm_rel:.3g}); {bounds}: {ok}")
-            check(ok, f"train leg: the card's {name} train step differs from the CPU's")
+            check(ok, f"{leg}: the card's {name} train step of {arch} differs from the CPU's")
             out[name] = row
     finally:
         t_model.ACT_DTYPE, matmul.allow_tf32 = before
+    return out
+
+
+# ----------------------------------------------------------------------
+# moe/vlm leg: the LM substrate's moe and vlm families
+# ----------------------------------------------------------------------
+
+# (arch, n_layers cut to, rows a step, trained): every width as published,
+# only the depth cut (f32 weights, gradients, m and v take 16 B a
+# parameter: 44.0 GiB for moonshot at 4 layers and qwen2-vl-7b at 8;
+# scout's 2 layers hold 23.2 GiB of f32 weights and serve without
+# gradients)
+MOE_VLM_RUNS = (
+    ("moonshot-v1-16b-a3b", 4, 4, True),
+    ("qwen2-vl-7b", 8, 2, True),
+    ("llama4-scout-17b-a16e", 2, 4, False),
+)
+MOE_VLM_STEPS = 3
+# the f32 card = CPU checks of the reduced MoE configs hold routing equal
+# only where every token's k-th and (k+1)-th router probabilities on the
+# CPU lie more than ROUTE_MARGIN apart (f32 card and CPU probabilities
+# differ by ~1e-7); the check asserts it.  At 2 x 128 tokens and seed 3
+# both reduced MoE configs clear it (1.8e-4 and 5.8e-4 on the CPU); at
+# 4 x 256 tokens or seed 0 reduced moonshot does not (5.4e-6, 5.6e-5)
+ROUTE_MARGIN = 1e-4
+MOE_CHECK_ROWS, MOE_CHECK_SEQ, MOE_CHECK_SEED = 2, 128, 3
+
+
+class RouteLog:
+    """Spies on ``models/layers.py:moe_route`` inside a ``with``: every
+    call's ``Routing``, kept on its device, and the activations' dtype."""
+
+    def __init__(self):
+        self.calls, self.dtypes = [], []
+
+    def __enter__(self):
+        from repro_torch.models import layers
+
+        self.layers = layers
+        self.original = layers.moe_route
+
+        def spy(p, x, cfg):
+            r = self.original(p, x, cfg)
+            self.calls.append(r)
+            self.dtypes.append(x.dtype)
+            return r
+
+        layers.moe_route = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.layers.moe_route = self.original
+
+    def dropped(self) -> tuple[int, int]:
+        """(dropped, all) (token, choice) pairs over the calls."""
+        if not self.calls:
+            return 0, 0
+        kept = sum(r.valid.sum() for r in self.calls)
+        total = sum(r.valid.numel() for r in self.calls)
+        return total - int(kept), total
+
+    def margin(self, torch, k: int) -> float:
+        """The smallest gap between a token's k-th and (k+1)-th router
+        probability over the calls with f32 activations on the CPU."""
+        gaps = []
+        for r, dtype in zip(self.calls, self.dtypes):
+            if r.probs.device.type != "cpu" or dtype != torch.float32:
+                continue
+            top = r.probs.detach().topk(k + 1, dim=-1).values
+            gaps.append(float((top[:, k - 1] - top[:, k]).min()))
+        return min(gaps)
+
+
+def moe_vlm_leg(torch, tag, args) -> dict:
+    """The moe and vlm families at full width and cut depth, and card =
+    CPU at reduced width (see 19 in the module docstring)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+
+    t_leg = time.perf_counter()
+    ops.reset_launch_counts()
+    say(tag, f"moe/vlm leg: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated on the "
+             f"card by earlier legs")
+    out, seconds = {}, {}
+    for arch, n_layers, rows, trained in MOE_VLM_RUNS:
+        published = get_config(arch)
+        cfg = published.scaled(n_layers=n_layers)
+        t0 = time.perf_counter()
+        row = {"n_layers": [n_layers, published.n_layers], "params": cfg.param_count(),
+               "active_params": cfg.active_param_count()}
+        say(tag, f"moe/vlm leg: {arch} ({cfg.family}) at full width, n_layers "
+                 f"{published.n_layers} -> {n_layers}: {cfg.param_count()} parameters "
+                 f"({cfg.active_param_count()} active a token), "
+                 f"{cfg.param_count() * 4 / 2**30:.2f} GiB of f32 weights")
+        if trained:
+            row["train"] = moe_vlm_train(torch, tag, arch, cfg, rows)
+        row["serve"] = moe_vlm_serve(torch, tag, args, cfg, rows)
+        gc.collect()
+        torch.cuda.empty_cache()
+        row["left_gib"] = torch.cuda.memory_allocated() / 2**30
+        seconds[arch] = time.perf_counter() - t0
+        say(tag, f"moe/vlm leg: {arch} freed: {row['left_gib']:.2f} GiB left allocated; "
+                 f"{seconds[arch]:.1f} s")
+        out[arch] = row
+
+    t0 = time.perf_counter()
+    out["card_cpu"] = {}
+    for arch, *_ in MOE_VLM_RUNS:
+        out["card_cpu"][arch] = moe_vlm_cpu_check(torch, tag, args, arch)
+    seconds["cpu_check"] = time.perf_counter() - t0
+
+    launches = ops.launch_counts()
+    check(not any(launches.values()), f"moe/vlm leg: a JOIN-AGG kernel launched: {launches}")
+    leg_s = time.perf_counter() - t_leg
+    say(tag, f"moe/vlm leg: the leg took {leg_s:.1f} s ("
+             + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items()) + ")")
+    out.update(seconds=leg_s, part_seconds=seconds, launches={"moe_vlm": launches})
+    return out
+
+
+def moe_vlm_train(torch, tag, arch: str, cfg, rows: int) -> dict:
+    """(a), (b): ``launch/train.main`` for ``MOE_VLM_STEPS`` steps of
+    ``rows`` x 4,096 tokens (``vlm``: each row behind its zero patches),
+    no checkpoint directory."""
+    import numpy as np
+
+    from repro_torch.launch import train
+
+    argv = ["--arch", arch, "--n-layers", str(cfg.n_layers), "--global-batch", str(rows),
+            "--seq-len", str(TRAIN_SEQ), "--steps", str(MOE_VLM_STEPS), "--log-every", "1",
+            "--device", "cuda"]
+    run = train.main(argv)
+    check(run["steps"] == list(range(MOE_VLM_STEPS)), f"moe/vlm leg: {arch}: steps missing")
+    # tokens through the decoder a step: the text and, for vlm, the patches
+    tokens = rows * (TRAIN_SEQ + cfg.vision_patches)
+    for i, step in enumerate(run["steps"]):
+        loss, gnorm, aux, ms = run["losses"][i], run["grad_norms"][i], run["aux"][i], run["ms"][i]
+        peak = run["peak_bytes"][i] / 2**30 if run["peak_bytes"] else float("nan")
+        say(tag, f"moe/vlm leg: {arch} step {step}: {ms:.1f} ms, "
+                 f"{run['tokens_per_s'][i]:.0f} text tokens/s, loss {loss:.6f}, gnorm "
+                 f"{gnorm:.6f}, summed aux {aux:.6f}, peak {peak:.2f} GiB; 6 N_active D "
+                 f"{6 * cfg.active_param_count() * tokens / ms / 1e9:.1f} TFLOP/s "
+                 f"(D = {tokens} tokens through the layers)")
+        check(all(np.isfinite(v) for v in (loss, gnorm, aux)),
+              f"moe/vlm leg: {arch} step {step}: loss {loss}, gnorm {gnorm} or aux {aux} "
+              f"not finite")
+    if cfg.moe:
+        check(min(run["aux"]) > 0, f"moe/vlm leg: {arch}: the auxiliary loss is zero")
+    return {k: run[k] for k in ("losses", "grad_norms", "aux", "ms", "tokens_per_s",
+                                "peak_bytes")}
+
+
+def moe_vlm_serve(torch, tag, args, cfg, rows: int) -> dict:
+    """(a)-(c): a prompt of ``rows`` x 4,096 tokens (``vlm``: behind
+    ``vision_patches`` normal patches) prefilled, then ``DECODE_STEPS``
+    tokens decoded on its cache, without gradients.  Decode is not held
+    to a longer prefill here: MoE capacity depends on the call's tokens
+    and the reference decodes M-RoPE at the raw position, so the two
+    differ by design."""
+    import numpy as np
+
+    from repro_torch.models.model import ACT_DTYPE, get_model
+
+    gen = torch.Generator("cuda").manual_seed(args.seed)
+    model = get_model(cfg, "cuda").init(gen)
+    rng = np.random.default_rng(args.seed)
+    toks = torch.tensor(rng.integers(0, cfg.vocab, (rows, TRAIN_SEQ + DECODE_STEPS)),
+                        dtype=torch.int32, device="cuda")
+    batch = {"tokens": toks[:, :TRAIN_SEQ]}
+    if cfg.family == "vlm":
+        batch["patches"] = torch.randn((rows, cfg.vision_patches, cfg.d_model), generator=gen,
+                                       device="cuda").to(ACT_DTYPE)
+    prompt = TRAIN_SEQ + (cfg.vision_patches if "patches" in batch else 0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with RouteLog() as routes:
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(batch)
+        finite = bool(torch.isfinite(logits).all())  # waits for the prefill
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+    dropped, choices = routes.dropped()
+    dec = model.init_cache(rows, prompt + DECODE_STEPS)
+    for key in ("k", "v"):
+        dec[key][:, :, :prompt] = cache[key]
+    del cache
+    step_ms = []
+    for i in range(DECODE_STEPS):
+        t0 = time.perf_counter()
+        step_logits, dec = model.decode_step(dec, toks[:, TRAIN_SEQ + i:TRAIN_SEQ + i + 1],
+                                             prompt + i)
+        finite = finite and bool(torch.isfinite(step_logits).all())
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    share = dropped / choices if choices else 0.0
+    say(tag, f"moe/vlm leg: {cfg.name}: prefill of {rows} x {prompt} tokens {prefill_ms:.1f} ms"
+             + (f" ({dropped} of {choices} (token, choice) pairs dropped at capacity, "
+                f"{share:.4f})" if cfg.moe else "")
+             + f"; decode steps at {prompt}..{prompt + DECODE_STEPS - 1}: "
+             + ", ".join(f"{ms:.1f}" for ms in step_ms) + f" ms; peak {peak:.2f} GiB")
+    check(tuple(logits.shape) == (rows, 1, cfg.vocab) and finite,
+          f"moe/vlm leg: {cfg.name}: prefill or decode logits not finite or misshapen")
+    check(not cfg.moe or choices == cfg.n_layers * rows * TRAIN_SEQ * cfg.moe.top_k,
+          f"moe/vlm leg: {cfg.name}: the prefill routed {choices} choices")
+    del model, dec, logits, step_logits
+    return {"prefill_ms": prefill_ms, "decode_ms": step_ms, "peak_gib": peak,
+            "dropped": dropped, "choices": choices}
+
+
+def moe_vlm_cpu_check(torch, tag, args, arch: str) -> dict:
+    """(d): for the reduced ``arch``, one f32 and one bf16 train step and
+    one f32 prefill on the card and on the CPU from the same parameters
+    and batch.  MoE: the CPU's f32 routing of that forward and prefill is
+    held to the routing margin first, before any value is compared."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as t_model
+
+    cfg = get_config(arch, reduced=True)
+    if cfg.moe:
+        rows, seq, seed = MOE_CHECK_ROWS, MOE_CHECK_SEQ, MOE_CHECK_SEED
+    else:
+        rows, seq, seed = TRAIN_BATCH, CPU_CHECK_SEQ, args.seed
+    batch = check_batch(cfg, rows, seq, seed)
+    base = t_model.get_model(cfg, "cpu").init(torch.Generator().manual_seed(seed))
+
+    def feed(dev, labels=False):
+        return {k: torch.tensor(v, device=dev) for k, v in batch.items()
+                if labels or k != "labels"}
+
+    matmul = torch.backends.cuda.matmul
+    before = (t_model.ACT_DTYPE, matmul.allow_tf32)
+    out, guard = {}, ""
+    try:
+        t_model.ACT_DTYPE, matmul.allow_tf32 = torch.float32, False
+        with RouteLog() as routes, torch.no_grad():
+            base.loss(feed("cpu", labels=True))  # the train step's forward
+            want = base.prefill(feed("cpu"))[0]
+        if cfg.moe:
+            margin = routes.margin(torch, cfg.moe.top_k)
+            out["route_margin"] = margin
+            guard = f"; routing margin on the CPU {margin:.3g} (> {ROUTE_MARGIN})"
+            say(tag, f"check: moe/vlm leg: reduced {arch}, f32 on the CPU: the smallest gap "
+                     f"between a token's k-th and (k+1)-th router probability is "
+                     f"{margin:.3g} (> {ROUTE_MARGIN}): {margin > ROUTE_MARGIN}")
+            check(margin > ROUTE_MARGIN, f"moe/vlm leg: reduced {arch}: a near-tie in the "
+                                         f"CPU's routing (margin {margin:.3g}); the f32 card "
+                                         f"= CPU checks cannot hold")
+        out["train"] = train_cpu_check(torch, tag, args, arch, "moe/vlm leg", rows, seq, seed)
+        t_model.ACT_DTYPE, matmul.allow_tf32 = torch.float32, False
+        model = t_model.get_model(cfg, "cuda")
+        model.load_state_dict(base.state_dict())
+        got = model.prefill(feed("cuda"))[0].cpu()
+    finally:
+        t_model.ACT_DTYPE, matmul.allow_tf32 = before
+    err = float((got - want).abs().max())
+    ok = bool(torch.allclose(got, want, rtol=F32_RTOL, atol=F32_RTOL * float(want.abs().max())))
+    say(tag, f"check: moe/vlm leg: reduced {arch}, f32 prefill of {rows} x {seq} tokens, card "
+             f"vs CPU: largest |logit difference| {err:.3g}, within rtol {F32_RTOL} (atol "
+             f"{F32_RTOL} x max |logit|): {ok}{guard}")
+    check(ok and bool(torch.isfinite(got).all()),
+          f"moe/vlm leg: reduced {arch}: the card's f32 prefill differs from the CPU's")
+    out["prefill_max_abs_err"] = err
     return out
 
 
@@ -4638,9 +4948,15 @@ def smoke(args, t_script: float) -> int:
     trained = train_leg(torch, tag, args)
     done("18. train leg")
 
+    # 19. moe/vlm leg --------------------------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_vlm = moe_vlm_leg(torch, tag, args)
+    done("19. moe/vlm leg")
+
     legs = {"main": launches, "fused": flaunches}
     for leg in (split, cyclic, dense, maintain, stored, served, sharded, compared, launched,
-                reffed, trained):
+                reffed, trained, moe_vlm):
         legs.update(leg.pop("launches"))
     for label, summary in (("main path", main), ("fused path", fused), *split.items(),
                            *cyclic.items(), *dense.items(), *maintain.items(),
@@ -4648,6 +4964,7 @@ def smoke(args, t_script: float) -> int:
                            ("serve leg", served), ("shard leg", sharded),
                            ("comparison leg", compared), ("launcher leg", launched),
                            ("ref leg", reffed), ("train leg", trained),
+                           ("moe/vlm leg", moe_vlm),
                            ("autotune leg", {k: v for k, v in tuned.items() if k != "tuned"})):
         say(tag, f"{label} summary: {json.dumps(summary)}")
     paths = {name: "main" for name in UNFUSED_KERNELS}

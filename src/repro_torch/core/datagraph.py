@@ -82,6 +82,18 @@ class DataGraph:
         b = self.blocks[(self.prepared.decomposition.root, "l")]
         return torch.arange(b.start, b.stop, device=self.device)
 
+    def out(self, n: int) -> list[tuple[int, int]]:
+        """Node ``n``'s out-edges as ``(dst, multiplicity)`` pairs, read
+        from the device's CSR on the host."""
+        lo, hi = self.offsets[n:n + 2].tolist()
+        return list(zip(self.edge_dst[lo:hi].tolist(), self.edge_mult[lo:hi].tolist()))
+
+    def out_w(self, n: int) -> tuple[np.ndarray, np.ndarray]:
+        """Channel-mode adjacency on the host: (dst ids, (deg, k) weight
+        matrix)."""
+        lo, hi = self.offsets[n:n + 2].tolist()
+        return self.edge_dst[lo:hi].cpu().numpy(), self.edge_w[lo:hi].cpu().numpy()
+
     def memory_bytes(self) -> int:
         """The reference's footprint formula (nodes + CSR edges), which
         the paper's Table I reports: ``8 * max(width, 1) + 24`` bytes a

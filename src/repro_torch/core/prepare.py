@@ -216,6 +216,9 @@ class Prepared:
     def group_attrs(self) -> tuple[tuple[str, str], ...]:
         return self.schema.group_attrs
 
+    def domain(self, attr: str) -> int:
+        return self.dicts[attr].size
+
     def forget(self, rels) -> None:
         """Drop every memo built from the encodings of ``rels``: host and
         device grouped-CSR views (with the weights uploaded beside

@@ -41,6 +41,10 @@ class Factor:
     count: np.ndarray  # (n,) — int64 counts, or float64 override weights
     payloads: dict[str, np.ndarray] = field(default_factory=dict)
 
+    @property
+    def num_rows(self) -> int:
+        return len(self.count)
+
     def nbytes(self) -> int:
         return (
             self.codes.nbytes

@@ -16,8 +16,7 @@ shuffles — and keep the tree minimizing the *estimated* maximum bag size:
 
 (the product of attr domains, capped by the tightest covering relation).
 
-Copy of the JAX package's ``ghd/hypertree.py`` without two accessors
-nothing here reads.  Every choice is deterministic (the shuffles draw
+Copy of the JAX package's ``ghd/hypertree.py``.  Every choice is deterministic (the shuffles draw
 from ``random.Random(0)``, ties break on sorted names and positions),
 so both packages build the same bags, order and relation cover.
 """
@@ -47,6 +46,13 @@ class GHD:
     cover_of: dict[str, str]  # input relation -> assigned bag
     est_elems: dict[str, int]  # estimated materialized tuples per bag
     width: int  # max relations assigned to one bag (integer cover width)
+
+    def children(self, name: str) -> list[str]:
+        return [b for b in self.order if self.bags[b].parent == name]
+
+    @property
+    def max_est_elems(self) -> int:
+        return max(self.est_elems.values(), default=0)
 
 
 def _bag_estimate(

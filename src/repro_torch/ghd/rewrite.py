@@ -90,6 +90,10 @@ class GHDPlan:
             if rel in self.bag_tables[b].sources
         ]
 
+    @property
+    def est_width_elems(self) -> int:
+        return self.ghd.max_est_elems
+
 
 def _effective_domains(
     domains: dict[str, int], encoded: dict[str, EncodedRelation]

@@ -6,12 +6,14 @@
         --steps 4 --global-batch 2 --seq-len 64
 
 Port of the JAX package's ``launch/train.py``: the model zoo's dense
-family (``models/``), AdamW, the deterministic pipeline, asynchronous
-checkpoints, the preemption handler, the straggler monitor and gradient
-accumulation, wired as the reference wires them, with its flags and its
-``[train]`` lines.  It runs on CUDA unless ``--device cpu`` is given, and
-without a card it exits 2; it never falls back to the CPU.  Families
-other than ``dense`` raise ``NotImplementedError`` (ROADMAP.md §1).
+decoder families (``models/``: dense, moe, vlm), AdamW, the
+deterministic pipeline, asynchronous checkpoints, the preemption
+handler, the straggler monitor and gradient accumulation, wired as the
+reference wires them, with its flags and its ``[train]`` lines; a
+``vlm`` batch gets zero bf16 vision patches, as there.  It runs on CUDA
+unless ``--device cpu`` is given, and without a card it exits 2; it
+never falls back to the CPU.  The ``ssm``, ``hybrid`` and ``audio``
+families raise ``NotImplementedError`` (ROADMAP.md §1).
 
 The parameters start from ``torch.Generator`` seed 0 on the device, and
 every step runs eagerly.  A resumed run starts at the restored AdamW step
@@ -93,8 +95,9 @@ def load_state(params: dict, opt: dict, tree: tuple) -> None:
 
 def main(argv: list[str] | None = None) -> dict:
     """Trains as the flags say; returns the run's numbers (``losses``,
-    ``grad_norms``, ``ms``, ``tokens_per_s`` and, on a card,
-    ``peak_bytes`` per step, the ``steps`` taken and ``step0``)."""
+    ``grad_norms``, the MoE auxiliary loss ``aux`` (of the last
+    micro-batch), ``ms``, ``tokens_per_s`` and, on a card, ``peak_bytes``
+    per step, the ``steps`` taken and ``step0``)."""
     ap = argparse.ArgumentParser(prog=PROG, description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", choices=ARCHS, default="qwen2-1.5b")
     ap.add_argument("--reduced", action="store_true")
@@ -152,13 +155,18 @@ def main(argv: list[str] | None = None) -> dict:
     preempt = PreemptionHandler()
     cuda = device.type == "cuda"
     run = {"arch": cfg.name, "device": str(device), "step0": step0, "steps": [],
-           "losses": [], "grad_norms": [], "ms": [], "tokens_per_s": [], "peak_bytes": []}
+           "losses": [], "grad_norms": [], "aux": [], "ms": [], "tokens_per_s": [],
+           "peak_bytes": []}
 
     t_start = time.perf_counter()
     try:
         for step in range(step0, args.steps):
             batch = {k: torch.as_tensor(np.ascontiguousarray(v), device=device)
                      for k, v in pipe.local_batch_at(step).items()}
+            if cfg.family == "vlm":
+                batch["patches"] = torch.zeros(
+                    (args.global_batch, cfg.vision_patches, cfg.d_model), dtype=torch.bfloat16,
+                    device=device)
             if cuda:
                 torch.cuda.reset_peak_memory_stats(device)
             t0 = time.perf_counter()
@@ -168,7 +176,8 @@ def main(argv: list[str] | None = None) -> dict:
             gnorm = float(metrics["grad_norm"])
             tps = args.global_batch * args.seq_len / dt
             for key, val in (("steps", step), ("losses", loss), ("grad_norms", gnorm),
-                             ("ms", dt * 1e3), ("tokens_per_s", tps)):
+                             ("aux", float(model.last_aux)), ("ms", dt * 1e3),
+                             ("tokens_per_s", tps)):
                 run[key].append(val)
             if cuda:
                 run["peak_bytes"].append(torch.cuda.max_memory_allocated(device))

@@ -1,8 +1,10 @@
-"""Transformer building blocks of the dense decoder, as functions on tensors.
+"""Transformer building blocks of the decoder families, as functions on tensors.
 
-Port of the JAX package's ``models/layers.py`` (the dense subset: no
-M-RoPE, MoE, LayerNorm or GELU MLP yet; ROADMAP.md §1 queues them with
-their families).  Conventions, as in the reference:
+Port of the JAX package's ``models/layers.py`` for the ``dense``, ``moe``
+and ``vlm`` families: RMSNorm, RoPE with M-RoPE sections, flash
+attention, SwiGLU and the token-choice MoE block (no LayerNorm, GELU MLP
+or cross-attention yet; ROADMAP.md §1 queues them with their families).
+Conventions, as in the reference:
 
 * parameters are nested dicts of tensors (``{"w": ..., "b": ...}``), one
   layer's slice of the model's stacked ``(n_layers, ...)`` parameters;
@@ -21,6 +23,7 @@ the identity on one device; the port leaves them out until the mesh slice.
 from __future__ import annotations
 
 import os
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -73,15 +76,19 @@ def rmsnorm(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 
 
 def rope_angles(pos: torch.Tensor, hd: int, theta: float, sections=()):
-    """pos (..., S) int -> f32 cos/sin (..., S, hd // 2)."""
-    if sections:
-        raise NotImplementedError(
-            "M-RoPE sections are not ported yet: they come with the vlm family "
-            "(ROADMAP.md §1, the LM substrate's queue, item 1)"
-        )
+    """pos (..., S) int -> f32 cos/sin (..., S, hd // 2).
+
+    With ``sections`` (M-RoPE), pos is (..., S, n_sections) and frequency
+    group ``i`` (``sections[i]`` consecutive frequencies) is driven by
+    position stream ``i`` (Qwen2-VL)."""
     half = hd // 2
     freqs = theta ** (-torch.arange(0, half, dtype=torch.float32, device=pos.device) / half)
-    ang = pos.float()[..., None] * freqs
+    if sections:
+        assert sum(sections) == half, (sections, half)
+        sec_id = torch.repeat_interleave(torch.arange(len(sections)), torch.tensor(sections))
+        ang = pos.float()[..., sec_id.to(pos.device)] * freqs  # (..., S, half)
+    else:
+        ang = pos.float()[..., None] * freqs
     return torch.cos(ang), torch.sin(ang)
 
 
@@ -231,6 +238,93 @@ def attention_decode(p, x: torch.Tensor, cache: dict, pos, cfg, cos, sin,
 def mlp_swiglu(p, x: torch.Tensor) -> torch.Tensor:
     h = F.silu(linear(p["wg"], x)) * linear(p["wu"], x)
     return linear(p["wd"], h)
+
+
+# ---------------------------------------------------------------- MoE
+
+
+def init_moe(generator: torch.Generator, cfg, lead=(), device=None) -> dict[str, torch.Tensor]:
+    """The reference's draws: ``router`` (d, E) and the experts' ``wg``,
+    ``wu`` (E, d, f) normal x ``d ** -0.5``, ``wd`` (E, f, d) normal x
+    ``f ** -0.5``; ``lead`` stacks layers."""
+    d, f, E = cfg.d_model, cfg.d_ff, cfg.moe.n_experts
+
+    def normal(*shape):
+        return torch.randn((*lead, *shape), generator=generator, device=device)
+
+    return {"router": dense_init(generator, d, E, lead=lead, device=device),
+            "wg": normal(E, d, f) * d**-0.5,
+            "wu": normal(E, d, f) * d**-0.5,
+            "wd": normal(E, f, d) * f**-0.5}
+
+
+class Routing(NamedTuple):
+    """One ``moe_block`` call's routing of ``T`` tokens to ``E`` experts of
+    ``capacity`` slots each."""
+
+    probs: torch.Tensor  # (T, E) f32 router softmax
+    gate: torch.Tensor  # (T, k) f32, renormalised over the k choices
+    eid: torch.Tensor  # (T, k) int64 chosen experts, best first
+    onehot: torch.Tensor  # (T * k, E) int32, choice j of token t in row t * k + j
+    slot: torch.Tensor  # (T * k,) int64 row of the (E * C, d) buffer; E * C if dropped
+    valid: torch.Tensor  # (T * k,) bool: the choice found a free slot
+    capacity: int
+
+
+def moe_route(p, x: torch.Tensor, cfg) -> Routing:
+    """Token-choice top-k routing with a static capacity, as the
+    reference's ``moe_block`` routes: ``C = max(1, int(capacity_factor *
+    k * T / E))`` (``T`` this call's tokens); a choice's rank in its
+    expert is the number of earlier choices of that expert in token-major
+    order (an exclusive cumsum), and a rank ``>= C`` is dropped.
+
+    ``torch.topk`` leaves the order of tied probabilities unspecified, as
+    ``jax.lax.top_k`` does not; a tie at the k-th choice can pick another
+    expert than the reference (the parity tests assert a margin first)."""
+    T = x.shape[0]
+    E, k = cfg.moe.n_experts, cfg.moe.top_k
+    C = max(1, int(cfg.moe.capacity_factor * k * T / E))
+    logits = (x @ p["router"].to(x.dtype)).float()
+    probs = torch.softmax(logits, dim=-1)
+    gate, eid = torch.topk(probs, k, dim=-1)
+    gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+    flat_e = eid.reshape(-1)
+    onehot = F.one_hot(flat_e, E).to(torch.int32)
+    rank = (torch.cumsum(onehot, dim=0, dtype=torch.int32) - onehot).gather(
+        1, flat_e[:, None])[:, 0]
+    valid = rank < C
+    slot = torch.where(valid, flat_e * C + rank, E * C)
+    return Routing(probs, gate, eid, onehot, slot, valid, C)
+
+
+def moe_block(p, x: torch.Tensor, cfg) -> tuple[torch.Tensor, torch.Tensor]:
+    """Token-choice top-k MoE with static capacity (overflow dropped).
+
+    x (T, d) -> (y (T, d), aux): each kept choice's token row is scattered
+    into its expert's slot of an ``(E * C, d)`` buffer, the experts'
+    SwiGLU runs as batched products in ``x``'s dtype, and each token sums
+    its kept choices' outputs weighted by their gates.  ``aux`` is the
+    Switch load-balancing term ``E * Σ_e frac_e * mean_prob_e``, f32.
+
+    The reference's single-device path, in plain PyTorch (it computes this
+    outside any Pallas kernel); its expert-parallel ``moe_ep.py`` path
+    waits for the mesh (ROADMAP.md §1, item 5)."""
+    T, d = x.shape
+    E, k = cfg.moe.n_experts, cfg.moe.top_k
+    r = moe_route(p, x, cfg)
+    C = r.capacity
+    xr = x.repeat_interleave(k, dim=0)  # (T * k, d)
+    # one spare row takes the dropped choices, as mode="drop" does
+    buf = torch.zeros((E * C + 1, d), dtype=x.dtype, device=x.device).index_add(0, r.slot, xr)
+    eb = buf[:E * C].reshape(E, C, d)
+    h = F.silu(torch.bmm(eb, p["wg"].to(x.dtype))) * torch.bmm(eb, p["wu"].to(x.dtype))
+    ob = torch.bmm(h, p["wd"].to(x.dtype)).reshape(E * C, d)
+    y = torch.where(r.valid[:, None], ob[r.slot.clamp(max=E * C - 1)], 0.0)
+    y = y * r.gate.reshape(-1)[:, None].to(y.dtype)
+    y = y.reshape(T, k, d).sum(dim=1)
+    frac = (r.onehot > 0).float().mean(dim=0)
+    aux = E * torch.sum(frac * r.probs.mean(dim=0))
+    return y, aux
 
 
 # ---------------------------------------------------------------- loss

@@ -1,25 +1,31 @@
-"""The dense decoder behind the reference's model interface.
+"""The decoder families behind the reference's model interface.
 
-Port of the JAX package's ``models/model.py`` for family ``"dense"``
-(qwen2-1.5b, deepseek-coder-33b, minitron-4b, minitron-8b).  ``Model(cfg,
-device)`` is an ``nn.Module`` whose parameters have the reference's
-pytree names and shapes: every per-layer tensor is stacked along a
-leading ``n_layers`` axis (``layers.attn.wq.w`` is ``(L, d, nh * hd)``),
-as the reference stacks them for ``lax.scan``.  That keeps the AdamW
-decay rule (``p.ndim >= 2``: stacked norm scales and biases decay, the
-top-level ``final_norm`` does not), the checkpoint's leaf names and the
-converter (``models/convert.py``) equal to the reference's.
+Port of the JAX package's ``models/model.py`` for families ``"dense"``
+(qwen2-1.5b, deepseek-coder-33b, minitron-4b, minitron-8b), ``"moe"``
+(llama4-scout-17b-a16e, moonshot-v1-16b-a3b: the dense decoder layer
+with ``moe_block`` in place of the MLP) and ``"vlm"`` (qwen2-vl-7b: stub
+vision patch embeddings prepended to the text, M-RoPE positions).
+``Model(cfg, device)`` is an ``nn.Module`` whose parameters have the
+reference's pytree names and shapes: every per-layer tensor is stacked
+along a leading ``n_layers`` axis (``layers.attn.wq.w`` is ``(L, d, nh *
+hd)``, ``layers.moe.wg`` is ``(L, E, d, f)``), as the reference stacks
+them for ``lax.scan``.  That keeps the AdamW decay rule (``p.ndim >= 2``:
+stacked norm scales and biases decay, the top-level ``final_norm`` does
+not), the checkpoint's leaf names and the converter
+(``models/convert.py``) equal to the reference's.
 
 * ``init(generator)``  -- fills the parameters from an explicit generator
 * ``loss(batch)``      -- causal-LM loss (chunked vocab cross-entropy;
-                          each layer recomputed in the backward)
+                          each layer recomputed in the backward) + 0.01 x
+                          the MoE auxiliary loss (kept as ``last_aux``)
 * ``prefill(batch)``   -- last-position logits and the KV cache
 * ``decode_step(cache, tokens, pos)`` -- one token for the whole batch
 * ``init_cache(B, S)`` -- zeroed ``(L, B, S, nkv, hd)`` keys and values
 
 The other families raise ``NotImplementedError``: ROADMAP.md §1 queues
 them.  The reference's ``shard_ctx.constrain`` hints are the identity on
-one device and are left out until the mesh slice.
+one device and are left out until the mesh slice, with its
+expert-parallel ``moe_ep.py``.
 """
 from __future__ import annotations
 
@@ -34,10 +40,8 @@ from repro_torch.models.config import ModelConfig
 ACT_DTYPE = torch.bfloat16
 """Activation dtype, read at call time (tests set it to float32)."""
 
-PORTED_FAMILIES = ("dense",)
+PORTED_FAMILIES = ("dense", "moe", "vlm")
 _QUEUED = {
-    "moe": "item 1 (moe_block, moe_ep.py)",
-    "vlm": "item 1 (M-RoPE, vision patches)",
     "ssm": "item 2 (wkv6_chunked)",
     "hybrid": "item 3 (mamba2)",
     "audio": "item 4 (whisper)",
@@ -85,18 +89,37 @@ class DecoderStack(nn.Module):
             "wo": lin(nh * hd, d),
         })
         self.ln2 = _params({"scale": torch.empty((n, d), device=device)})
-        self.mlp = nn.ModuleDict({"wg": lin(d, f), "wu": lin(d, f), "wd": lin(f, d)})
+        if cfg.moe:
+            E = cfg.moe.n_experts
+            self.moe = _params({"router": torch.empty((n, d, E), device=device),
+                                "wg": torch.empty((n, E, d, f), device=device),
+                                "wu": torch.empty((n, E, d, f), device=device),
+                                "wd": torch.empty((n, E, f, d), device=device)})
+        else:
+            self.mlp = nn.ModuleDict({"wg": lin(d, f), "wu": lin(d, f), "wd": lin(f, d)})
 
     def layer(self, i: int) -> dict:
-        return _slice({"ln1": self.ln1, "attn": self.attn, "ln2": self.ln2,
-                       "mlp": self.mlp}, i)
+        ffn = {"moe": self.moe} if hasattr(self, "moe") else {"mlp": self.mlp}
+        return _slice({"ln1": self.ln1, "attn": self.attn, "ln2": self.ln2, **ffn}, i)
+
+
+def ffn(p, h: torch.Tensor, cfg) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The layer's feed-forward on ``h`` (B, S, d) and its f32 auxiliary
+    loss: ``moe_block`` over the flattened ``(B * S, d)`` tokens, or
+    SwiGLU and None."""
+    if cfg.moe:
+        B, S_len, d = h.shape
+        y, aux = L.moe_block(p["moe"], h.reshape(B * S_len, d), cfg)
+        return y.reshape(B, S_len, d), aux
+    return L.mlp_swiglu(p["mlp"], h), None
 
 
 def decoder_layer_train(p, x, cfg, cos, sin):
+    """Returns (x, aux); aux is None without experts."""
     h = L.attention_train(p["attn"], L.rmsnorm(p["ln1"], x, cfg.norm_eps), cfg, cos, sin)
     x = x + h
-    h2 = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
-    return x + L.mlp_swiglu(p["mlp"], h2)
+    y, aux = ffn(p, L.rmsnorm(p["ln2"], x, cfg.norm_eps), cfg)
+    return x + y, aux
 
 
 def decoder_layer_decode(p, x, cache, pos, cfg, cos, sin):
@@ -104,8 +127,8 @@ def decoder_layer_decode(p, x, cache, pos, cfg, cos, sin):
         p["attn"], L.rmsnorm(p["ln1"], x, cfg.norm_eps), cache, pos, cfg, cos, sin
     )
     x = x + h
-    h2 = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
-    return x + L.mlp_swiglu(p["mlp"], h2), cache
+    y, _ = ffn(p, L.rmsnorm(p["ln2"], x, cfg.norm_eps), cfg)
+    return x + y, cache
 
 
 class Model(nn.Module):
@@ -120,6 +143,7 @@ class Model(nn.Module):
         if not cfg.tie_embeddings:
             self.lm_head = nn.Parameter(torch.empty((d, cfg.vocab), device=device))
         self.layers = DecoderStack(cfg, device)
+        self.last_aux: torch.Tensor | None = None
 
     @property
     def device(self) -> torch.device:
@@ -135,8 +159,9 @@ class Model(nn.Module):
     def init(self, generator: torch.Generator) -> "Model":
         """Fills every parameter from ``generator`` (on the model's device)
         with the reference's distributions: normal draws scaled by
-        ``fan_in ** -0.5`` (the embedding and untied head by ``d ** -0.5``),
-        norm scales one, biases zero.  Returns the model."""
+        ``fan_in ** -0.5`` (the embedding and untied head by ``d ** -0.5``;
+        the MoE router and ``wg``/``wu`` by ``d ** -0.5``, ``wd`` by ``f **
+        -0.5``), norm scales one, biases zero.  Returns the model."""
         cfg, dev = self.cfg, self.device
         d, V = cfg.d_model, cfg.vocab
         self.embed.copy_(L.dense_init(generator, V, d, scale=d**-0.5, device=dev))
@@ -146,11 +171,14 @@ class Model(nn.Module):
         stack = self.layers
         for norm in (stack.ln1, stack.ln2):
             norm["scale"].fill_(1.0)
-        for group in (stack.attn, stack.mlp):
+        for group in (stack.attn,) if cfg.moe else (stack.attn, stack.mlp):
             for p in group.values():
                 n, d_in, d_out = p["w"].shape
                 for k, t in L.init_linear(generator, d_in, d_out, "b" in p, (n,), dev).items():
                     p[k].copy_(t)
+        if cfg.moe:
+            for k, t in L.init_moe(generator, cfg, (cfg.n_layers,), dev).items():
+                stack.moe[k].copy_(t)
         return self
 
     # ----------------------------------------------------------- helpers
@@ -163,8 +191,25 @@ class Model(nn.Module):
         # one in f32
         return nn.functional.embedding(tokens.long(), self.embed).to(ACT_DTYPE)
 
-    def _rope(self, B: int, S_len: int):
-        pos = torch.arange(S_len, device=self.device)[None, :].expand(B, S_len)
+    def _positions(self, B: int, S_len: int, offset: int = 0) -> torch.Tensor:
+        """(B, S) positions; with M-RoPE (B, S, 3) streams: the first
+        ``vision_patches`` positions on a 16-wide grid (t = 0, h = pos //
+        16, w = pos % 16), the text after them at ``pos - P + 1`` in all
+        three, as the reference's stub does (also when no patches are
+        prepended)."""
+        cfg = self.cfg
+        pos = torch.arange(offset, offset + S_len, device=self.device)[None, :].expand(B, S_len)
+        if cfg.mrope_sections:
+            P, w = cfg.vision_patches, 16
+            patch = pos < P
+            text = pos - P + 1
+            t = torch.where(patch, 0, text)
+            h = torch.where(patch, pos // w, text)
+            ww = torch.where(patch, pos % w, text)
+            return torch.stack([t, h, ww], dim=-1)
+        return pos
+
+    def _rope(self, pos: torch.Tensor):
         return L.rope_angles(pos, self.cfg.hd, self.cfg.rope_theta, self.cfg.mrope_sections)
 
     def _head(self, x: torch.Tensor) -> torch.Tensor:
@@ -174,25 +219,34 @@ class Model(nn.Module):
     # ----------------------------------------------------------- train
     def loss(self, batch: dict) -> torch.Tensor:
         """Mean next-token cross-entropy + 0.01 x the MoE auxiliary loss
-        (zero for the dense family), f32."""
+        summed over the layers (zero without experts), f32.  ``vlm``
+        prepends ``batch["patches"]`` and scores only the text positions.
+        The detached auxiliary sum is kept as ``last_aux``."""
         cfg = self.cfg
         tokens, labels = batch["tokens"], batch["labels"]
-        B, S_len = tokens.shape
+        B = tokens.shape[0]
         x = self._embed(tokens)
-        cos, sin = self._rope(B, S_len)
+        if cfg.family == "vlm":
+            x = torch.cat([batch["patches"].to(ACT_DTYPE), x], dim=1)
+        n_prefix = x.shape[1] - tokens.shape[1]
+        cos, sin = self._rope(self._positions(B, x.shape[1]))
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i in range(cfg.n_layers):
             if torch.is_grad_enabled():
-                x = checkpoint(self._train_layer, i, x, cos, sin, use_reentrant=False,
-                               preserve_rng_state=False)
+                x, aux = checkpoint(self._train_layer, i, x, aux, cos, sin, use_reentrant=False,
+                                    preserve_rng_state=False)
             else:
-                x = self._train_layer(i, x, cos, sin)
+                x, aux = self._train_layer(i, x, aux, cos, sin)
         x = L.rmsnorm(self.final_norm, x, cfg.norm_eps)
+        if n_prefix:
+            x = x[:, n_prefix:]
         nll = L.chunked_softmax_xent(x, self._lm_head(), labels)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        self.last_aux = aux.detach()
         return nll + 0.01 * aux
 
-    def _train_layer(self, i, x, cos, sin):
-        return decoder_layer_train(self.layers.layer(i), x, self.cfg, cos, sin)
+    def _train_layer(self, i, x, aux, cos, sin):
+        x, a = decoder_layer_train(self.layers.layer(i), x, self.cfg, cos, sin)
+        return x, aux if a is None else aux + a
 
     # ----------------------------------------------------------- serve
     def init_cache(self, B: int, S_len: int, dtype=None) -> dict[str, torch.Tensor]:
@@ -213,8 +267,10 @@ class Model(nn.Module):
         B = tokens.shape[0]
         x = self._embed(tokens)
         pos_t = torch.as_tensor(pos, device=self.device)
-        cos, sin = L.rope_angles(pos_t.reshape(1, 1).expand(B, 1), cfg.hd, cfg.rope_theta,
-                                 cfg.mrope_sections)
+        p1 = pos_t.reshape(1, 1).expand(B, 1)
+        # M-RoPE: the raw position in all three streams, as the reference
+        # decodes (its prefill gives text pos - P + 1)
+        cos, sin = self._rope(torch.stack([p1, p1, p1], dim=-1) if cfg.mrope_sections else p1)
         for i in range(cfg.n_layers):
             layer_cache = {"k": cache["k"][i], "v": cache["v"][i]}
             x, _ = decoder_layer_decode(self.layers.layer(i), x, layer_cache, pos_t, cfg,
@@ -223,13 +279,19 @@ class Model(nn.Module):
 
     @torch.no_grad()
     def prefill(self, batch: dict):
-        """Forward over the prompt ``batch["tokens"]`` (B, S): f32 logits of
-        the last position (B, 1, V) and the KV cache ``(L, B, S, nkv, hd)``."""
+        """Forward over the prompt ``batch["tokens"]`` (B, S), behind
+        ``batch["patches"]`` (B, P, d) where given (``vlm``): f32 logits of
+        the last position (B, 1, V) and the KV cache ``(L, B, P + S, nkv,
+        hd)``.  MoE layers route the call's ``B * (P + S)`` tokens at
+        once, so their capacity is that of the whole prompt."""
         cfg = self.cfg
         tokens = batch["tokens"]
-        B, S_len = tokens.shape
+        B = tokens.shape[0]
         x = self._embed(tokens)
-        cos, sin = self._rope(B, S_len)
+        if cfg.family == "vlm" and "patches" in batch:
+            x = torch.cat([batch["patches"].to(ACT_DTYPE), x], dim=1)
+        S_len = x.shape[1]
+        cos, sin = self._rope(self._positions(B, S_len))
         ks, vs = [], []
         for i in range(cfg.n_layers):
             lp = self.layers.layer(i)
@@ -237,7 +299,8 @@ class Model(nn.Module):
             q, k, v = L._qkv(lp["attn"], hn, cfg, cos, sin)
             o = L.flash_attention(q, k, v, causal=True)
             x = x + L.linear(lp["attn"]["wo"], o.reshape(B, S_len, -1))
-            x = x + L.mlp_swiglu(lp["mlp"], L.rmsnorm(lp["ln2"], x, cfg.norm_eps))
+            y, _ = ffn(lp, L.rmsnorm(lp["ln2"], x, cfg.norm_eps), cfg)
+            x = x + y
             ks.append(k)
             vs.append(v)
         return self._head(x[:, -1:]), {"k": torch.stack(ks), "v": torch.stack(vs)}

@@ -1,5 +1,5 @@
 """Statistics-driven cost model + per-split planning (DESIGN.md §10)."""
-from repro_torch.planner.cost import node_card_estimates, plan_cost
+from repro_torch.planner.cost import node_card_estimates, plan_cost, qerror
 from repro_torch.planner.split import (
     SPLIT_MIN_BENEFIT,
     SPLIT_MIN_SHARE,
@@ -17,5 +17,6 @@ __all__ = [
     "execute_split",
     "node_card_estimates",
     "plan_cost",
+    "qerror",
     "split_parts",
 ]

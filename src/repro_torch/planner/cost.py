@@ -163,3 +163,10 @@ def actual_node_cards(prep: Prepared, device) -> dict[str, int]:
     rec = _CardRecorder(prep, device)
     rec.run()
     return rec.cards
+
+
+def qerror(est: float, actual: float) -> float:
+    """The symmetric estimation-accuracy metric: ``max(est/act, act/est)``."""
+    est = max(float(est), 1.0)
+    actual = max(float(actual), 1.0)
+    return max(est / actual, actual / est)

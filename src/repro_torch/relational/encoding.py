@@ -158,6 +158,9 @@ class EncodedRelation:
     def num_rows(self) -> int:
         return len(self.count)
 
+    def domain_sizes(self, dicts: Mapping[str, Dictionary]) -> tuple[int, ...]:
+        return tuple(dicts[a].size for a in self.attrs)
+
 
 def preaggregate_rows(
     codes: np.ndarray, measure_vals: np.ndarray | None = None

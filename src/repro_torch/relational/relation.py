@@ -11,7 +11,7 @@ stream through the same protocol.  Copy of the JAX package's
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Iterator, Mapping
+from typing import Iterable, Iterator, Mapping
 
 import numpy as np
 
@@ -40,6 +40,18 @@ class Relation:
         if not self.columns:
             return 0
         return len(next(iter(self.columns.values())))
+
+    def project(self, attrs: Iterable[str]) -> "Relation":
+        """Bag-semantics projection (no duplicate elimination)."""
+        attrs = tuple(attrs)
+        missing = set(attrs) - set(self.columns)
+        if missing:
+            raise KeyError(f"relation {self.name!r} has no attrs {sorted(missing)}")
+        return Relation(self.name, {a: self.columns[a] for a in attrs})
+
+    def rows(self) -> np.ndarray:
+        """Row-major (n, k) view over the columns, in attr order."""
+        return np.stack([self.columns[a] for a in self.attrs], axis=1)
 
     def filter(self, mask: np.ndarray) -> "Relation":
         """Rows where ``mask`` holds (the planner's selection pushdown)."""
@@ -71,6 +83,14 @@ class Relation:
         cols = dict(self.columns)
         cols[attr] = np.asarray(values)
         return Relation(self.name, cols)
+
+    @staticmethod
+    def from_rows(name: str, attrs: Iterable[str], rows: np.ndarray) -> "Relation":
+        attrs = tuple(attrs)
+        rows = np.asarray(rows)
+        if rows.ndim != 2 or rows.shape[1] != len(attrs):
+            raise ValueError(f"rows shape {rows.shape} != (n, {len(attrs)})")
+        return Relation(name, {a: rows[:, i] for i, a in enumerate(attrs)})
 
     # -- RelationSource protocol (the trivial in-memory source) ---------
     def iter_chunks(

@@ -84,6 +84,17 @@ class Statistics:
         cs = self.col(rel, attr)
         return cs.est_distinct if cs is not None else default
 
+    def attr_distinct(self, attr: str, domain: int) -> float:
+        """Estimated distinct values of ``attr`` surviving the join:
+        bounded by every relation carrying the attr."""
+        ests = [
+            cs.est_distinct
+            for rs in self.relations.values()
+            for a, cs in rs.cols.items()
+            if a == attr
+        ]
+        return float(min(ests)) if ests else float(domain)
+
     def max_share(self, rel: str, attr: str) -> float:
         cs = self.col(rel, attr)
         return cs.max_share() if cs is not None else 0.0

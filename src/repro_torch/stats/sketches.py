@@ -16,10 +16,11 @@ base relations:
   above ``n/(m+1)`` is guaranteed retained, and estimates satisfy
   ``true - err <= est <= true``.
 
-Copy of the JAX package's ``stats/sketches.py`` without the state and
-per-key methods that its plan verifier uses.
+Copy of the JAX package's ``stats/sketches.py``.
 """
 from __future__ import annotations
+
+import math
 
 import numpy as np
 
@@ -70,6 +71,15 @@ class DistinctSketch:
             return float(n)
         kth = float(self._hashes[self.k - 1]) + 1.0  # in (0, 2^64]
         return (self.k - 1) * _HASH_SPACE / kth
+
+    def error_bound(self) -> float:
+        """Advertised relative error (~4 standard errors of the KMV
+        estimator) once the sketch is past its exact regime."""
+        return 4.0 / math.sqrt(self.k - 2)
+
+    def state(self) -> tuple:
+        """Canonical state, for associativity checks in tests."""
+        return (self.k, self._hashes.tobytes())
 
     def __repr__(self) -> str:
         tag = "exact" if self.is_exact else "approx"
@@ -130,6 +140,17 @@ class HeavyHitterSketch:
             out.counts[k] = out.counts.get(k, 0) + c
         out._trim()
         return out
+
+    def estimate(self, key: int) -> int:
+        """Estimated frequency; ``true - err <= estimate <= true``."""
+        return self.counts.get(int(key), 0)
+
+    def share(self, key: int) -> float:
+        return self.estimate(key) / self.n if self.n else 0.0
+
+    def top(self, j: int) -> list[tuple[int, int]]:
+        """``j`` highest-estimate ``(key, count)`` pairs, deterministic."""
+        return sorted(self.counts.items(), key=lambda kv: (-kv[1], kv[0]))[:j]
 
     def heavy(self, min_share: float) -> list[tuple[int, float]]:
         """Keys with estimated share >= ``min_share``, heaviest first.

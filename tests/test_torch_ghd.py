@@ -160,3 +160,26 @@ def test_bag_cap_raises_memory_error():
     with pytest.raises(MemoryError, match="MAX_DENSE_ELEMS"):
         j_compile_ghd(jq, jdb, cap_rows=4)
     assert compile_ghd(q, db).bag_peak_bytes == j_compile_ghd(jq, jdb).bag_peak_bytes
+
+
+@pytest.mark.parametrize("name", CYCLIC)
+def test_ghd_accessors_equal_the_reference(name):
+    """``GHD.children``/``.max_est_elems``, ``GHDPlan.est_width_elems``
+    and ``Factor.num_rows`` (each encoded relation as a bag factor, and
+    its filler projection onto one attribute)."""
+    jdb, jq, db, q = catalog(name, 2000)
+    want = JQ.from_query(jq).engine("jax").plan(jdb).ghd_plan
+    got = Q.from_query(q).engine(CPU).plan(db).ghd_plan
+    for bag in want.ghd.order:
+        assert got.ghd.children(bag) == want.ghd.children(bag), bag
+    assert got.ghd.children("absent") == want.ghd.children("absent") == []
+    assert got.ghd.max_est_elems == want.ghd.max_est_elems == max(want.ghd.est_elems.values())
+    assert got.est_width_elems == want.est_width_elems == want.ghd.max_est_elems
+    jenc, enc = want.prepared.encoded, got.prepared.encoded
+    assert list(enc) == list(jenc)
+    for rel, jer in jenc.items():
+        f, jf = bags.factor_from_encoded(enc[rel]), jbags.factor_from_encoded(jer)
+        assert f.num_rows == jf.num_rows == len(jer.count)
+        attrs = jer.attrs[:1]
+        assert (bags.filler_factor(enc[rel], attrs).num_rows
+                == jbags.filler_factor(jer, attrs).num_rows)

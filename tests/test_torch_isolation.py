@@ -10,8 +10,10 @@ local mesh of one and explains a mesh of 8, and the brute-force oracle,
 both baselines and the legacy ``join_agg`` agree with the planner, all
 with both packages refused, and so do the ``"ref"`` engine and a ``"ref"``
 maintained handle, and the LM substrate's reduced qwen2-1.5b takes a
-train step and a decode step; the storage gate, the catalog verifier
-and the trainer run as ``python -m`` the same way), and the port's
+train step and a decode step, the reduced moonshot-v1-16b-a3b (moe) a
+train step and the reduced qwen2-vl-7b (vlm) a decode step; the storage
+gate, the catalog verifier and the trainer run as ``python -m`` the same
+way), and the port's
 default engine refuses to run without a CUDA card instead of quietly
 using the CPU."""
 import ast
@@ -165,6 +167,14 @@ lm_tokens = torch.tensor(rng.integers(0, lm_cfg.vocab, (2, 33)), dtype=torch.int
 lm_loss, _ = build_train_step(lm, AdamWConfig())(
     lm_opt, {"tokens": lm_tokens[:, :-1], "labels": lm_tokens[:, 1:]})
 lm_logits, _ = lm.decode_step(lm.init_cache(2, 4), lm_tokens[:, :1], 0)
+moe_cfg = get_config("moonshot-v1-16b-a3b", reduced=True)
+moe = get_model(moe_cfg, device="cpu").init(torch.Generator().manual_seed(1))
+moe_opt = adamw_init(moe.params())
+moe_loss, _ = build_train_step(moe, AdamWConfig())(
+    moe_opt, {"tokens": lm_tokens[:, :-1], "labels": lm_tokens[:, 1:]})
+vlm_cfg = get_config("qwen2-vl-7b", reduced=True)
+vlm = get_model(vlm_cfg, device="cpu").init(torch.Generator().manual_seed(2))
+vlm_logits, _ = vlm.decode_step(vlm.init_cache(2, 4), lm_tokens[:, :1], 0)
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in {"jax", "jaxlib", "repro"})
 print(json.dumps({"rows": res.num_rows, "n": float(res.column("n").sum()),
                   "split": split.split is not None,
@@ -184,6 +194,9 @@ print(json.dumps({"rows": res.num_rows, "n": float(res.column("n").sum()),
                   "ref_maintained": ref_maintained, "lm_loss": float(lm_loss),
                   "lm_step": int(lm_opt["step"]),
                   "lm_decoded": list(lm_logits.shape) if bool(torch.isfinite(lm_logits).all())
+                  else None, "moe_loss": float(moe_loss), "moe_aux": float(moe.last_aux),
+                  "moe_step": int(moe_opt["step"]),
+                  "vlm_decoded": list(vlm_logits.shape) if bool(torch.isfinite(vlm_logits).all())
                   else None, "loaded": loaded}))
 """
 
@@ -216,6 +229,9 @@ def test_port_answers_a_query_with_jax_and_repro_refused():
     assert out["ref_same"] and out["ref_maintained"] > out["n"]
     assert 0 < out["lm_loss"] < 2.5 * np.log(512) and out["lm_step"] == 1
     assert out["lm_decoded"] == [2, 1, 512]
+    assert 0 < out["moe_loss"] < 2.5 * np.log(512) and out["moe_aux"] > 0
+    assert out["moe_step"] == 1
+    assert out["vlm_decoded"] == [2, 1, 512]
 
 
 # the same refusal, then one of the port's launchers run as ``python -m``

@@ -43,6 +43,7 @@ from repro_torch.train.fault_tolerance import (
     run_with_retries,
 )
 from repro_torch.train.pipeline import DataPipeline, PipelineConfig
+from test_torch_lm_model import _guard, routes  # noqa: F401 (a fixture)
 
 REPO = Path(__file__).resolve().parent.parent
 F32_RTOL = 1e-5
@@ -433,5 +434,62 @@ def test_a_resumed_run_continues_the_uninterrupted_one(tmp_path):
 
 
 def test_families_not_ported_stop_the_launcher():
-    with pytest.raises(NotImplementedError, match="vlm"):
-        train.main(["--arch", "qwen2-vl-7b", "--steps", "1", *ARGS])
+    with pytest.raises(NotImplementedError, match="ssm"):
+        train.main(["--arch", "rwkv6-3b", "--steps", "1", *ARGS])
+
+
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "qwen2-vl-7b"])
+def test_launcher_steps_match_the_reference(arch, f32, routes):
+    """Three steps of ``launch/train.main`` (f32 activations) against the
+    reference's ``build_train_step`` from the same initial parameters (the
+    launcher's seed-0 draw, converted), on the same pipeline batches with
+    zero bf16 vision patches for ``vlm``, as both launchers add them; the
+    MoE routing of every reference call clears the margin guard."""
+    steps = 3
+    run = train.main(["--arch", arch, "--steps", str(steps), *ARGS])
+    cfg = get_config(arch, reduced=True)
+    start = t_model.get_model(cfg, device="cpu").init(
+        torch.Generator(device="cpu").manual_seed(0))
+    jp = jax.tree.map(jnp.asarray, convert.to_numpy(cfg, start.params()))
+    jcfg = j_get_config(arch, reduced=True)
+    acfg = j_opt.AdamWConfig(lr=3e-4, total_steps=steps, warmup_steps=max(1, steps // 20))
+    j_step = j_train.build_train_step(j_model.get_model(jcfg), acfg)
+    jo = j_opt.adamw_init(jp)
+    pipe = JPipeline(JPipelineConfig(cfg.vocab, 32, 2))
+    want_l, want_g = [], []
+    for step in range(steps):
+        batch = {k: jnp.asarray(v) for k, v in pipe.local_batch_at(step).items()}
+        if cfg.family == "vlm":
+            batch["patches"] = jnp.zeros((2, cfg.vision_patches, cfg.d_model), jnp.bfloat16)
+        jp, jo, jl, jm = j_step(jp, jo, batch)
+        want_l.append(float(jl))
+        want_g.append(float(jm["grad_norm"]))
+    if cfg.moe:
+        _guard(routes, cfg)
+        assert all(np.isfinite(run["aux"])) and min(run["aux"]) > 0
+    else:
+        assert run["aux"] == [0.0] * steps
+    assert run["steps"] == list(range(steps))
+    np.testing.assert_allclose(run["losses"], want_l, rtol=F32_RTOL)
+    np.testing.assert_allclose(run["grad_norms"], want_g, rtol=UPD_RTOL)
+
+
+def test_weight_decay_reaches_every_expert_leaf():
+    """The stacked MoE leaves (``router`` (L, d, E), the experts (L, E, …))
+    decay under ``p.ndim >= 2`` as the reference's do."""
+    cfg, params, model = _reference("moonshot-v1-16b-a3b")
+    acfg = j_opt.AdamWConfig(lr=0.1, warmup_steps=1, weight_decay=0.5)
+    zero = jax.tree.map(np.zeros_like, params)
+    jp, _, _ = j_opt.adamw_update(jax.tree.map(jnp.asarray, params), jax.tree.map(jnp.asarray, zero),
+                                  j_opt.adamw_init(params), acfg)
+    tp = model.params()
+    before = {n: p.detach().clone() for n, p in tp.items()}
+    t_opt.adamw_update(tp, convert.from_numpy(cfg, zero), t_opt.adamw_init(tp),
+                       t_opt.AdamWConfig(lr=0.1, warmup_steps=1, weight_decay=0.5))
+    want = convert.flat(jax.tree.map(np.asarray, jp))
+    experts = [n for n in tp if n.startswith("layers.moe.")]
+    assert sorted(experts) == ["layers.moe.router", "layers.moe.wd", "layers.moe.wg",
+                               "layers.moe.wu"]
+    for name in experts:
+        np.testing.assert_allclose(tp[name].detach().numpy(), want[name], rtol=1e-6)
+        assert not torch.equal(tp[name].detach(), before[name])

@@ -25,6 +25,8 @@ from repro.api import Q as JQ
 from repro.api import Sum as JSum
 from repro.data import queries as jqueries
 from repro.data import synth as jsynth
+from repro.planner import qerror as j_qerror
+from repro.planner.cost import actual_node_cards as j_actual_cards
 from repro.planner.cost import node_card_estimates as j_node_cards
 from repro.planner.cost import plan_cost as j_plan_cost
 from repro.relational.relation import Database as JDatabase
@@ -32,7 +34,8 @@ from repro_torch.api import Avg, Count, Max, Min, Q, Sum, TorchChannelEngine
 from repro_torch.core import torch_engine
 from repro_torch.data import queries as port_queries
 from repro_torch.data import synth as port_synth
-from repro_torch.planner.cost import node_card_estimates, plan_cost
+from repro_torch import planner
+from repro_torch.planner.cost import actual_node_cards, node_card_estimates, plan_cost
 from repro_torch.relational.relation import Database
 
 CPU = TorchChannelEngine(device="cpu")
@@ -304,3 +307,80 @@ def test_minmax_over_an_empty_join_returns_no_rows():
     assert res.column("g2").dtype == cols["T"]["g2"].dtype
     for c in ("n", "s", "lo", "hi"):
         assert res.column(c).dtype == np.float64 and res.column(c).shape == (0,)
+
+
+# ---------------------------------------------------------------- host accessors
+
+
+@pytest.mark.parametrize("name", CATALOG)
+def test_relation_rows_project_and_from_rows(name):
+    """``Relation.rows``/``.project``/``.from_rows`` on every relation of
+    a catalog database, against the reference's ``Relation``."""
+    jdb, _, db, _ = catalog(name, 500)
+    for rel in jdb.relations:
+        want, got = jdb[rel], db[rel]
+        np.testing.assert_array_equal(got.rows(), want.rows())
+        attrs = tuple(reversed(want.attrs))[:2]
+        wp, gp = want.project(attrs), got.project(attrs)
+        assert gp.attrs == wp.attrs == attrs and gp.num_rows == wp.num_rows
+        np.testing.assert_array_equal(gp.rows(), wp.rows())
+        back = type(got).from_rows(rel, got.attrs, got.rows())
+        wback = type(want).from_rows(rel, want.attrs, want.rows())
+        assert back.attrs == wback.attrs
+        for a in want.attrs:
+            np.testing.assert_array_equal(back.columns[a], wback.columns[a])
+    rel = next(iter(jdb.relations))
+    for table in (jdb[rel], db[rel]):
+        with pytest.raises(KeyError, match="has no attrs"):
+            table.project(("nope",))
+        with pytest.raises(ValueError, match=r"rows shape"):
+            type(table).from_rows(rel, ("a", "b", "c"), np.zeros((4, 2)))
+
+
+@pytest.mark.parametrize("name", CATALOG)
+def test_statistics_accessors_equal_the_reference(name):
+    """``Statistics.attr_distinct``, ``DistinctSketch.error_bound``/
+    ``.state`` and ``HeavyHitterSketch.estimate``/``.share``/``.top`` on
+    every sketched column of a catalog query (post-fold), and each
+    attribute's ``EncodedRelation.domain_sizes`` and ``Prepared.domain``."""
+    jdb, jq, db, q = catalog(name, 3000)
+    jplan = JQ.from_query(jq).engine("jax").plan(jdb)
+    plan = Q.from_query(q).engine(CPU).plan(db)
+    want, got = jplan.stats, plan.stats
+    attrs = sorted({a for rs in want.relations.values() for a in rs.cols})
+    for attr in attrs + ["absent"]:
+        assert got.attr_distinct(attr, 77) == want.attr_distinct(attr, 77), attr
+    for rel, wr in want.relations.items():
+        for attr, wc in wr.cols.items():
+            gc = got.relations[rel].cols[attr]
+            assert gc.distinct.state() == wc.distinct.state(), (rel, attr)
+            assert gc.distinct.error_bound() == wc.distinct.error_bound()
+            keys = list(wc.heavy.counts)[:8] + [-1, 10**9]
+            for key in keys:
+                assert gc.heavy.estimate(key) == wc.heavy.estimate(key), (rel, attr, key)
+                assert gc.heavy.share(key) == wc.heavy.share(key), (rel, attr, key)
+            for j in (0, 1, 5, 100):
+                assert gc.heavy.top(j) == wc.heavy.top(j), (rel, attr, j)
+    prep, jprep = plan.prep, jplan.prep
+    for rel, wer in jprep.encoded.items():
+        assert prep.encoded[rel].domain_sizes(prep.dicts) == wer.domain_sizes(jprep.dicts)
+    for attr in jprep.dicts:
+        assert prep.domain(attr) == jprep.domain(attr), attr
+
+
+def test_qerror_equals_the_reference():
+    """``planner.qerror`` on a grid that crosses its floor of 1 and on
+    the cost model's estimate against each node's measured cardinality."""
+    grid = [0.0, 0.5, 1.0, 2.0, 3.5, 1e6]
+    for est in grid:
+        for act in grid:
+            assert planner.qerror(est, act) == j_qerror(est, act)
+    jdb, jq, db, q = catalog("C1", 2000)
+    jplan = JQ.from_query(jq).engine("jax").plan(jdb)
+    plan = Q.from_query(q).engine(CPU).plan(db)
+    jest, jact = j_node_cards(jplan.prep, jplan.stats), j_actual_cards(jplan.prep)
+    est, act = node_card_estimates(plan.prep, plan.stats), actual_node_cards(plan.prep, "cpu")
+    assert act == jact
+    assert {n: planner.qerror(est[n], act[n]) for n in act} == {
+        n: j_qerror(jest[n], jact[n]) for n in jact}
+    assert "qerror" in planner.__all__

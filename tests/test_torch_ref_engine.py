@@ -596,3 +596,38 @@ def test_ref_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ghd_join_agg(tri[3], tri[2], engine="ref")
     assert spec.engine(CPU).execute(db).num_rows > 0
+
+
+@pytest.mark.parametrize("name,rel", [("C1", "R3"), ("B2", "R2")])
+def test_out_edges_equal_the_reference(name, rel):
+    """``DataGraph.out``/``.out_w`` of every node of a small graph built
+    on the CPU: the reference's out-edges of the same node (matched by
+    relation, side and codes), as multisets, and in channel mode the
+    weight rows."""
+    jdb, jq, _, q = catalog(name, 300)
+    rng = np.random.default_rng(6)
+    jdb, db = with_measure(jdb, rel, rng.integers(1, 9, jdb[rel].num_rows))
+    jp, pp = jprepare(jq, jdb, measures={rel: "m"}), prepare(q, db, measures={rel: "m"})
+    jg, pg = both_graphs(jp, pp)
+    jkeys, pkeys = ref_nodes(jg), pg.node_table()
+    to_ref = {k: i for i, k in enumerate(jkeys)}
+    for n, key in enumerate(pkeys):
+        j = to_ref[key]
+        got = Counter((pkeys[d], m) for d, m in pg.out(n))
+        assert got == Counter((jkeys[d], m) for d, m in jg.out(j)), key
+    mrel = pp.measure_moves.get(rel, rel)
+
+    def channels(p):
+        er = p.encoded[mrel]
+        return {mrel: np.stack([er.count, er.payloads["sum"]], 1).astype(np.float64)}
+
+    jg = jdg.build_data_graph(jp, weight_channels=channels(jp), channels=2)
+    pg = datagraph.build_data_graph(pp, weight_channels=channels(pp), channels=2, device="cpu")
+    jkeys, pkeys = ref_nodes(jg), pg.node_table()
+    to_ref = {k: i for i, k in enumerate(jkeys)}
+    for n, key in enumerate(pkeys):
+        dst, w = pg.out_w(n)
+        jdst, jw = jg.out_w(to_ref[key])
+        assert isinstance(dst, np.ndarray) and w.shape == (len(dst), 2)
+        assert Counter((pkeys[d], tuple(r)) for d, r in zip(dst.tolist(), w.tolist())) == Counter(
+            (jkeys[d], tuple(r)) for d, r in zip(jdst.tolist(), jw.tolist())), key
