@@ -293,6 +293,40 @@ Run from the root of a checkout on a machine with a CUDA card.  It
    any value is compared the leg asserts that their router probabilities
    keep every token's k-th and (k+1)-th choice ``ROUTE_MARGIN`` apart.  None of the
    five kernels may launch.
+20. drives the ssm/hybrid leg, the LM substrate's recurrent families
+   (``models/ssm.py``: chunked RWKV6 and Mamba2 recurrences in plain
+   PyTorch, each chunk's terms at once and the state carried chunk by
+   chunk) at full width: (a) ``launch.train.main`` trains rwkv6-3b
+   (d_model 2,560, 40 heads of 64, d_ff 8,960, 65,536 tokens, chunk 16)
+   at 4 of its 32 layers (``SSM_HYBRID_RUNS``; 679,723,776 counted
+   parameters, f32 with f32 AdamW state, bf16 activations) for 3 steps of
+   4 x 4,096 tokens, no checkpoints, and prints each step's ms, tokens/s,
+   6ND rate (N counted leaf by leaf: the analytic ``param_count`` is not
+   that count for these families), loss, gradient norm (both must be
+   finite) and peak; (b) the same for zamba2-2.7b (80 SSD heads of 64,
+   d_state 64, chunk 128, the shared attention block after every 6
+   Mamba2 layers) at 12 of its 54 layers (2 groups; 747,240,512
+   parameters).  The depth is cut for the script's time limit: at 16 B a
+   parameter, 46.03 and 36.09 GiB at full depth would fit the card, 10.13
+   and 11.13 GiB are trained; (c) each at full depth (32 and 54 layers;
+   11.51 and 9.02 GiB of f32 weights), without gradients, prefills and
+   decodes (D the config's chunk: 16 and 128) in two ways: with bf16
+   activations, as shipped, a prompt of 4 x (4,096 - D) tokens prefilled
+   and 8 tokens decoded from its state, timed (prefill ms, decode ms a
+   token, peak); with f32 activations and TF32 off, the same prompt, D
+   tokens decoded (the hybrid's shared-block keys and values copied into
+   a 4,096-slot cache) and the last decode's logits of all 4 rows held to
+   a prefill of all 4,096 within rtol = atol = ``F32_DECODE_TOL`` (1e-3;
+   no capacity, no M-RoPE: decode and prefill compute the same function
+   here).  With bf16 activations the two drift apart with depth, past
+   the reference's 0.15 at full depth (``tools/decode_drift.py``); (d)
+   as leg 18's (d), for both ``REDUCED`` configs on 4 x 256 tokens: one
+   f32 train step (loss, norm, AdamW's moments, parameters), one f32
+   prefill (logits within 1e-5) and one bf16 step (loss and norm within
+   2e-2) on the card and the CPU, TF32 off, held to leg 18's bounds.
+   Each model is freed before the next.  None of the five kernels may
+   launch.  If a whole run of the script passes 1,100 s, (c)'s depth is
+   the first cut, an earlier leg's the next.
 
 Every leg prints its ``torch path:`` line — per key range for the split
 leg — and checks the path each run took against ``choose_path``: a dense
@@ -4568,7 +4602,7 @@ def moe_vlm_leg(torch, tag, args) -> dict:
     t0 = time.perf_counter()
     out["card_cpu"] = {}
     for arch, *_ in MOE_VLM_RUNS:
-        out["card_cpu"][arch] = moe_vlm_cpu_check(torch, tag, args, arch)
+        out["card_cpu"][arch] = reduced_cpu_check(torch, tag, args, arch)
     seconds["cpu_check"] = time.perf_counter() - t0
 
     launches = ops.launch_counts()
@@ -4668,11 +4702,12 @@ def moe_vlm_serve(torch, tag, args, cfg, rows: int) -> dict:
             "dropped": dropped, "choices": choices}
 
 
-def moe_vlm_cpu_check(torch, tag, args, arch: str) -> dict:
+def reduced_cpu_check(torch, tag, args, arch: str, leg: str = "moe/vlm leg") -> dict:
     """(d): for the reduced ``arch``, one f32 and one bf16 train step and
     one f32 prefill on the card and on the CPU from the same parameters
     and batch.  MoE: the CPU's f32 routing of that forward and prefill is
-    held to the routing margin first, before any value is compared."""
+    held to the routing margin first, before any value is compared.
+    ``leg`` names the calling leg in the lines it prints."""
     from repro_torch.configs import get_config
     from repro_torch.models import model as t_model
 
@@ -4700,13 +4735,13 @@ def moe_vlm_cpu_check(torch, tag, args, arch: str) -> dict:
             margin = routes.margin(torch, cfg.moe.top_k)
             out["route_margin"] = margin
             guard = f"; routing margin on the CPU {margin:.3g} (> {ROUTE_MARGIN})"
-            say(tag, f"check: moe/vlm leg: reduced {arch}, f32 on the CPU: the smallest gap "
+            say(tag, f"check: {leg}: reduced {arch}, f32 on the CPU: the smallest gap "
                      f"between a token's k-th and (k+1)-th router probability is "
                      f"{margin:.3g} (> {ROUTE_MARGIN}): {margin > ROUTE_MARGIN}")
-            check(margin > ROUTE_MARGIN, f"moe/vlm leg: reduced {arch}: a near-tie in the "
+            check(margin > ROUTE_MARGIN, f"{leg}: reduced {arch}: a near-tie in the "
                                          f"CPU's routing (margin {margin:.3g}); the f32 card "
                                          f"= CPU checks cannot hold")
-        out["train"] = train_cpu_check(torch, tag, args, arch, "moe/vlm leg", rows, seq, seed)
+        out["train"] = train_cpu_check(torch, tag, args, arch, leg, rows, seq, seed)
         t_model.ACT_DTYPE, matmul.allow_tf32 = torch.float32, False
         model = t_model.get_model(cfg, "cuda")
         model.load_state_dict(base.state_dict())
@@ -4715,13 +4750,200 @@ def moe_vlm_cpu_check(torch, tag, args, arch: str) -> dict:
         t_model.ACT_DTYPE, matmul.allow_tf32 = before
     err = float((got - want).abs().max())
     ok = bool(torch.allclose(got, want, rtol=F32_RTOL, atol=F32_RTOL * float(want.abs().max())))
-    say(tag, f"check: moe/vlm leg: reduced {arch}, f32 prefill of {rows} x {seq} tokens, card "
+    say(tag, f"check: {leg}: reduced {arch}, f32 prefill of {rows} x {seq} tokens, card "
              f"vs CPU: largest |logit difference| {err:.3g}, within rtol {F32_RTOL} (atol "
              f"{F32_RTOL} x max |logit|): {ok}{guard}")
     check(ok and bool(torch.isfinite(got).all()),
-          f"moe/vlm leg: reduced {arch}: the card's f32 prefill differs from the CPU's")
+          f"{leg}: reduced {arch}: the card's f32 prefill differs from the CPU's")
     out["prefill_max_abs_err"] = err
     return out
+
+
+# ----------------------------------------------------------------------
+# ssm/hybrid leg: the LM substrate's recurrent families
+# ----------------------------------------------------------------------
+
+# (arch, n_layers trained): every width as published, the depth cut for
+# the trainer (f32 weights, gradients, m and v take 16 B a parameter:
+# 10.13 GiB for rwkv6-3b at 4 of 32 layers, 11.13 GiB for zamba2-2.7b at
+# 12 of 54, 2 groups of shared_period 6; at full depth 46.03 and 36.09
+# GiB would fit, but the steps would not fit the script's time limit);
+# both serve at full depth
+SSM_HYBRID_RUNS = (("rwkv6-3b", 4), ("zamba2-2.7b", 12))
+SSM_HYBRID_STEPS = 3
+# decode from a prefill's state against a longer prefill, f32 activations
+# and TF32 off: a chunk's terms are summed in another grouping than one
+# position at a time, and the two differ by under 1e-4 after 32 or 54
+# layers on the H100.  With bf16 activations the two drift apart with
+# depth (rounding at other GEMM shapes; the reference drifts as much at
+# reduced width), past the reference's 0.15 at full depth:
+# tools/decode_drift.py measures it
+F32_DECODE_TOL = 1e-3
+
+
+def counted_params(cfg) -> int:
+    """The parameters the model holds, counted leaf by leaf (the analytic
+    ``ModelConfig.param_count`` is not that count for these families)."""
+    import math
+
+    from repro_torch.models.convert import param_shapes
+
+    return sum(math.prod(shape) for shape in param_shapes(cfg).values())
+
+
+def ssm_hybrid_leg(torch, tag, args) -> dict:
+    """The ssm and hybrid families: trained at full width and cut depth,
+    served at full depth, and card = CPU at reduced width (see 20 in the
+    module docstring)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+
+    t_leg = time.perf_counter()
+    ops.reset_launch_counts()
+    say(tag, f"ssm/hybrid leg: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated on "
+             f"the card by earlier legs")
+    out, seconds = {}, {}
+    for arch, n_layers in SSM_HYBRID_RUNS:
+        published = get_config(arch)
+        cfg = published.scaled(n_layers=n_layers)
+        n_cut, n_full = counted_params(cfg), counted_params(published)
+        say(tag, f"ssm/hybrid leg: {arch} ({cfg.family}) at full width, n_layers "
+                 f"{published.n_layers} -> {n_layers} trained: {n_cut} counted parameters "
+                 f"({n_cut * 16 / 2**30:.2f} GiB of f32 weights, gradients, m and v); served "
+                 f"at all {published.n_layers}: {n_full} ({n_full * 4 / 2**30:.2f} GiB of f32 "
+                 f"weights)")
+        t0 = time.perf_counter()
+        row = {"n_layers": [n_layers, published.n_layers], "params": [n_cut, n_full],
+               "train": ssm_hybrid_train(torch, tag, arch, cfg, n_cut)}
+        gc.collect()
+        torch.cuda.empty_cache()
+        seconds[f"{arch} train"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        row["serve"] = ssm_hybrid_serve(torch, tag, args, published)
+        gc.collect()
+        torch.cuda.empty_cache()
+        row["left_gib"] = torch.cuda.memory_allocated() / 2**30
+        seconds[f"{arch} serve"] = time.perf_counter() - t0
+        say(tag, f"ssm/hybrid leg: {arch} freed: {row['left_gib']:.2f} GiB left allocated")
+        out[arch] = row
+
+    t0 = time.perf_counter()
+    out["card_cpu"] = {arch: reduced_cpu_check(torch, tag, args, arch, "ssm/hybrid leg")
+                       for arch, _ in SSM_HYBRID_RUNS}
+    seconds["cpu_check"] = time.perf_counter() - t0
+
+    launches = ops.launch_counts()
+    check(not any(launches.values()), f"ssm/hybrid leg: a JOIN-AGG kernel launched: {launches}")
+    leg_s = time.perf_counter() - t_leg
+    say(tag, f"ssm/hybrid leg: the leg took {leg_s:.1f} s ("
+             + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items()) + ")")
+    out.update(seconds=leg_s, part_seconds=seconds, launches={"ssm_hybrid": launches})
+    return out
+
+
+def ssm_hybrid_train(torch, tag, arch: str, cfg, n_counted: int) -> dict:
+    """(a), (b): ``launch/train.main`` for ``SSM_HYBRID_STEPS`` steps of
+    4 x 4,096 tokens, no checkpoint directory."""
+    import numpy as np
+
+    from repro_torch.launch import train
+
+    argv = ["--arch", arch, "--n-layers", str(cfg.n_layers), "--global-batch",
+            str(TRAIN_BATCH), "--seq-len", str(TRAIN_SEQ), "--steps", str(SSM_HYBRID_STEPS),
+            "--log-every", "1", "--device", "cuda"]
+    run = train.main(argv)
+    check(run["steps"] == list(range(SSM_HYBRID_STEPS)), f"ssm/hybrid leg: {arch}: steps missing")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    for i, step in enumerate(run["steps"]):
+        loss, gnorm, ms = run["losses"][i], run["grad_norms"][i], run["ms"][i]
+        peak = run["peak_bytes"][i] / 2**30 if run["peak_bytes"] else float("nan")
+        say(tag, f"ssm/hybrid leg: {arch} ({cfg.n_layers} layers) step {step}: {ms:.1f} ms, "
+                 f"{run['tokens_per_s'][i]:.0f} tokens/s, loss {loss:.6f}, gnorm {gnorm:.6f}, "
+                 f"peak {peak:.2f} GiB; 6ND "
+                 f"{6 * n_counted * tokens / ms / 1e9:.1f} TFLOP/s (N = {n_counted} counted "
+                 f"parameters, D = {tokens} tokens)")
+        check(np.isfinite(loss) and np.isfinite(gnorm),
+              f"ssm/hybrid leg: {arch} step {step}: loss {loss} or gnorm {gnorm} not finite")
+    return {k: run[k] for k in ("losses", "grad_norms", "ms", "tokens_per_s", "peak_bytes")}
+
+
+def prefill_and_decode(torch, model, toks, prompt: int, steps: int):
+    """Prefills ``toks[:, :prompt]`` and decodes the next ``steps`` tokens
+    from its cache (keys and values copied into a ``prompt + steps`` slot
+    cache, the recurrent state as it is).  Returns (prefill ms, ms of
+    each decode step, the last logits)."""
+    rows = toks.shape[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, cache = model.prefill({"tokens": toks[:, :prompt]})
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    dec = model.init_cache(rows, prompt + steps)
+    for key, t in cache.items():
+        if key in ("k", "v"):
+            dec[key][:, :, :prompt] = t
+        else:
+            dec[key].copy_(t)
+    del cache
+    step_ms = []
+    for pos in range(prompt, prompt + steps):
+        t0 = time.perf_counter()
+        logits, dec = model.decode_step(dec, toks[:, pos:pos + 1], pos)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    return prefill_ms, step_ms, logits
+
+
+def ssm_hybrid_serve(torch, tag, args, cfg) -> dict:
+    """(c): at full depth, without gradients.  As shipped (bf16
+    activations): a prompt of 4 x (4,096 - D) tokens prefilled and
+    ``DECODE_STEPS`` tokens decoded from its state, timed.  Then with f32
+    activations and TF32 off: the same prompt, D = the config's chunk
+    tokens decoded, and the last decode's logits of every row held to a
+    prefill of all 4,096 within ``F32_DECODE_TOL``."""
+    import numpy as np
+
+    from repro_torch.models import model as t_model
+
+    model = t_model.get_model(cfg, "cuda").init(torch.Generator("cuda").manual_seed(args.seed))
+    D = cfg.ssm.chunk
+    prompt = TRAIN_SEQ - D
+    rng = np.random.default_rng(args.seed)
+    toks = torch.tensor(rng.integers(0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ)), dtype=torch.int32,
+                        device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    prefill_ms, step_ms, logits = prefill_and_decode(torch, model, toks, prompt, DECODE_STEPS)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    finite = bool(torch.isfinite(logits).all())
+    say(tag, f"ssm/hybrid leg: {cfg.name} ({cfg.n_layers} layers, bf16 activations): prefill "
+             f"of {TRAIN_BATCH} x {prompt} tokens {prefill_ms:.1f} ms; decode steps at "
+             f"{prompt}..{prompt + DECODE_STEPS - 1}: "
+             + ", ".join(f"{ms:.1f}" for ms in step_ms) + f" ms; peak {peak:.2f} GiB")
+    check(finite, f"ssm/hybrid leg: {cfg.name}: bf16 decode logits not finite")
+
+    matmul = torch.backends.cuda.matmul
+    before = (t_model.ACT_DTYPE, matmul.allow_tf32)
+    try:
+        t_model.ACT_DTYPE, matmul.allow_tf32 = torch.float32, False
+        f32_prefill_ms, f32_ms, logits = prefill_and_decode(torch, model, toks, prompt, D)
+        full, _ = model.prefill({"tokens": toks})
+    finally:
+        t_model.ACT_DTYPE, matmul.allow_tf32 = before
+    err = float((logits - full).abs().max())
+    ok = bool(torch.allclose(logits, full, rtol=F32_DECODE_TOL, atol=F32_DECODE_TOL))
+    finite = bool(torch.isfinite(logits).all())
+    ms = sorted(f32_ms)
+    say(tag, f"ssm/hybrid leg: {cfg.name} ({cfg.n_layers} layers, f32 activations): prefill of "
+             f"{len(toks)} x {prompt} tokens {f32_prefill_ms:.1f} ms; {D} decode steps: "
+             f"median {ms[len(ms) // 2]:.1f}, min {ms[0]:.1f}, max {ms[-1]:.1f} ms a token")
+    say(tag, f"check: ssm/hybrid leg: {cfg.name}: f32, the last of {D} decoded logits "
+             f"{tuple(logits.shape)} vs a prefill of all {TRAIN_SEQ} tokens: largest |difference| "
+             f"{err:.4g} (largest |logit| {float(full.abs().max()):.4g}), within rtol = atol = "
+             f"{F32_DECODE_TOL}: {ok}; finite: {finite}")
+    check(ok and finite, f"ssm/hybrid leg: {cfg.name}: decode disagrees with prefill")
+    del model, logits, full
+    return {"prefill_ms": prefill_ms, "decode_ms": step_ms, "peak_gib": peak,
+            "f32_prefill_ms": f32_prefill_ms, "f32_decode_ms": f32_ms, "max_abs_err": err}
 
 
 def main() -> int:
@@ -4954,9 +5176,15 @@ def smoke(args, t_script: float) -> int:
     moe_vlm = moe_vlm_leg(torch, tag, args)
     done("19. moe/vlm leg")
 
+    # 20. ssm/hybrid leg -----------------------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    recurrent = ssm_hybrid_leg(torch, tag, args)
+    done("20. ssm/hybrid leg")
+
     legs = {"main": launches, "fused": flaunches}
     for leg in (split, cyclic, dense, maintain, stored, served, sharded, compared, launched,
-                reffed, trained, moe_vlm):
+                reffed, trained, moe_vlm, recurrent):
         legs.update(leg.pop("launches"))
     for label, summary in (("main path", main), ("fused path", fused), *split.items(),
                            *cyclic.items(), *dense.items(), *maintain.items(),
@@ -4964,7 +5192,7 @@ def smoke(args, t_script: float) -> int:
                            ("serve leg", served), ("shard leg", sharded),
                            ("comparison leg", compared), ("launcher leg", launched),
                            ("ref leg", reffed), ("train leg", trained),
-                           ("moe/vlm leg", moe_vlm),
+                           ("moe/vlm leg", moe_vlm), ("ssm/hybrid leg", recurrent),
                            ("autotune leg", {k: v for k, v in tuned.items() if k != "tuned"})):
         say(tag, f"{label} summary: {json.dumps(summary)}")
     paths = {name: "main" for name in UNFUSED_KERNELS}

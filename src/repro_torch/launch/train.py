@@ -5,15 +5,15 @@
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --reduced \\
         --steps 4 --global-batch 2 --seq-len 64
 
-Port of the JAX package's ``launch/train.py``: the model zoo's dense
-decoder families (``models/``: dense, moe, vlm), AdamW, the
+Port of the JAX package's ``launch/train.py``: the model zoo's
+families (``models/``: dense, moe, vlm, ssm, hybrid), AdamW, the
 deterministic pipeline, asynchronous checkpoints, the preemption
 handler, the straggler monitor and gradient accumulation, wired as the
 reference wires them, with its flags and its ``[train]`` lines; a
 ``vlm`` batch gets zero bf16 vision patches, as there.  It runs on CUDA
 unless ``--device cpu`` is given, and without a card it exits 2; it
-never falls back to the CPU.  The ``ssm``, ``hybrid`` and ``audio``
-families raise ``NotImplementedError`` (ROADMAP.md §1).
+never falls back to the CPU.  The ``audio`` family raises
+``NotImplementedError`` (ROADMAP.md §1).
 
 The parameters start from ``torch.Generator`` seed 0 on the device, and
 every step runs eagerly.  A resumed run starts at the restored AdamW step
@@ -25,6 +25,7 @@ the last step already taken.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import sys
 import time
 
@@ -32,7 +33,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import ARCHS, get_config
-from repro_torch.core.torch_engine import require_device
+from repro_torch.core.torch_engine import full_fp32_matmul, require_device
 from repro_torch.models.convert import flat, nest
 from repro_torch.models.model import Model, get_model
 from repro_torch.train.checkpoint import Checkpointer
@@ -48,15 +49,21 @@ def build_train_step(model: Model, acfg: AdamWConfig, accum: int = 1):
     (over ``accum`` equal micro-batches: the losses and the gradients
     summed, then divided by ``accum``), then one AdamW update of the
     model's parameters and ``opt`` in place.  ``loss`` and the metrics
-    are device scalars."""
+    are device scalars.  The recurrent families' backward runs inside
+    ``full_fp32_matmul``, as their forward's recurrences do
+    (``models/ssm.py``)."""
     params = model.params()
+
+    def backward(loss: torch.Tensor) -> None:
+        with full_fp32_matmul() if model.recurrent else contextlib.nullcontext():
+            loss.backward()
 
     def step(opt: dict, batch: dict):
         for p in params.values():
             p.grad = None
         if accum == 1:
             loss = model.loss(batch)
-            loss.backward()
+            backward(loss)
         else:
             lead = next(iter(batch.values())).shape[0]
             if lead % accum:
@@ -64,7 +71,7 @@ def build_train_step(model: Model, acfg: AdamWConfig, accum: int = 1):
             loss = torch.zeros((), device=model.device)
             for mb in zip(*(v.chunk(accum) for v in batch.values())):
                 micro = model.loss(dict(zip(batch, mb)))
-                micro.backward()
+                backward(micro)
                 loss = loss + micro.detach()
             loss = loss / accum
             for p in params.values():

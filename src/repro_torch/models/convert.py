@@ -14,7 +14,9 @@ same shapes, so a conversion is a renaming and a copy:
 
 ``nest`` and ``flat`` are the renaming alone, on any leaves; the
 checkpointer saves the nested form, so its leaf names are the
-reference's.
+reference's.  Every family's leaves keep the reference's stacking: the
+hybrid's Mamba2 leaves both leading axes, ``(n_layers // shared_period,
+shared_period, ...)``, beside the unstacked ``shared`` block.
 """
 from __future__ import annotations
 

@@ -41,21 +41,12 @@ def causal_skip() -> bool:
 # ---------------------------------------------------------------- init
 
 
-def dense_init(generator: torch.Generator, d_in: int, d_out: int, scale=None, lead=(),
+def dense_init(generator: torch.Generator, d_in: int, d_out: int, scale=None,
                device=None) -> torch.Tensor:
-    """f32 normal draws of shape ``(*lead, d_in, d_out)`` times ``scale``
-    (``d_in ** -0.5`` by default); ``lead`` stacks layers."""
+    """f32 normal draws of shape ``(d_in, d_out)`` times ``scale`` (``d_in
+    ** -0.5`` by default)."""
     scale = scale if scale is not None else d_in**-0.5
-    return torch.randn((*lead, d_in, d_out), generator=generator, device=device) * scale
-
-
-def init_linear(generator: torch.Generator, d_in: int, d_out: int, bias: bool = False,
-                lead=(), device=None) -> dict[str, torch.Tensor]:
-    """``{"w": (*lead, d_in, d_out)}`` and, with ``bias``, zeros ``b``."""
-    p = {"w": dense_init(generator, d_in, d_out, lead=lead, device=device)}
-    if bias:
-        p["b"] = torch.zeros((*lead, d_out), device=device)
-    return p
+    return torch.randn((d_in, d_out), generator=generator, device=device) * scale
 
 
 def linear(p, x: torch.Tensor) -> torch.Tensor:
@@ -241,21 +232,6 @@ def mlp_swiglu(p, x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------- MoE
-
-
-def init_moe(generator: torch.Generator, cfg, lead=(), device=None) -> dict[str, torch.Tensor]:
-    """The reference's draws: ``router`` (d, E) and the experts' ``wg``,
-    ``wu`` (E, d, f) normal x ``d ** -0.5``, ``wd`` (E, f, d) normal x
-    ``f ** -0.5``; ``lead`` stacks layers."""
-    d, f, E = cfg.d_model, cfg.d_ff, cfg.moe.n_experts
-
-    def normal(*shape):
-        return torch.randn((*lead, *shape), generator=generator, device=device)
-
-    return {"router": dense_init(generator, d, E, lead=lead, device=device),
-            "wg": normal(E, d, f) * d**-0.5,
-            "wu": normal(E, d, f) * d**-0.5,
-            "wd": normal(E, f, d) * f**-0.5}
 
 
 class Routing(NamedTuple):

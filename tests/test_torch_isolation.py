@@ -11,7 +11,8 @@ both baselines and the legacy ``join_agg`` agree with the planner, all
 with both packages refused, and so do the ``"ref"`` engine and a ``"ref"``
 maintained handle, and the LM substrate's reduced qwen2-1.5b takes a
 train step and a decode step, the reduced moonshot-v1-16b-a3b (moe) a
-train step and the reduced qwen2-vl-7b (vlm) a decode step; the storage
+train step, the reduced qwen2-vl-7b (vlm), rwkv6-3b (ssm) and
+zamba2-2.7b (hybrid) a decode step each; the storage
 gate, the catalog verifier and the trainer run as ``python -m`` the same
 way), and the port's
 default engine refuses to run without a CUDA card instead of quietly
@@ -175,6 +176,13 @@ moe_loss, _ = build_train_step(moe, AdamWConfig())(
 vlm_cfg = get_config("qwen2-vl-7b", reduced=True)
 vlm = get_model(vlm_cfg, device="cpu").init(torch.Generator().manual_seed(2))
 vlm_logits, _ = vlm.decode_step(vlm.init_cache(2, 4), lm_tokens[:, :1], 0)
+recurrent_decoded = {}
+for arch in ("rwkv6-3b", "zamba2-2.7b"):
+    rec = get_model(get_config(arch, reduced=True), device="cpu").init(
+        torch.Generator().manual_seed(3))
+    rec_logits, _ = rec.decode_step(rec.init_cache(2, 4), lm_tokens[:, :1], 0)
+    recurrent_decoded[arch] = (list(rec_logits.shape)
+                               if bool(torch.isfinite(rec_logits).all()) else None)
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in {"jax", "jaxlib", "repro"})
 print(json.dumps({"rows": res.num_rows, "n": float(res.column("n").sum()),
                   "split": split.split is not None,
@@ -197,7 +205,7 @@ print(json.dumps({"rows": res.num_rows, "n": float(res.column("n").sum()),
                   else None, "moe_loss": float(moe_loss), "moe_aux": float(moe.last_aux),
                   "moe_step": int(moe_opt["step"]),
                   "vlm_decoded": list(vlm_logits.shape) if bool(torch.isfinite(vlm_logits).all())
-                  else None, "loaded": loaded}))
+                  else None, "recurrent_decoded": recurrent_decoded, "loaded": loaded}))
 """
 
 
@@ -232,6 +240,7 @@ def test_port_answers_a_query_with_jax_and_repro_refused():
     assert 0 < out["moe_loss"] < 2.5 * np.log(512) and out["moe_aux"] > 0
     assert out["moe_step"] == 1
     assert out["vlm_decoded"] == [2, 1, 512]
+    assert out["recurrent_decoded"] == {"rwkv6-3b": [2, 1, 512], "zamba2-2.7b": [2, 1, 512]}
 
 
 # the same refusal, then one of the port's launchers run as ``python -m``
@@ -285,7 +294,8 @@ def _imported_modules(path: Path) -> list[str]:
 
 @pytest.mark.parametrize(
     "path",
-    sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "tools" / "walk_sweep.py"],
+    sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "tools" / "walk_sweep.py",
+                                  REPO / "tools" / "decode_drift.py"],
     ids=lambda p: str(p.relative_to(REPO)),
 )
 def test_no_source_imports_jax_or_repro(path):

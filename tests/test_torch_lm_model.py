@@ -549,9 +549,8 @@ def test_decode_matches_prefill_dense():
                                rtol=BF16_RTOL, atol=BF16_ATOL)
 
 
-# the families still queued in ROADMAP.md §1
-@pytest.mark.parametrize("arch", [a for a in J_ARCHS
-                                  if j_get_config(a).family in ("ssm", "hybrid", "audio")])
+# the family still queued in ROADMAP.md §1
+@pytest.mark.parametrize("arch", [a for a in J_ARCHS if j_get_config(a).family == "audio"])
 def test_families_not_ported_raise(arch):
     cfg = get_config(arch, reduced=True)
     with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1"):
