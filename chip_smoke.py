@@ -308,8 +308,9 @@ Run from the root of a checkout on a machine with a CUDA card.  It
    Mamba2 layers) at 12 of its 54 layers (2 groups; 747,240,512
    parameters).  The depth is cut for the script's time limit: at 16 B a
    parameter, 46.03 and 36.09 GiB at full depth would fit the card, 10.13
-   and 11.13 GiB are trained; (c) each at full depth (32 and 54 layers;
-   11.51 and 9.02 GiB of f32 weights), without gradients, prefills and
+   and 11.13 GiB are trained; (c) each at the same cut depth (4 and 12
+   layers; cut from full depth, 32 and 54, after a whole run with leg 21
+   took 1,184.6 s), without gradients, prefills and
    decodes (D the config's chunk: 16 and 128) in two ways: with bf16
    activations, as shipped, a prompt of 4 x (4,096 - D) tokens prefilled
    and 8 tokens decoded from its state, timed (prefill ms, decode ms a
@@ -319,14 +320,38 @@ Run from the root of a checkout on a machine with a CUDA card.  It
    a prefill of all 4,096 within rtol = atol = ``F32_DECODE_TOL`` (1e-3;
    no capacity, no M-RoPE: decode and prefill compute the same function
    here).  With bf16 activations the two drift apart with depth, past
-   the reference's 0.15 at full depth (``tools/decode_drift.py``); (d)
+   the reference's 0.15 at full depth (``tools/decode_drift.py``, which
+   serves at any depth); (d)
    as leg 18's (d), for both ``REDUCED`` configs on 4 x 256 tokens: one
    f32 train step (loss, norm, AdamW's moments, parameters), one f32
    prefill (logits within 1e-5) and one bf16 step (loss and norm within
    2e-2) on the card and the CPU, TF32 off, held to leg 18's bounds.
    Each model is freed before the next.  None of the five kernels may
-   launch.  If a whole run of the script passes 1,100 s, (c)'s depth is
-   the first cut, an earlier leg's the next.
+   launch.  (c)'s depth was the first cut for the script's time; if a
+   whole run passes 1,100 s again, an earlier leg's is the next.
+21. drives the audio leg, the LM substrate's encoder-decoder
+   (whisper-medium: d_model 1,024, 16 heads of 64, d_ff 4,096, 51,865
+   tokens, 1,500 audio frames; LayerNorm blocks, GELU MLPs, sinusoidal
+   positions) at full width and full depth, 24 encoder and 24 decoder
+   layers (811,357,184 counted parameters, 12.09 GiB at 16 B a
+   parameter: no cut): (a) ``launch.train.main`` trains it for 3 steps of
+   4 x 4,096 decoder tokens behind the launcher's zero frames (4 x 1,500
+   x 1,024), no checkpoints, and prints each step's ms, tokens/s, loss,
+   gradient norm (both must be finite), peak and FLOP rate (6 x (the
+   encoder's parameters x 6,000 frames + the rest x 16,384 tokens)); (b)
+   without gradients, behind seeded normal bf16 frames, prefills 4 x
+   (4,096 - 8) tokens with bf16 activations, as shipped, and decodes 8
+   tokens from the cache (the decoder's keys and values and the memory's
+   per layer), timed; then, with f32 activations and TF32 off, the same
+   prompt and 8 decoded tokens, the last decode's logits of all 4 rows
+   held to a prefill of all 4,096 within ``F32_DECODE_TOL`` (decode
+   positions are f32 sinusoids on the card, the prefill's a float64
+   table, as in the reference); at 4,096 tokens the cross-attention
+   (4,096 queries over 1,500 keys) takes the chunked path, its keys
+   padded by 548 masked slots; (c) as leg 20's (d), for the ``REDUCED``
+   config on 4 x 256 tokens behind seeded normal frames, held to leg
+   18's bounds.  None of the five kernels may launch.  The leg must take
+   at most 35 s inside the script.
 
 Every leg prints its ``torch path:`` line — per key range for the split
 leg — and checks the path each run took against ``choose_path``: a dense
@@ -4412,15 +4437,19 @@ def _off(torch, got, want):
 
 def check_batch(cfg, rows: int, seq: int, seed: int) -> dict:
     """A pipeline batch of ``rows`` x ``seq`` tokens as numpy, with normal
-    vision patches (rows, P, d) for ``vlm``."""
+    vision patches (rows, P, d) for ``vlm`` and normal audio frames (rows,
+    n_audio_ctx, d) for ``audio``, drawn from ``seed``."""
     import numpy as np
 
     from repro_torch.train.pipeline import DataPipeline, PipelineConfig
 
     batch = DataPipeline(PipelineConfig(cfg.vocab, seq, rows)).local_batch_at(0)
+    rng = np.random.default_rng(seed)
     if cfg.family == "vlm":
-        rng = np.random.default_rng(seed)
         batch["patches"] = rng.normal(size=(rows, cfg.vision_patches, cfg.d_model)).astype(
+            np.float32)
+    if cfg.family == "audio":
+        batch["frames"] = rng.normal(size=(rows, cfg.n_audio_ctx, cfg.d_model)).astype(
             np.float32)
     return batch
 
@@ -4768,7 +4797,9 @@ def reduced_cpu_check(torch, tag, args, arch: str, leg: str = "moe/vlm leg") -> 
 # 10.13 GiB for rwkv6-3b at 4 of 32 layers, 11.13 GiB for zamba2-2.7b at
 # 12 of 54, 2 groups of shared_period 6; at full depth 46.03 and 36.09
 # GiB would fit, but the steps would not fit the script's time limit);
-# both serve at full depth
+# both serve at the same cut depth: at full depth (32 and 54 layers; PR
+# 32) serving took 31-35 s of the leg, and with leg 21 a whole run took
+# 1,184.6 s of its 1,200 (tools/decode_drift.py serves at full depth)
 SSM_HYBRID_RUNS = (("rwkv6-3b", 4), ("zamba2-2.7b", 12))
 SSM_HYBRID_STEPS = 3
 # decode from a prefill's state against a longer prefill, f32 activations
@@ -4792,9 +4823,9 @@ def counted_params(cfg) -> int:
 
 
 def ssm_hybrid_leg(torch, tag, args) -> dict:
-    """The ssm and hybrid families: trained at full width and cut depth,
-    served at full depth, and card = CPU at reduced width (see 20 in the
-    module docstring)."""
+    """The ssm and hybrid families: trained and served at full width and
+    cut depth, and card = CPU at reduced width (see 20 in the module
+    docstring)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
 
@@ -4808,18 +4839,17 @@ def ssm_hybrid_leg(torch, tag, args) -> dict:
         cfg = published.scaled(n_layers=n_layers)
         n_cut, n_full = counted_params(cfg), counted_params(published)
         say(tag, f"ssm/hybrid leg: {arch} ({cfg.family}) at full width, n_layers "
-                 f"{published.n_layers} -> {n_layers} trained: {n_cut} counted parameters "
-                 f"({n_cut * 16 / 2**30:.2f} GiB of f32 weights, gradients, m and v); served "
-                 f"at all {published.n_layers}: {n_full} ({n_full * 4 / 2**30:.2f} GiB of f32 "
-                 f"weights)")
+                 f"{published.n_layers} -> {n_layers} trained and served: {n_cut} counted "
+                 f"parameters ({n_cut * 16 / 2**30:.2f} GiB of f32 weights, gradients, m and "
+                 f"v; {n_full} at full depth)")
         t0 = time.perf_counter()
         row = {"n_layers": [n_layers, published.n_layers], "params": [n_cut, n_full],
-               "train": ssm_hybrid_train(torch, tag, arch, cfg, n_cut)}
+               "train": launcher_train(torch, tag, arch, cfg, n_cut)}
         gc.collect()
         torch.cuda.empty_cache()
         seconds[f"{arch} train"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        row["serve"] = ssm_hybrid_serve(torch, tag, args, published)
+        row["serve"] = ssm_hybrid_serve(torch, tag, args, cfg)
         gc.collect()
         torch.cuda.empty_cache()
         row["left_gib"] = torch.cuda.memory_allocated() / 2**30
@@ -4841,9 +4871,12 @@ def ssm_hybrid_leg(torch, tag, args) -> dict:
     return out
 
 
-def ssm_hybrid_train(torch, tag, arch: str, cfg, n_counted: int) -> dict:
+def launcher_train(torch, tag, arch: str, cfg, n_counted: int, leg: str = "ssm/hybrid leg",
+                     flops: tuple[int, str] | None = None) -> dict:
     """(a), (b): ``launch/train.main`` for ``SSM_HYBRID_STEPS`` steps of
-    4 x 4,096 tokens, no checkpoint directory."""
+    4 x 4,096 tokens, no checkpoint directory.  ``flops``: a step's
+    counted operations and how they were counted (6ND with N =
+    ``n_counted`` when None); ``leg`` names the calling leg."""
     import numpy as np
 
     from repro_torch.launch import train
@@ -4852,30 +4885,47 @@ def ssm_hybrid_train(torch, tag, arch: str, cfg, n_counted: int) -> dict:
             str(TRAIN_BATCH), "--seq-len", str(TRAIN_SEQ), "--steps", str(SSM_HYBRID_STEPS),
             "--log-every", "1", "--device", "cuda"]
     run = train.main(argv)
-    check(run["steps"] == list(range(SSM_HYBRID_STEPS)), f"ssm/hybrid leg: {arch}: steps missing")
+    check(run["steps"] == list(range(SSM_HYBRID_STEPS)), f"{leg}: {arch}: steps missing")
     tokens = TRAIN_BATCH * TRAIN_SEQ
+    flop, counted = flops or (6 * n_counted * tokens, f"6ND (N = {n_counted} counted "
+                                                     f"parameters, D = {tokens} tokens)")
     for i, step in enumerate(run["steps"]):
         loss, gnorm, ms = run["losses"][i], run["grad_norms"][i], run["ms"][i]
         peak = run["peak_bytes"][i] / 2**30 if run["peak_bytes"] else float("nan")
-        say(tag, f"ssm/hybrid leg: {arch} ({cfg.n_layers} layers) step {step}: {ms:.1f} ms, "
+        say(tag, f"{leg}: {arch} ({cfg.n_layers} layers) step {step}: {ms:.1f} ms, "
                  f"{run['tokens_per_s'][i]:.0f} tokens/s, loss {loss:.6f}, gnorm {gnorm:.6f}, "
-                 f"peak {peak:.2f} GiB; 6ND "
-                 f"{6 * n_counted * tokens / ms / 1e9:.1f} TFLOP/s (N = {n_counted} counted "
-                 f"parameters, D = {tokens} tokens)")
+                 f"peak {peak:.2f} GiB; {flop / ms / 1e9:.1f} TFLOP/s in {counted}")
         check(np.isfinite(loss) and np.isfinite(gnorm),
-              f"ssm/hybrid leg: {arch} step {step}: loss {loss} or gnorm {gnorm} not finite")
+              f"{leg}: {arch} step {step}: loss {loss} or gnorm {gnorm} not finite")
     return {k: run[k] for k in ("losses", "grad_norms", "ms", "tokens_per_s", "peak_bytes")}
 
 
-def prefill_and_decode(torch, model, toks, prompt: int, steps: int):
-    """Prefills ``toks[:, :prompt]`` and decodes the next ``steps`` tokens
+def serve_batch(torch, cfg, gen, seed: int) -> dict:
+    """``TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens on the card drawn from
+    ``seed``; for ``audio`` behind normal bf16 frames (rows,
+    n_audio_ctx, d) drawn from ``gen``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": torch.tensor(rng.integers(0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ)),
+                                    dtype=torch.int32, device="cuda")}
+    if cfg.family == "audio":
+        batch["frames"] = torch.randn((TRAIN_BATCH, cfg.n_audio_ctx, cfg.d_model),
+                                      generator=gen, device="cuda").to(torch.bfloat16)
+    return batch
+
+
+def prefill_and_decode(torch, model, batch: dict, prompt: int, steps: int):
+    """Prefills ``batch["tokens"][:, :prompt]`` (behind the batch's other
+    entries, whisper's ``frames``) and decodes the next ``steps`` tokens
     from its cache (keys and values copied into a ``prompt + steps`` slot
-    cache, the recurrent state as it is).  Returns (prefill ms, ms of
-    each decode step, the last logits)."""
+    cache; the recurrent state, or the memory's keys and values, as they
+    are).  Returns (prefill ms, ms of each decode step, the last logits)."""
+    toks = batch["tokens"]
     rows = toks.shape[0]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    _, cache = model.prefill({"tokens": toks[:, :prompt]})
+    _, cache = model.prefill({**batch, "tokens": toks[:, :prompt]})
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
     dec = model.init_cache(rows, prompt + steps)
@@ -4895,24 +4945,21 @@ def prefill_and_decode(torch, model, toks, prompt: int, steps: int):
 
 
 def ssm_hybrid_serve(torch, tag, args, cfg) -> dict:
-    """(c): at full depth, without gradients.  As shipped (bf16
+    """(c): at the trained depth, without gradients.  As shipped (bf16
     activations): a prompt of 4 x (4,096 - D) tokens prefilled and
     ``DECODE_STEPS`` tokens decoded from its state, timed.  Then with f32
     activations and TF32 off: the same prompt, D = the config's chunk
     tokens decoded, and the last decode's logits of every row held to a
     prefill of all 4,096 within ``F32_DECODE_TOL``."""
-    import numpy as np
-
     from repro_torch.models import model as t_model
 
     model = t_model.get_model(cfg, "cuda").init(torch.Generator("cuda").manual_seed(args.seed))
     D = cfg.ssm.chunk
     prompt = TRAIN_SEQ - D
-    rng = np.random.default_rng(args.seed)
-    toks = torch.tensor(rng.integers(0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ)), dtype=torch.int32,
-                        device="cuda")
+    batch = serve_batch(torch, cfg, None, args.seed)
+    toks = batch["tokens"]
     torch.cuda.reset_peak_memory_stats()
-    prefill_ms, step_ms, logits = prefill_and_decode(torch, model, toks, prompt, DECODE_STEPS)
+    prefill_ms, step_ms, logits = prefill_and_decode(torch, model, batch, prompt, DECODE_STEPS)
     peak = torch.cuda.max_memory_allocated() / 2**30
     finite = bool(torch.isfinite(logits).all())
     say(tag, f"ssm/hybrid leg: {cfg.name} ({cfg.n_layers} layers, bf16 activations): prefill "
@@ -4925,7 +4972,7 @@ def ssm_hybrid_serve(torch, tag, args, cfg) -> dict:
     before = (t_model.ACT_DTYPE, matmul.allow_tf32)
     try:
         t_model.ACT_DTYPE, matmul.allow_tf32 = torch.float32, False
-        f32_prefill_ms, f32_ms, logits = prefill_and_decode(torch, model, toks, prompt, D)
+        f32_prefill_ms, f32_ms, logits = prefill_and_decode(torch, model, batch, prompt, D)
         full, _ = model.prefill({"tokens": toks})
     finally:
         t_model.ACT_DTYPE, matmul.allow_tf32 = before
@@ -4944,6 +4991,118 @@ def ssm_hybrid_serve(torch, tag, args, cfg) -> dict:
     del model, logits, full
     return {"prefill_ms": prefill_ms, "decode_ms": step_ms, "peak_gib": peak,
             "f32_prefill_ms": f32_prefill_ms, "f32_decode_ms": f32_ms, "max_abs_err": err}
+
+
+# ----------------------------------------------------------------------
+# audio leg: the LM substrate's encoder-decoder
+# ----------------------------------------------------------------------
+
+AUDIO_ARCH = "whisper-medium"
+
+
+def audio_leg(torch, tag, args) -> dict:
+    """whisper-medium trained and served at full width and full depth, and
+    card = CPU at reduced width (see 21 in the module docstring)."""
+    import math
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.convert import param_shapes
+
+    t_leg = time.perf_counter()
+    ops.reset_launch_counts()
+    cfg = get_config(AUDIO_ARCH)
+    n = counted_params(cfg)
+    n_enc = sum(math.prod(shape) for name, shape in param_shapes(cfg).items()
+                if name.startswith("enc_"))
+    frames, tokens = TRAIN_BATCH * cfg.n_audio_ctx, TRAIN_BATCH * TRAIN_SEQ
+    flops = 6 * (n_enc * frames + (n - n_enc) * tokens)
+    say(tag, f"audio leg: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated on the "
+             f"card by earlier legs; {AUDIO_ARCH} ({cfg.family}) at full width and depth, "
+             f"{cfg.enc_layers} encoder and {cfg.n_layers} decoder layers: {n} counted "
+             f"parameters ({n * 16 / 2**30:.2f} GiB of f32 weights, gradients, m and v; "
+             f"the analytic param_count says {cfg.param_count()})")
+    seconds = {}
+    t0 = time.perf_counter()
+    out = {"params": n, "encoder_params": n_enc,
+           "train": launcher_train(
+               torch, tag, AUDIO_ARCH, cfg, n, "audio leg",
+               (flops, f"6 x ({n_enc} encoder parameters x {frames} frames + {n - n_enc} "
+                       f"decoder and head parameters x {tokens} tokens) = {flops:.4g} FLOP"))}
+    gc.collect()
+    torch.cuda.empty_cache()
+    seconds["train"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["serve"] = audio_serve(torch, tag, args, cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["left_gib"] = torch.cuda.memory_allocated() / 2**30
+    seconds["serve"] = time.perf_counter() - t0
+    say(tag, f"audio leg: {AUDIO_ARCH} freed: {out['left_gib']:.2f} GiB left allocated")
+    t0 = time.perf_counter()
+    out["card_cpu"] = reduced_cpu_check(torch, tag, args, AUDIO_ARCH, "audio leg")
+    seconds["cpu_check"] = time.perf_counter() - t0
+
+    launches = ops.launch_counts()
+    check(not any(launches.values()), f"audio leg: a JOIN-AGG kernel launched: {launches}")
+    leg_s = time.perf_counter() - t_leg
+    say(tag, f"audio leg: the leg took {leg_s:.1f} s ("
+             + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items()) + ")")
+    out.update(seconds=leg_s, part_seconds=seconds, launches={"audio": launches})
+    return out
+
+
+def audio_serve(torch, tag, args, cfg) -> dict:
+    """(b): at full depth, without gradients, behind seeded normal bf16
+    frames (4, 1,500, 1,024).  As shipped (bf16 activations): a prompt of
+    4 x (4,096 - 8) tokens prefilled and ``DECODE_STEPS`` tokens decoded
+    from its cache, timed.  Then with f32 activations and TF32 off: the
+    same prompt and tokens, and the last decode's logits of every row
+    held to a prefill of all 4,096 within ``F32_DECODE_TOL``."""
+    from repro_torch.models import model as t_model
+
+    gen = torch.Generator("cuda").manual_seed(args.seed)
+    model = t_model.get_model(cfg, "cuda").init(gen)
+    batch = serve_batch(torch, cfg, gen, args.seed)
+    prompt = TRAIN_SEQ - DECODE_STEPS
+    torch.cuda.reset_peak_memory_stats()
+    prefill_ms, step_ms, logits = prefill_and_decode(torch, model, batch, prompt, DECODE_STEPS)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    finite = bool(torch.isfinite(logits).all())
+    say(tag, f"audio leg: {cfg.name} ({cfg.enc_layers} + {cfg.n_layers} layers, bf16 "
+             f"activations): prefill of {TRAIN_BATCH} x {prompt} tokens behind {cfg.n_audio_ctx} "
+             f"frames {prefill_ms:.1f} ms; decode steps at {prompt}..{TRAIN_SEQ - 1}: "
+             + ", ".join(f"{ms:.1f}" for ms in step_ms) + f" ms; peak {peak:.2f} GiB")
+    check(finite and tuple(logits.shape) == (TRAIN_BATCH, 1, cfg.vocab),
+          f"audio leg: {cfg.name}: bf16 decode logits not finite or misshapen")
+
+    matmul = torch.backends.cuda.matmul
+    before = (t_model.ACT_DTYPE, matmul.allow_tf32)
+    try:
+        t_model.ACT_DTYPE, matmul.allow_tf32 = torch.float32, False
+        f32_prefill_ms, f32_ms, logits = prefill_and_decode(torch, model, batch, prompt,
+                                                            DECODE_STEPS)
+        t0 = time.perf_counter()
+        full, _ = model.prefill(batch)
+        torch.cuda.synchronize()
+        full_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        t_model.ACT_DTYPE, matmul.allow_tf32 = before
+    err = float((logits - full).abs().max())
+    ok = bool(torch.allclose(logits, full, rtol=F32_DECODE_TOL, atol=F32_DECODE_TOL))
+    finite = bool(torch.isfinite(logits).all())
+    say(tag, f"audio leg: {cfg.name} (f32 activations, TF32 off): prefill of {TRAIN_BATCH} x "
+             f"{prompt} tokens {f32_prefill_ms:.1f} ms, of all {TRAIN_SEQ} {full_ms:.1f} ms; "
+             f"decode steps " + ", ".join(f"{ms:.1f}" for ms in f32_ms) + " ms")
+    say(tag, f"check: audio leg: {cfg.name}: f32, the last of {DECODE_STEPS} decoded logits "
+             f"{tuple(logits.shape)} vs a prefill of all {TRAIN_SEQ} tokens: largest |difference| "
+             f"{err:.4g} (largest |logit| {float(full.abs().max()):.4g}), within rtol = atol = "
+             f"{F32_DECODE_TOL}: {ok}; finite: {finite}")
+    check(ok and finite, f"audio leg: {cfg.name}: decode disagrees with prefill")
+    del model, logits, full, batch
+    return {"prefill_ms": prefill_ms, "decode_ms": step_ms, "peak_gib": peak,
+            "f32_prefill_ms": f32_prefill_ms, "f32_full_prefill_ms": full_ms,
+            "f32_decode_ms": f32_ms, "max_abs_err": err}
 
 
 def main() -> int:
@@ -5182,9 +5341,15 @@ def smoke(args, t_script: float) -> int:
     recurrent = ssm_hybrid_leg(torch, tag, args)
     done("20. ssm/hybrid leg")
 
+    # 21. audio leg ----------------------------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    audio = audio_leg(torch, tag, args)
+    done("21. audio leg")
+
     legs = {"main": launches, "fused": flaunches}
     for leg in (split, cyclic, dense, maintain, stored, served, sharded, compared, launched,
-                reffed, trained, moe_vlm, recurrent):
+                reffed, trained, moe_vlm, recurrent, audio):
         legs.update(leg.pop("launches"))
     for label, summary in (("main path", main), ("fused path", fused), *split.items(),
                            *cyclic.items(), *dense.items(), *maintain.items(),
@@ -5193,6 +5358,7 @@ def smoke(args, t_script: float) -> int:
                            ("comparison leg", compared), ("launcher leg", launched),
                            ("ref leg", reffed), ("train leg", trained),
                            ("moe/vlm leg", moe_vlm), ("ssm/hybrid leg", recurrent),
+                           ("audio leg", audio),
                            ("autotune leg", {k: v for k, v in tuned.items() if k != "tuned"})):
         say(tag, f"{label} summary: {json.dumps(summary)}")
     paths = {name: "main" for name in UNFUSED_KERNELS}

@@ -2,8 +2,8 @@
 
 A copy of the JAX package's ``configs/``: the ten published
 architectures, each ``CONFIG`` and its ``REDUCED`` test size.  The port's
-model runs the ``dense``, ``moe``, ``vlm``, ``ssm`` and ``hybrid`` families;
-``audio`` is queued (ROADMAP.md §1).
+model runs all six families: ``dense``, ``moe``, ``vlm``, ``ssm``,
+``hybrid`` and ``audio``.
 """
 from importlib import import_module
 

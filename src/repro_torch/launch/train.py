@@ -6,14 +6,13 @@
         --steps 4 --global-batch 2 --seq-len 64
 
 Port of the JAX package's ``launch/train.py``: the model zoo's
-families (``models/``: dense, moe, vlm, ssm, hybrid), AdamW, the
+families (``models/``: dense, moe, vlm, ssm, hybrid, audio), AdamW, the
 deterministic pipeline, asynchronous checkpoints, the preemption
 handler, the straggler monitor and gradient accumulation, wired as the
 reference wires them, with its flags and its ``[train]`` lines; a
-``vlm`` batch gets zero bf16 vision patches, as there.  It runs on CUDA
-unless ``--device cpu`` is given, and without a card it exits 2; it
-never falls back to the CPU.  The ``audio`` family raises
-``NotImplementedError`` (ROADMAP.md §1).
+``vlm`` batch gets zero bf16 vision patches and an ``audio`` batch zero
+bf16 frames, as there.  It runs on CUDA unless ``--device cpu`` is
+given, and without a card it exits 2; it never falls back to the CPU.
 
 The parameters start from ``torch.Generator`` seed 0 on the device, and
 every step runs eagerly.  A resumed run starts at the restored AdamW step
@@ -173,6 +172,10 @@ def main(argv: list[str] | None = None) -> dict:
             if cfg.family == "vlm":
                 batch["patches"] = torch.zeros(
                     (args.global_batch, cfg.vision_patches, cfg.d_model), dtype=torch.bfloat16,
+                    device=device)
+            if cfg.family == "audio":
+                batch["frames"] = torch.zeros(
+                    (args.global_batch, cfg.n_audio_ctx, cfg.d_model), dtype=torch.bfloat16,
                     device=device)
             if cuda:
                 torch.cuda.reset_peak_memory_stats(device)

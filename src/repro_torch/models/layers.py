@@ -1,10 +1,9 @@
 """Transformer building blocks of the decoder families, as functions on tensors.
 
-Port of the JAX package's ``models/layers.py`` for the ``dense``, ``moe``
-and ``vlm`` families: RMSNorm, RoPE with M-RoPE sections, flash
-attention, SwiGLU and the token-choice MoE block (no LayerNorm, GELU MLP
-or cross-attention yet; ROADMAP.md §1 queues them with their families).
-Conventions, as in the reference:
+Port of the JAX package's ``models/layers.py``: RMSNorm and LayerNorm,
+RoPE with M-RoPE sections, flash attention and cross-attention, the
+SwiGLU and GELU MLPs and the token-choice MoE block.  Conventions, as
+in the reference:
 
 * parameters are nested dicts of tensors (``{"w": ..., "b": ...}``), one
   layer's slice of the model's stacked ``(n_layers, ...)`` parameters;
@@ -61,6 +60,16 @@ def rmsnorm(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     xf = x.float()
     y = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
     return (y * p["scale"]).to(x.dtype)
+
+
+def layernorm(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """f32 mean and biased variance, then ``scale`` and ``bias``; cast back
+    to ``x``'s dtype."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * p["scale"] + p["bias"]).to(x.dtype)
 
 
 # ---------------------------------------------------------------- RoPE
@@ -192,6 +201,16 @@ def attention_train(p, x: torch.Tensor, cfg, cos, sin, rope: bool = True,
     return linear(p["wo"], o.reshape(B, S, -1))
 
 
+def cross_attention_train(p, x: torch.Tensor, mem_kv, cfg) -> torch.Tensor:
+    """x (B, S, d) attends, without a mask, to the memory's keys and values
+    ``mem_kv`` = (k, v), each (B, M, nkv, hd), projected beforehand."""
+    B, S, _ = x.shape
+    q = linear(p["wq"], x).reshape(B, S, cfg.nh_eff, cfg.hd)
+    k, v = mem_kv
+    o = flash_attention(q, k, v, causal=False)
+    return linear(p["wo"], o.reshape(B, S, -1))
+
+
 def attention_decode(p, x: torch.Tensor, cache: dict, pos, cfg, cos, sin,
                      rope: bool = True):
     """One decode step.  cache: ``{"k": (B, S, nkv, hd), "v": ...}``; pos a
@@ -229,6 +248,12 @@ def attention_decode(p, x: torch.Tensor, cache: dict, pos, cfg, cos, sin,
 def mlp_swiglu(p, x: torch.Tensor) -> torch.Tensor:
     h = F.silu(linear(p["wg"], x)) * linear(p["wu"], x)
     return linear(p["wd"], h)
+
+
+def mlp_gelu(p, x: torch.Tensor) -> torch.Tensor:
+    """``wi`` and ``wo`` with their biases around the tanh form of GELU,
+    ``jax.nn.gelu``'s default (the erf form differs by up to ~1e-3)."""
+    return linear(p["wo"], F.gelu(linear(p["wi"], x), approximate="tanh"))
 
 
 # ---------------------------------------------------------------- MoE

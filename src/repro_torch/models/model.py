@@ -1,43 +1,49 @@
-"""Every ported family behind the reference's model interface.
+"""Every family of the model zoo behind the reference's model interface.
 
 Port of the JAX package's ``models/model.py`` for families ``"dense"``
 (qwen2-1.5b, deepseek-coder-33b, minitron-4b, minitron-8b), ``"moe"``
 (llama4-scout-17b-a16e, moonshot-v1-16b-a3b: the dense decoder layer
 with ``moe_block`` in place of the MLP), ``"vlm"`` (qwen2-vl-7b: stub
 vision patch embeddings prepended to the text, M-RoPE positions),
-``"ssm"`` (rwkv6-3b: RWKV6 blocks, ``models/ssm.py``) and ``"hybrid"``
+``"ssm"`` (rwkv6-3b: RWKV6 blocks, ``models/ssm.py``), ``"hybrid"``
 (zamba2-2.7b: Mamba2 layers, and one shared attention block, the dense
-decoder layer, after every ``shared_period`` of them).
+decoder layer, after every ``shared_period`` of them) and ``"audio"``
+(whisper-medium: an encoder over stub frame embeddings, ``batch["frames"]``
+(B, n_audio_ctx, d), and a decoder that cross-attends to it; LayerNorm
+blocks, GELU MLPs, sinusoidal positions, no RoPE).
 ``Model(cfg, device)`` is an ``nn.Module`` whose parameters have the
 reference's pytree names and shapes: every per-layer tensor is stacked
 along a leading ``n_layers`` axis (``layers.attn.wq.w`` is ``(L, d, nh *
 hd)``, ``layers.moe.wg`` is ``(L, E, d, f)``, ``layers.mix.wa`` is ``(L,
-d, lora)``), the hybrid's Mamba2 tensors along two, ``(n_layers //
+d, lora)``, whisper's encoder ``enc_layers.mlp.wi.b`` ``(enc_layers,
+f)``), the hybrid's Mamba2 tensors along two, ``(n_layers //
 shared_period, shared_period, ...)``, beside the unstacked ``shared``
 block, as the reference stacks them for ``lax.scan``.  That keeps the
 AdamW decay rule (``p.ndim >= 2``: stacked norm scales and biases decay,
-the top-level ``final_norm`` and the shared block's norm scales do not),
-the checkpoint's leaf names and the converter (``models/convert.py``)
-equal to the reference's.
+the top-level ``final_norm`` and ``enc_norm`` and the shared block's norm
+scales do not), the checkpoint's leaf names and the converter
+(``models/convert.py``) equal to the reference's.
 
 * ``init(generator)``  -- fills the parameters from an explicit generator
 * ``loss(batch)``      -- causal-LM loss (chunked vocab cross-entropy;
-                          each layer, or each hybrid group of
-                          ``shared_period`` Mamba2 layers and the shared
-                          block, recomputed in the backward) + 0.01 x the
-                          MoE auxiliary loss (kept as ``last_aux``)
+                          each layer, each whisper encoder layer, or each
+                          hybrid group of ``shared_period`` Mamba2 layers
+                          and the shared block, recomputed in the
+                          backward) + 0.01 x the MoE auxiliary loss (kept
+                          as ``last_aux``)
 * ``prefill(batch)``   -- last-position logits and the cache: keys and
-                          values, the recurrent state, or both (hybrid)
+                          values (whisper: also the memory's per layer),
+                          the recurrent state, or both (hybrid)
 * ``decode_step(cache, tokens, pos)`` -- one token for the whole batch
 * ``init_cache(B, S)`` -- a zeroed cache of the family's layout
 
-``"audio"`` raises ``NotImplementedError``: ROADMAP.md §1 queues it.  The
-reference's ``shard_ctx.constrain`` hints are the identity on one device
-and are left out until the mesh slice, with its expert-parallel
+The reference's ``shard_ctx.constrain`` hints are the identity on one
+device and are left out until the mesh slice, with its expert-parallel
 ``moe_ep.py``.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
@@ -50,18 +56,44 @@ from repro_torch.models.config import ModelConfig
 ACT_DTYPE = torch.bfloat16
 """Activation dtype, read at call time (tests set it to float32)."""
 
-PORTED_FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid")
+PORTED_FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "audio")
 RECURRENT_FAMILIES = ("ssm", "hybrid")
-_QUEUED = {"audio": "item 4 (whisper)"}
 
 
 def require_family(cfg: ModelConfig) -> None:
     if cfg.family not in PORTED_FAMILIES:
-        where = _QUEUED.get(cfg.family, "no item")
         raise NotImplementedError(
-            f"model family {cfg.family!r} ({cfg.name}) is not ported yet: ROADMAP.md §1, "
-            f"the LM substrate's queue, {where}; the port runs {PORTED_FAMILIES} only"
+            f"model family {cfg.family!r} ({cfg.name}) is not ported: ROADMAP.md §1 lists "
+            f"the LM substrate's families; the port runs {PORTED_FAMILIES} only"
         )
+
+
+def _sinusoid(S_len: int, d: int, offset: int = 0, device=None) -> torch.Tensor:
+    """(S_len, d) f32 sinusoidal positions from ``offset``: sines at the even
+    dimensions, cosines at the odd, computed in float64 with numpy and
+    rounded to f32, as the reference computes them."""
+    pos = np.arange(offset, offset + S_len)[:, None]
+    dim = np.arange(0, d, 2)[None, :]
+    ang = pos / (10000 ** (dim / d))
+    out = np.zeros((S_len, d), np.float32)
+    out[:, 0::2] = np.sin(ang)
+    out[:, 1::2] = np.cos(ang)
+    return torch.from_numpy(out).to(device)
+
+
+def _sinusoid_at(pos, d: int, device=None) -> torch.Tensor:
+    """(1, d) f32 sinusoidal embedding of one position (an int or a 0-d
+    tensor), computed in f32 on ``device`` as the reference's decode step
+    computes it.  The divisor ``10000 ** (dim / d)`` is rounded from
+    float64: XLA's f32 power is correctly rounded, torch's is one ulp off
+    at some exponents, which moves a sine by 2e-5 at position 1,499."""
+    dim = torch.arange(0, d, 2, dtype=torch.float32, device=device)
+    div = (10000 ** (dim / d).double()).float()
+    ang = torch.as_tensor(pos, dtype=torch.float32, device=device) / div
+    out = torch.zeros((1, d), dtype=torch.float32, device=device)
+    out[0, 0::2] = torch.sin(ang)
+    out[0, 1::2] = torch.cos(ang)
+    return out
 
 
 def _params(tree: dict) -> nn.ParameterDict:
@@ -101,27 +133,50 @@ class Tree(nn.Module):
         return _slice(self.tree(), i)
 
 
+def _linear_shapes(lead: tuple, d_in: int, d_out: int, bias: bool = False) -> dict:
+    return {"w": (*lead, d_in, d_out), **({"b": (*lead, d_out)} if bias else {})}
+
+
+def _attention_shapes(cfg: ModelConfig, lead: tuple) -> dict:
+    d, hd, nh, nkv = cfg.d_model, cfg.hd, cfg.nh_eff, cfg.n_kv
+    return {"wq": _linear_shapes(lead, d, nh * hd, cfg.qkv_bias),
+            "wk": _linear_shapes(lead, d, nkv * hd, cfg.qkv_bias),
+            "wv": _linear_shapes(lead, d, nkv * hd, cfg.qkv_bias),
+            "wo": _linear_shapes(lead, nh * hd, d)}
+
+
 def decoder_shapes(cfg: ModelConfig, lead: tuple) -> dict:
     """One decoder layer's parameter shapes (attention, then SwiGLU or
     the MoE block), each behind ``lead``."""
-    d, hd, nh, nkv, f = cfg.d_model, cfg.hd, cfg.nh_eff, cfg.n_kv, cfg.d_ff
-
-    def lin(d_in, d_out, bias=False):
-        return {"w": (*lead, d_in, d_out), **({"b": (*lead, d_out)} if bias else {})}
-
+    d, f = cfg.d_model, cfg.d_ff
     if cfg.moe:
         E = cfg.moe.n_experts
         ffn_ = {"moe": {"router": (*lead, d, E), "wg": (*lead, E, d, f),
                         "wu": (*lead, E, d, f), "wd": (*lead, E, f, d)}}
     else:
-        ffn_ = {"mlp": {"wg": lin(d, f), "wu": lin(d, f), "wd": lin(f, d)}}
+        ffn_ = {"mlp": {"wg": _linear_shapes(lead, d, f), "wu": _linear_shapes(lead, d, f),
+                        "wd": _linear_shapes(lead, f, d)}}
     return {
         "ln1": {"scale": (*lead, d)},
-        "attn": {"wq": lin(d, nh * hd, cfg.qkv_bias), "wk": lin(d, nkv * hd, cfg.qkv_bias),
-                 "wv": lin(d, nkv * hd, cfg.qkv_bias), "wo": lin(nh * hd, d)},
+        "attn": _attention_shapes(cfg, lead),
         "ln2": {"scale": (*lead, d)},
         **ffn_,
     }
+
+
+def whisper_shapes(cfg: ModelConfig, lead: tuple, cross: bool) -> dict:
+    """One whisper layer's parameter shapes (``model.py:147-160``), each
+    behind ``lead``: LayerNorms, self-attention and the GELU MLP with its
+    biases; a decoder layer (``cross``) also ``lnx`` and the
+    cross-attention ``xattn``."""
+    d, f = cfg.d_model, cfg.d_ff
+    ln = {"scale": (*lead, d), "bias": (*lead, d)}
+    shapes = {"ln1": ln, "attn": _attention_shapes(cfg, lead), "ln2": ln,
+              "mlp": {"wi": _linear_shapes(lead, d, f, bias=True),
+                      "wo": _linear_shapes(lead, f, d, bias=True)}}
+    if cross:
+        shapes.update(lnx=ln, xattn=_attention_shapes(cfg, lead))
+    return shapes
 
 
 def rwkv6_shapes(cfg: ModelConfig, lead: tuple) -> dict:
@@ -162,11 +217,12 @@ def mamba2_shapes(cfg: ModelConfig, lead: tuple) -> dict:
 
 
 # the reference's draws of a layer's leaves, by leaf name: constants
-# (norm scales, biases; ssm.py:26-49, :156-166), normal draws x a scale,
-# and for every other leaf normal draws x fan_in ** -0.5, fan_in its
-# second-to-last axis (a linear's "w", the MoE router and experts)
-_INIT_CONSTANT = {"scale": 1.0, "b": 0.0, "mu": 0.5, "w0": -6.0, "u": 0.0, "A_log": 0.0,
-                  "D": 1.0, "dt_bias": 0.0}
+# (norm scales, biases, LayerNorm biases; ssm.py:26-49, :156-166,
+# layers.py:59-60), normal draws x a scale, and for every other leaf
+# normal draws x fan_in ** -0.5, fan_in its second-to-last axis (a
+# linear's "w", the MoE router and experts)
+_INIT_CONSTANT = {"scale": 1.0, "b": 0.0, "bias": 0.0, "mu": 0.5, "w0": -6.0, "u": 0.0,
+                  "A_log": 0.0, "D": 1.0, "dt_bias": 0.0}
 _INIT_SCALE = {"wa": 0.01, "wb": 0.01, "conv_w": 0.1}
 
 
@@ -182,6 +238,14 @@ def _init_tree(tree: dict, generator: torch.Generator) -> None:
         else:
             scale = _INIT_SCALE.get(k, p.shape[-2] ** -0.5)
             p.copy_(torch.randn(p.shape, generator=generator, device=p.device) * scale)
+
+
+def _recomputed(fn, *args):
+    """``fn(*args)``; while autograd records, its activations are not kept
+    but recomputed in the backward."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return fn(*args)
 
 
 def ffn(p, h: torch.Tensor, cfg) -> tuple[torch.Tensor, torch.Tensor | None]:
@@ -244,6 +308,11 @@ class Model(nn.Module):
         elif cfg.family == "hybrid":
             self.layers = Tree(mamba2_shapes(cfg, (self.groups, cfg.shared_period)), device)
             self.shared = Tree(decoder_shapes(cfg, ()), device)
+        elif cfg.family == "audio":
+            self.enc_layers = Tree(whisper_shapes(cfg, (cfg.enc_layers,), cross=False), device)
+            self.layers = Tree(whisper_shapes(cfg, (cfg.n_layers,), cross=True), device)
+            self.enc_norm = _params({"scale": torch.empty((d,), device=device),
+                                     "bias": torch.empty((d,), device=device)})
         else:
             self.layers = Tree(decoder_shapes(cfg, (cfg.n_layers,)), device)
         self.last_aux: torch.Tensor | None = None
@@ -275,9 +344,9 @@ class Model(nn.Module):
         with the reference's distributions: normal draws scaled by
         ``fan_in ** -0.5`` (the embedding and untied head by ``d ** -0.5``;
         the MoE router and ``wg``/``wu`` by ``d ** -0.5``, ``wd`` by ``f **
-        -0.5``), norm scales one, biases zero, the recurrent layers'
-        constants and scaled draws as ``_INIT_CONSTANT`` and
-        ``_INIT_SCALE`` list them.  Returns the model."""
+        -0.5``), norm scales one, biases (LayerNorm biases too) zero, the
+        recurrent layers' constants and scaled draws as ``_INIT_CONSTANT``
+        and ``_INIT_SCALE`` list them.  Returns the model."""
         cfg, dev = self.cfg, self.device
         d, V = cfg.d_model, cfg.vocab
         self.embed.copy_(L.dense_init(generator, V, d, scale=d**-0.5, device=dev))
@@ -287,6 +356,9 @@ class Model(nn.Module):
         _init_tree(self.layers.tree(), generator)
         if cfg.family == "hybrid":
             _init_tree(self.shared.tree(), generator)
+        if cfg.family == "audio":
+            _init_tree(self.enc_layers.tree(), generator)
+            _init_tree(dict(self.enc_norm), generator)
         return self
 
     # ----------------------------------------------------------- helpers
@@ -329,8 +401,12 @@ class Model(nn.Module):
         """Mean next-token cross-entropy + 0.01 x the MoE auxiliary loss
         summed over the layers (zero without experts), f32.  ``vlm``
         prepends ``batch["patches"]`` and scores only the text positions.
-        The detached auxiliary sum is kept as ``last_aux``."""
+        The detached auxiliary sum is kept as ``last_aux``.  ``audio``
+        encodes ``batch["frames"]`` (B, n_audio_ctx, d) first; its decoder
+        cross-attends to the encoding and has no auxiliary loss (zero)."""
         cfg = self.cfg
+        if cfg.family == "audio":
+            return self._loss_whisper(batch)
         tokens, labels = batch["tokens"], batch["labels"]
         B = tokens.shape[0]
         x = self._embed(tokens)
@@ -341,11 +417,7 @@ class Model(nn.Module):
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         units = self.groups if cfg.family == "hybrid" else cfg.n_layers
         for i in range(units):
-            if torch.is_grad_enabled():
-                x, aux = checkpoint(self._train_layer, i, x, aux, cos, sin, use_reentrant=False,
-                                    preserve_rng_state=False)
-            else:
-                x, aux = self._train_layer(i, x, aux, cos, sin)
+            x, aux = _recomputed(self._train_layer, i, x, aux, cos, sin)
         x = L.rmsnorm(self.final_norm, x, cfg.norm_eps)
         if n_prefix:
             x = x[:, n_prefix:]
@@ -368,6 +440,72 @@ class Model(nn.Module):
         x, a = decoder_layer_train(self.layers.layer(i), x, cfg, cos, sin)
         return x, aux if a is None else aux + a
 
+    # ----------------------------------------------------------- whisper
+    def _loss_whisper(self, batch: dict) -> torch.Tensor:
+        cfg = self.cfg
+        tokens, labels = batch["tokens"], batch["labels"]
+        mem = self._encode(batch["frames"])
+        x = self._embed(tokens) + _sinusoid(tokens.shape[1], cfg.d_model,
+                                            device=self.device).to(ACT_DTYPE)
+        for i in range(cfg.n_layers):
+            x = _recomputed(self._whisper_train_layer, i, x, mem)
+        x = L.rmsnorm(self.final_norm, x, cfg.norm_eps)
+        self.last_aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return L.chunked_softmax_xent(x, self._lm_head(), labels)
+
+    def _encode(self, frames: torch.Tensor) -> torch.Tensor:
+        """The encoder over ``frames`` (B, M, d) behind sinusoidal positions,
+        each layer recomputed in the backward; LayerNorm ``enc_norm`` last."""
+        cfg = self.cfg
+        x = frames.to(ACT_DTYPE) + _sinusoid(frames.shape[1], cfg.d_model,
+                                             device=self.device).to(ACT_DTYPE)
+        for i in range(cfg.enc_layers):
+            x = _recomputed(self._encoder_layer, i, x)
+        return L.layernorm(self.enc_norm, x, cfg.norm_eps)
+
+    def _encoder_layer(self, i: int, h: torch.Tensor) -> torch.Tensor:
+        cfg, lp = self.cfg, self.enc_layers.layer(i)
+        h = h + L.attention_train(lp["attn"], L.layernorm(lp["ln1"], h, cfg.norm_eps), cfg,
+                                  None, None, rope=False, causal=False)
+        return h + L.mlp_gelu(lp["mlp"], L.layernorm(lp["ln2"], h, cfg.norm_eps))
+
+    def _memory_kv(self, lp: dict, mem: torch.Tensor):
+        """A decoder layer's keys and values (B, M, nkv, hd) of the
+        encoding ``mem`` (B, M, d)."""
+        cfg = self.cfg
+        B, M = mem.shape[:2]
+        mk = L.linear(lp["xattn"]["wk"], mem).reshape(B, M, cfg.n_kv, cfg.hd)
+        mv = L.linear(lp["xattn"]["wv"], mem).reshape(B, M, cfg.n_kv, cfg.hd)
+        return mk, mv
+
+    def _cross_and_mlp(self, lp: dict, h: torch.Tensor, mk, mv) -> torch.Tensor:
+        """The rest of a decoder layer after its self-attention: the
+        cross-attention to the memory's keys and values, then the MLP."""
+        eps = self.cfg.norm_eps
+        h = h + L.cross_attention_train(lp["xattn"], L.layernorm(lp["lnx"], h, eps), (mk, mv),
+                                        self.cfg)
+        return h + L.mlp_gelu(lp["mlp"], L.layernorm(lp["ln2"], h, eps))
+
+    def _whisper_train_layer(self, i: int, h: torch.Tensor, mem: torch.Tensor) -> torch.Tensor:
+        """Decoder layer ``i`` over the whole sequence (causal), attending to
+        the encoding ``mem``: the unit the backward recomputes."""
+        cfg, lp = self.cfg, self.layers.layer(i)
+        h = h + L.attention_train(lp["attn"], L.layernorm(lp["ln1"], h, cfg.norm_eps), cfg,
+                                  None, None, rope=False, causal=True)
+        return self._cross_and_mlp(lp, h, *self._memory_kv(lp, mem))
+
+    def _whisper_prefill_layer(self, i: int, h: torch.Tensor, mem: torch.Tensor):
+        """Decoder layer ``i`` over the prompt; returns (h, its keys and
+        values, the memory's keys and values)."""
+        cfg, lp = self.cfg, self.layers.layer(i)
+        B, S_len = h.shape[:2]
+        q, k, v = L._qkv(lp["attn"], L.layernorm(lp["ln1"], h, cfg.norm_eps), cfg, None, None,
+                         rope=False)
+        o = L.flash_attention(q, k, v, causal=True)
+        h = h + L.linear(lp["attn"]["wo"], o.reshape(B, S_len, -1))
+        mk, mv = self._memory_kv(lp, mem)
+        return self._cross_and_mlp(lp, h, mk, mv), k, v, mk, mv
+
     # ----------------------------------------------------------- serve
     def init_cache(self, B: int, S_len: int, dtype=None) -> dict[str, torch.Tensor]:
         """A zeroed cache for ``B`` rows and ``S_len`` positions, in
@@ -377,7 +515,8 @@ class Model(nn.Module):
         ``hybrid``: the f32 ``ssm`` state ``(G, P, B, nh, hd, N)``, the
         ``conv`` carry ``(G, P, B, K - 1, inner + 2N)`` and the shared
         block's keys and values ``(G, B, S_len, nkv, hd)``, G groups of
-        P layers."""
+        P layers; ``audio``: also the memory's keys and values ``mem_k``,
+        ``mem_v`` ``(L, B, n_audio_ctx, nkv, hd)``."""
         cfg, dev = self.cfg, self.device
         dtype = dtype or ACT_DTYPE
         f32 = torch.float32
@@ -399,18 +538,26 @@ class Model(nn.Module):
                                   dtype),
                     "k": zeros(kv, dtype), "v": zeros(kv, dtype)}
         shape = (cfg.n_layers, B, S_len, cfg.n_kv, cfg.hd)
-        return {"k": zeros(shape, dtype), "v": zeros(shape, dtype)}
+        cache = {"k": zeros(shape, dtype), "v": zeros(shape, dtype)}
+        if cfg.family == "audio":
+            mem = (cfg.n_layers, B, cfg.n_audio_ctx, cfg.n_kv, cfg.hd)
+            cache.update(mem_k=zeros(mem, dtype), mem_v=zeros(mem, dtype))
+        return cache
 
     @torch.no_grad()
     def decode_step(self, cache: dict, tokens: torch.Tensor, pos):
         """tokens (B, 1); pos a scalar, the same for the whole batch.
         Writes the cache in place (slot ``pos`` of the keys and values,
         the recurrent state and carries, each cast to the cache's dtype);
-        returns (f32 logits (B, 1, V), the cache)."""
+        returns (f32 logits (B, 1, V), the cache).  ``audio`` attends to the
+        memory's keys and values in the cache, left as the prefill wrote
+        them."""
         cfg = self.cfg
         B = tokens.shape[0]
         x = self._embed(tokens)
         pos_t = torch.as_tensor(pos, device=self.device)
+        if cfg.family == "audio":
+            x = x + _sinusoid_at(pos_t, cfg.d_model, device=self.device).to(ACT_DTYPE)
         p1 = pos_t.reshape(1, 1).expand(B, 1)
         # M-RoPE: the raw position in all three streams, as the reference
         # decodes (its prefill gives text pos - P + 1)
@@ -431,6 +578,13 @@ class Model(nn.Module):
                         cache[k][g, j].copy_(st[k])
                 x, _ = decoder_layer_decode(shared, x, {"k": cache["k"][g], "v": cache["v"][g]},
                                             pos_t, cfg, cos, sin)
+        elif cfg.family == "audio":
+            for i in range(cfg.n_layers):
+                lp = self.layers.layer(i)
+                a, _ = L.attention_decode(
+                    lp["attn"], L.layernorm(lp["ln1"], x, cfg.norm_eps),
+                    {"k": cache["k"][i], "v": cache["v"][i]}, pos_t, cfg, None, None, rope=False)
+                x = self._cross_and_mlp(lp, x + a, cache["mem_k"][i], cache["mem_v"][i])
         else:
             for i in range(cfg.n_layers):
                 layer_cache = {"k": cache["k"][i], "v": cache["v"][i]}
@@ -446,9 +600,10 @@ class Model(nn.Module):
         ``init_cache`` lays it out: keys and values ``(L, B, P + S, nkv,
         hd)``; ``ssm`` the state and carries after the last position;
         ``hybrid`` those and the shared block's keys and values per group
-        ``(G, B, S, nkv, hd)``.  MoE layers route the call's ``B * (P +
-        S)`` tokens at once, so their capacity is that of the whole
-        prompt."""
+        ``(G, B, S, nkv, hd)``; ``audio`` (the prompt after the encoding of
+        ``batch["frames"]``) also the memory's keys and values per layer.
+        MoE layers route the call's ``B * (P + S)`` tokens at once, so
+        their capacity is that of the whole prompt."""
         cfg = self.cfg
         tokens = batch["tokens"]
         B = tokens.shape[0]
@@ -477,6 +632,15 @@ class Model(nn.Module):
                 vs.append(v)
             cache = {k: torch.stack([grp[k] for grp in groups]) for k in ("ssm", "conv")}
             cache.update(k=torch.stack(ks), v=torch.stack(vs))
+        elif cfg.family == "audio":
+            mem = self._encode(batch["frames"])
+            x = x + _sinusoid(x.shape[1], cfg.d_model, device=self.device).to(ACT_DTYPE)
+            parts = []
+            for i in range(cfg.n_layers):
+                x, *kv = self._whisper_prefill_layer(i, x, mem)
+                parts.append(kv)
+            cache = {key: torch.stack(leaf) for key, leaf in
+                     zip(("k", "v", "mem_k", "mem_v"), zip(*parts))}
         else:
             ks, vs = [], []
             for i in range(cfg.n_layers):

@@ -12,7 +12,8 @@ with both packages refused, and so do the ``"ref"`` engine and a ``"ref"``
 maintained handle, and the LM substrate's reduced qwen2-1.5b takes a
 train step and a decode step, the reduced moonshot-v1-16b-a3b (moe) a
 train step, the reduced qwen2-vl-7b (vlm), rwkv6-3b (ssm) and
-zamba2-2.7b (hybrid) a decode step each; the storage
+zamba2-2.7b (hybrid) a decode step each, and the reduced whisper-medium
+(audio) a loss and a decode step on its prefilled cache; the storage
 gate, the catalog verifier and the trainer run as ``python -m`` the same
 way), and the port's
 default engine refuses to run without a CUDA card instead of quietly
@@ -183,6 +184,21 @@ for arch in ("rwkv6-3b", "zamba2-2.7b"):
     rec_logits, _ = rec.decode_step(rec.init_cache(2, 4), lm_tokens[:, :1], 0)
     recurrent_decoded[arch] = (list(rec_logits.shape)
                                if bool(torch.isfinite(rec_logits).all()) else None)
+audio_cfg = get_config("whisper-medium", reduced=True)
+audio = get_model(audio_cfg, device="cpu").init(torch.Generator().manual_seed(4))
+frames = torch.tensor(rng.normal(size=(2, audio_cfg.n_audio_ctx, audio_cfg.d_model)),
+                      dtype=torch.float32)
+with torch.no_grad():
+    audio_loss = audio.loss({"tokens": lm_tokens[:, :-1], "labels": lm_tokens[:, 1:],
+                             "frames": frames})
+_, audio_prefilled = audio.prefill({"tokens": lm_tokens[:, :4], "frames": frames})
+audio_cache = audio.init_cache(2, 5)
+for key, t in audio_prefilled.items():
+    if key in ("k", "v"):
+        audio_cache[key][:, :, :4] = t
+    else:
+        audio_cache[key].copy_(t)
+audio_logits, _ = audio.decode_step(audio_cache, lm_tokens[:, 4:5], 4)
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in {"jax", "jaxlib", "repro"})
 print(json.dumps({"rows": res.num_rows, "n": float(res.column("n").sum()),
                   "split": split.split is not None,
@@ -205,7 +221,10 @@ print(json.dumps({"rows": res.num_rows, "n": float(res.column("n").sum()),
                   else None, "moe_loss": float(moe_loss), "moe_aux": float(moe.last_aux),
                   "moe_step": int(moe_opt["step"]),
                   "vlm_decoded": list(vlm_logits.shape) if bool(torch.isfinite(vlm_logits).all())
-                  else None, "recurrent_decoded": recurrent_decoded, "loaded": loaded}))
+                  else None, "recurrent_decoded": recurrent_decoded,
+                  "audio_loss": float(audio_loss),
+                  "audio_decoded": list(audio_logits.shape)
+                  if bool(torch.isfinite(audio_logits).all()) else None, "loaded": loaded}))
 """
 
 
@@ -241,6 +260,8 @@ def test_port_answers_a_query_with_jax_and_repro_refused():
     assert out["moe_step"] == 1
     assert out["vlm_decoded"] == [2, 1, 512]
     assert out["recurrent_decoded"] == {"rwkv6-3b": [2, 1, 512], "zamba2-2.7b": [2, 1, 512]}
+    assert 0 < out["audio_loss"] < 2.5 * np.log(512)
+    assert out["audio_decoded"] == [2, 1, 512]
 
 
 # the same refusal, then one of the port's launchers run as ``python -m``
@@ -295,7 +316,8 @@ def _imported_modules(path: Path) -> list[str]:
 @pytest.mark.parametrize(
     "path",
     sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "tools" / "walk_sweep.py",
-                                  REPO / "tools" / "decode_drift.py"],
+                                  REPO / "tools" / "decode_drift.py",
+                                  REPO / "tools" / "step_profile.py"],
     ids=lambda p: str(p.relative_to(REPO)),
 )
 def test_no_source_imports_jax_or_repro(path):

@@ -434,8 +434,11 @@ def test_a_resumed_run_continues_the_uninterrupted_one(tmp_path):
 
 
 def test_families_not_ported_stop_the_launcher():
-    with pytest.raises(NotImplementedError, match="audio"):
-        train.main(["--arch", "whisper-medium", "--steps", "1", *ARGS])
+    """No family stops the launcher now: the reduced whisper-medium (audio,
+    the last ported) takes a step on the CPU behind its zero frames."""
+    run = train.main(["--arch", "whisper-medium", "--steps", "1", *ARGS])
+    assert run["arch"] == "whisper-medium" and run["steps"] == [0]
+    assert np.isfinite(run["losses"][0]) and np.isfinite(run["grad_norms"][0])
 
 
 @pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "qwen2-vl-7b"])

@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
-"""Decode against prefill for the recurrent LM families on one CUDA card,
-by depth and activation dtype.
+"""Decode against prefill for the recurrent and audio LM families on one
+CUDA card, by depth and activation dtype.
 
     python3 tools/decode_drift.py [--seed 0] [--arch rwkv6-3b zamba2-2.7b]
                                   [--depths 2 8 16 32] [--dtypes bf16 f32]
 
 Run from the root of a checkout.  For each arch at full width and each
-depth (``n_layers``; all of the config's layers by default), with random
-parameters from ``--seed``: a prompt of 4 x (4,096 - D) tokens is
-prefilled, D = the config's chunk more are decoded from its state, and
-the last decode's logits are compared with a prefill of all 4,096
-(``chip_smoke.prefill_and_decode``, the same steps as leg 20's check).
+depth (``n_layers``, and whisper's ``enc_layers`` with it; all of the
+config's layers by default), with random parameters from ``--seed``: a
+prompt of 4 x (4,096 - D) tokens (whisper-medium: behind seeded normal
+frames) is prefilled, D more are decoded from its cache (the config's
+chunk; 8 for whisper-medium), and the last decode's logits are compared
+with a prefill of all 4,096 (``chip_smoke.prefill_and_decode``, the same
+steps as the checks of legs 20 and 21).
 It prints the largest |difference| and the largest |logit| per depth and
 dtype (f32 with TF32 off), beside the reference's bound for bf16
 activations, 0.15.  Nothing is held: this measures how far bf16 rounding
@@ -36,7 +38,6 @@ def main() -> int:
                     help="n_layers to run (default: the config's own)")
     ap.add_argument("--dtypes", nargs="+", default=["bf16", "f32"], choices=["bf16", "f32"])
     args = ap.parse_args()
-    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -55,17 +56,16 @@ def main() -> int:
         for arch in args.arch:
             published = get_config(arch)
             for depth in args.depths or [published.n_layers]:
-                cfg = published.scaled(n_layers=depth)
-                model = t_model.get_model(cfg, "cuda").init(
-                    torch.Generator("cuda").manual_seed(args.seed))
-                D = cfg.ssm.chunk
-                rng = np.random.default_rng(args.seed)
-                toks = torch.tensor(rng.integers(0, cfg.vocab, (cs.TRAIN_BATCH, cs.TRAIN_SEQ)),
-                                    dtype=torch.int32, device="cuda")
+                audio = published.family == "audio"
+                cfg = published.scaled(n_layers=depth, **({"enc_layers": depth} if audio else {}))
+                gen = torch.Generator("cuda").manual_seed(args.seed)
+                model = t_model.get_model(cfg, "cuda").init(gen)
+                D = cs.DECODE_STEPS if audio else cfg.ssm.chunk
+                batch = cs.serve_batch(torch, cfg, gen, args.seed)
                 for name in args.dtypes:
                     t_model.ACT_DTYPE = dtypes[name]
-                    _, _, logits = cs.prefill_and_decode(torch, model, toks, cs.TRAIN_SEQ - D, D)
-                    full, _ = model.prefill({"tokens": toks})
+                    _, _, logits = cs.prefill_and_decode(torch, model, batch, cs.TRAIN_SEQ - D, D)
+                    full, _ = model.prefill(batch)
                     err = float((logits - full).abs().max())
                     print(f"decode_drift: {arch} n_layers {depth}, {name} activations: the last "
                           f"of {D} decoded logits vs a prefill of all {cs.TRAIN_SEQ}: largest "
