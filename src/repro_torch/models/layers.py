@@ -16,8 +16,10 @@ in the reference:
   (``scaled_dot_product_attention``, cuDNN) stands in for it: those sum
   in another order and are not what the reference computes.
 
-The reference's ``shard_ctx.constrain`` calls are sharding hints that are
-the identity on one device; the port leaves them out until the mesh slice.
+The reference's ``shard_ctx.constrain`` calls pin activation layouts for
+GSPMD; the port's meshed train step lays them out by construction, so
+its ``shard_ctx.constrain`` is the identity and the call sites are left
+out (``models/shard_ctx.py``).
 """
 from __future__ import annotations
 
@@ -308,8 +310,21 @@ def moe_block(p, x: torch.Tensor, cfg) -> tuple[torch.Tensor, torch.Tensor]:
     Switch load-balancing term ``E * Σ_e frac_e * mean_prob_e``, f32.
 
     The reference's single-device path, in plain PyTorch (it computes this
-    outside any Pallas kernel); its expert-parallel ``moe_ep.py`` path
-    waits for the mesh (ROADMAP.md §1, item 5)."""
+    outside any Pallas kernel).  With a mesh installed (``shard_ctx``) and
+    the experts divisible by its data axis, dispatch runs expert-parallel
+    over ``all_to_all`` (``moe_ep.py``), under the reference's four
+    conditions; ``p`` then holds this rank's experts."""
+    from repro_torch.models import shard_ctx as _ctx
+
+    if (
+        _ctx._MESH is not None
+        and _ctx._MODE in ("all", "ep")
+        and "data" in _ctx._MESH.axis_names
+        and cfg.moe.n_experts % _ctx._MESH.shape["data"] == 0
+    ):
+        from repro_torch.models.moe_ep import moe_block_ep
+
+        return moe_block_ep(p, x, cfg)
     T, d = x.shape
     E, k = cfg.moe.n_experts, cfg.moe.top_k
     r = moe_route(p, x, cfg)

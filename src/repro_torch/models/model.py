@@ -37,9 +37,10 @@ scales do not), the checkpoint's leaf names and the converter
 * ``decode_step(cache, tokens, pos)`` -- one token for the whole batch
 * ``init_cache(B, S)`` -- a zeroed cache of the family's layout
 
-The reference's ``shard_ctx.constrain`` hints are the identity on one
-device and are left out until the mesh slice, with its expert-parallel
-``moe_ep.py``.
+The reference's ``shard_ctx.constrain`` hints are left out: the port's
+meshed train step (``launch/train.py:build_train_step(mesh=)``) lays
+activations out by construction, and ``moe_block`` takes the
+expert-parallel ``moe_ep.py`` whenever a mesh is installed.
 """
 from __future__ import annotations
 
@@ -226,18 +227,20 @@ _INIT_CONSTANT = {"scale": 1.0, "b": 0.0, "bias": 0.0, "mu": 0.5, "w0": -6.0, "u
 _INIT_SCALE = {"wa": 0.01, "wb": 0.01, "conv_w": 0.1}
 
 
-@torch.no_grad()
-def _init_tree(tree: dict, generator: torch.Generator) -> None:
-    """Fills ``tree``'s leaves in its order (``Tree.tree``: sub-trees, then
-    parameters, each as registered)."""
+def _draws(tree: dict, generator: torch.Generator, prefix: str):
+    """``(dotted name, whole value)`` of ``tree``'s leaves in its order
+    (``Tree.tree``: sub-trees, then parameters, each as registered), each
+    drawn when the previous one has been taken, on the generator's device."""
+    dev = generator.device
     for k, p in tree.items():
+        name = prefix + k
         if isinstance(p, dict):
-            _init_tree(p, generator)
+            yield from _draws(p, generator, name + ".")
         elif k in _INIT_CONSTANT:
-            p.fill_(_INIT_CONSTANT[k])
+            yield name, torch.full(p.shape, _INIT_CONSTANT[k], device=dev)
         else:
             scale = _INIT_SCALE.get(k, p.shape[-2] ** -0.5)
-            p.copy_(torch.randn(p.shape, generator=generator, device=p.device) * scale)
+            yield name, torch.randn(p.shape, generator=generator, device=dev) * scale
 
 
 def _recomputed(fn, *args):
@@ -339,26 +342,42 @@ class Model(nn.Module):
 
     # ----------------------------------------------------------- init
     @torch.no_grad()
-    def init(self, generator: torch.Generator) -> "Model":
+    def init(self, generator: torch.Generator, keep=None) -> "Model":
         """Fills every parameter from ``generator`` (on the model's device)
         with the reference's distributions: normal draws scaled by
         ``fan_in ** -0.5`` (the embedding and untied head by ``d ** -0.5``;
         the MoE router and ``wg``/``wu`` by ``d ** -0.5``, ``wd`` by ``f **
         -0.5``), norm scales one, biases (LayerNorm biases too) zero, the
         recurrent layers' constants and scaled draws as ``_INIT_CONSTANT``
-        and ``_INIT_SCALE`` list them.  Returns the model."""
-        cfg, dev = self.cfg, self.device
+        and ``_INIT_SCALE`` list them.  Returns the model.
+
+        With ``keep(name, whole)``, each parameter is replaced by what
+        ``keep`` returns of its whole value, leaf by leaf in the same draw
+        order (a rank of a mesh keeps its block: ``launch/train.py:
+        shard_model``); the model may then start on the meta device."""
+        cfg, dev = self.cfg, generator.device
         d, V = cfg.d_model, cfg.vocab
-        self.embed.copy_(L.dense_init(generator, V, d, scale=d**-0.5, device=dev))
+
+        def put(name: str, whole: torch.Tensor) -> None:
+            if keep is None:
+                self.get_parameter(name).copy_(whole)
+                return
+            owner, _, leaf = name.rpartition(".")
+            module = self.get_submodule(owner) if owner else self
+            module._parameters[leaf] = nn.Parameter(keep(name, whole))
+
+        put("embed", L.dense_init(generator, V, d, scale=d**-0.5, device=dev))
         if not cfg.tie_embeddings:
-            self.lm_head.copy_(L.dense_init(generator, d, V, device=dev))
-        self.final_norm["scale"].fill_(1.0)
-        _init_tree(self.layers.tree(), generator)
+            put("lm_head", L.dense_init(generator, d, V, device=dev))
+        put("final_norm.scale", torch.ones((d,), device=dev))
+        trees = [("layers.", self.layers.tree())]
         if cfg.family == "hybrid":
-            _init_tree(self.shared.tree(), generator)
+            trees.append(("shared.", self.shared.tree()))
         if cfg.family == "audio":
-            _init_tree(self.enc_layers.tree(), generator)
-            _init_tree(dict(self.enc_norm), generator)
+            trees += [("enc_layers.", self.enc_layers.tree()), ("enc_norm.", dict(self.enc_norm))]
+        for prefix, tree in trees:
+            for name, whole in _draws(tree, generator, prefix):
+                put(name, whole)
         return self
 
     # ----------------------------------------------------------- helpers

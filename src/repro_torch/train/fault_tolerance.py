@@ -6,10 +6,9 @@ Port of the JAX package's ``train/fault_tolerance.py``:
   detection;
 * :class:`PreemptionHandler` -- a SIGTERM watcher; the train loop polls
   ``should_stop`` and checkpoints before it exits;
-* :func:`run_with_retries` -- a retry wrapper for transient failures.
-
-The reference's ``elastic_reshard`` (a restored state put onto a new
-device mesh) waits for the mesh slice (ROADMAP.md §1).
+* :func:`run_with_retries` -- a retry wrapper for transient failures;
+* :func:`elastic_reshard` -- a restored state put onto a new mesh
+  (``launch/mesh.py``): each rank keeps its block of every leaf.
 """
 from __future__ import annotations
 
@@ -80,3 +79,18 @@ def run_with_retries(fn: Callable, retries: int = 3, backoff: float = 0.5):
                 break
             time.sleep(backoff * (2**attempt))
     raise err
+
+
+def elastic_reshard(tree, mesh, spec_fn):
+    """``tree`` (nested dicts, lists and tuples of whole leaves, tensors or
+    numpy arrays) with each leaf replaced by this rank's block
+    (``launch/sharding.py:shard_of``) under ``spec_fn(path, leaf)``, a
+    tensor on the mesh's device; ``path`` is the tuple of keys and indices
+    that leads to the leaf.  Used after restoring a checkpoint on another
+    mesh (grow or shrink between restarts)."""
+    from repro_torch.launch.sharding import shard_of
+    from repro_torch.train.checkpoint import _flatten, _unflatten
+
+    out = [shard_of(leaf, spec_fn(path, leaf), mesh).to(mesh.device)
+           for path, leaf in _flatten(tree)]
+    return _unflatten(tree, iter(out))

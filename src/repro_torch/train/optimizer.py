@@ -58,21 +58,41 @@ def adamw_init(params: dict[str, torch.Tensor]) -> dict:
     }
 
 
-def global_norm(tensors: dict[str, torch.Tensor]) -> torch.Tensor:
-    """The f32 L2 norm over every tensor, summed leaf by leaf in order."""
-    return torch.sqrt(torch.stack([torch.sum(torch.square(t.float()))
-                                   for t in tensors.values()]).sum())
+def global_norm(tensors: dict[str, torch.Tensor], mesh=None, specs=None) -> torch.Tensor:
+    """The f32 L2 norm over every tensor, summed leaf by leaf in order.
+
+    On a mesh (``launch/mesh.py``) each tensor is this rank's block of its
+    leaf under ``specs[name]`` (``launch/sharding.py``), and every element
+    counts once: a block held by several ranks (the spec leaves out a mesh
+    axis, as ``()`` or a ``data``-only spec do) counts on the rank at
+    coordinate 0 of every axis it leaves out, and the squares are summed
+    over the mesh."""
+    squares = [torch.sum(torch.square(t.float())) for t in tensors.values()]
+    if mesh is None:
+        return torch.sqrt(torch.stack(squares).sum())
+    from repro_torch.launch.mesh import all_reduce
+    from repro_torch.launch.sharding import named_axes
+
+    counted = []
+    for name, sq in zip(tensors, squares):
+        named = named_axes(specs[name])
+        first = all(mesh.coords[a] == 0 for a in mesh.axis_names if a not in named)
+        counted.append(sq if first else torch.zeros_like(sq))
+    return torch.sqrt(all_reduce(torch.stack(counted).sum(), mesh.group))
 
 
 @torch.no_grad()
 def adamw_update(params: dict[str, torch.Tensor], grads: dict[str, torch.Tensor],
-                 state: dict, cfg: AdamWConfig) -> dict[str, torch.Tensor]:
+                 state: dict, cfg: AdamWConfig, mesh=None, specs=None) -> dict[str, torch.Tensor]:
     """One AdamW step on ``params`` (by name) from ``grads``, clipped to
     ``clip_norm`` by their global norm; the learning rate is the schedule
     at the incremented step.  Updates ``params`` and ``state`` in place
-    and returns ``{"grad_norm", "lr"}`` as device scalars."""
+    and returns ``{"grad_norm", "lr"}`` as device scalars.  On a mesh the
+    tensors are this rank's blocks under ``specs``: the update is
+    elementwise but for the norm, which counts every element once
+    (:func:`global_norm`)."""
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, mesh, specs)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     lr = schedule(cfg, step)
     b1c = 1 - cfg.b1 ** step.float()

@@ -12,8 +12,9 @@ with both packages refused, and so do the ``"ref"`` engine and a ``"ref"``
 maintained handle, and the LM substrate's reduced qwen2-1.5b takes a
 train step and a decode step, the reduced moonshot-v1-16b-a3b (moe) a
 train step, the reduced qwen2-vl-7b (vlm), rwkv6-3b (ssm) and
-zamba2-2.7b (hybrid) a decode step each, and the reduced whisper-medium
-(audio) a loss and a decode step on its prefilled cache; the storage
+zamba2-2.7b (hybrid) a decode step each, the reduced whisper-medium
+(audio) a loss and a decode step on its prefilled cache, and the reduced
+moonshot a sharded step on a one-rank mesh of a gloo group; the storage
 gate, the catalog verifier and the trainer run as ``python -m`` the same
 way), and the port's
 default engine refuses to run without a CUDA card instead of quietly
@@ -199,6 +200,21 @@ for key, t in audio_prefilled.items():
     else:
         audio_cache[key].copy_(t)
 audio_logits, _ = audio.decode_step(audio_cache, lm_tokens[:, 4:5], 4)
+import shutil
+import tempfile
+import torch.distributed as dist
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.launch.train import shard_model
+
+store = tempfile.mkdtemp()
+dist.init_process_group("gloo", init_method=f"file://{store}/store", rank=0, world_size=1)
+one_rank = make_mesh((1, 1), ("data", "model"), device="cpu")
+meshed_moe = shard_model(moe_cfg, one_rank, torch.Generator().manual_seed(1))
+meshed_opt = adamw_init(meshed_moe.params())
+meshed_loss, _ = build_train_step(meshed_moe, AdamWConfig(), mesh=one_rank)(
+    meshed_opt, {"tokens": lm_tokens[:, :-1], "labels": lm_tokens[:, 1:]})
+dist.destroy_process_group()
+shutil.rmtree(store)
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in {"jax", "jaxlib", "repro"})
 print(json.dumps({"rows": res.num_rows, "n": float(res.column("n").sum()),
                   "split": split.split is not None,
@@ -222,7 +238,8 @@ print(json.dumps({"rows": res.num_rows, "n": float(res.column("n").sum()),
                   "moe_step": int(moe_opt["step"]),
                   "vlm_decoded": list(vlm_logits.shape) if bool(torch.isfinite(vlm_logits).all())
                   else None, "recurrent_decoded": recurrent_decoded,
-                  "audio_loss": float(audio_loss),
+                  "audio_loss": float(audio_loss), "meshed_loss": float(meshed_loss),
+                  "meshed_step": int(meshed_opt["step"]),
                   "audio_decoded": list(audio_logits.shape)
                   if bool(torch.isfinite(audio_logits).all()) else None, "loaded": loaded}))
 """
@@ -258,6 +275,10 @@ def test_port_answers_a_query_with_jax_and_repro_refused():
     assert out["lm_decoded"] == [2, 1, 512]
     assert 0 < out["moe_loss"] < 2.5 * np.log(512) and out["moe_aux"] > 0
     assert out["moe_step"] == 1
+    # one sharded step on a one-rank mesh: the expert-parallel path, the
+    # unsharded step's loss up to the bf16 model sum
+    assert out["meshed_step"] == 1
+    assert abs(out["meshed_loss"] - out["moe_loss"]) <= 1e-3 * out["moe_loss"]
     assert out["vlm_decoded"] == [2, 1, 512]
     assert out["recurrent_decoded"] == {"rwkv6-3b": [2, 1, 512], "zamba2-2.7b": [2, 1, 512]}
     assert 0 < out["audio_loss"] < 2.5 * np.log(512)
