@@ -356,41 +356,54 @@ Run from the root of a checkout on a machine with a CUDA card.  It
    18's bounds.  None of the five kernels may launch.  The leg must take
    at most 35 s inside the script.
 22. drives the mesh leg, the LM substrate's mesh on ``torch.distributed``
-   (``launch/{mesh,sharding}.py``, ``models/moe_ep.py``,
+   (``launch/{mesh,sharding}.py``, ``models/{shard_ctx,moe_ep}.py``,
    ``train/compression.py``, ``build_train_step(mesh=)``): one group of 4
    ranks, each a process that ``multiprocessing`` spawns, mesh (data 2,
    model 2); NCCL for the card's tensors with 4 or more cards, else gloo
    with the 4 ranks sharing the card (gloo moves every collective through
-   the host).  (a) reduced qwen2-1.5b and reduced moonshot-v1-16b-a3b,
-   ``MESH_STEPS`` sharded f32 steps each (TF32 off) on 4 x 32 tokens, on
-   the card and then on the CPU in the same ranks, from the same
-   parameters (drawn on the host): losses, norms and every rank's blocks
-   within leg 18's bounds for qwen2-1.5b (a block's elements beyond 1e-4
-   only where |g| <= 1e-4, on at most ``FLIP_SHARE``, and within 2 x Σ lr
+   the host).  The sharded step computes the dense layers over ``model``
+   where the reference's pins cut them (``train.leaf_layouts``: the
+   attention's heads, the MLPs' hidden width, the vocabulary of the
+   embedding, the head and the cross-entropy) and gathers a leaf over
+   ``model`` only where its layer runs whole.  (a) the reduced configs of
+   ``MESH_CHECK`` (qwen2-1.5b, moonshot-v1-16b-a3b, qwen2-vl-7b, rwkv6-3b,
+   zamba2-2.7b, whisper-medium, minitron-4b, whose 3 heads keep the
+   attention whole, and qwen2-1.5b at a vocabulary of 511, whose head
+   stays whole; the vlm and audio batches behind seeded patches and
+   frames), ``MESH_STEPS`` sharded f32 steps each (TF32 off) on 4 x 32
+   tokens, on the card and then on the CPU in the same ranks, from the
+   same parameters (drawn on the host): losses, norms and every rank's
+   blocks within leg 18's bounds (a block's elements beyond 1e-4 only
+   where |g| <= 1e-4, on at most ``FLIP_SHARE``, and within 2 x Σ lr
    everywhere), within the ``EP_*`` bounds for moonshot (the bf16
    ``model`` sum and bf16 gate sums: gradients agree to bf16), each
    rank's CPU routing margin above ``ROUTE_MARGIN`` first, AdamW's
    moments' elements beyond 1e-4 printed, and ``moe_block_ep`` taken for
-   the MoE config only; (b) moonshot-v1-16b-a3b at full width and 2 of its 48 layers,
-   ``MESH_STEPS`` sharded bf16 steps of 4 x 1,024 tokens (2 sequences a
-   data rank): each rank's ms a step, peak, parameters held and
-   ``all_to_all`` bytes (the expert exchanges, counted in
-   ``moe_ep.all_to_all``: forward, recompute and backward) beside the
-   forward's predicted 2 x E x C x d x 2 B; every rank's loss finite and
-   equal; rank 0 samples ``MESH_SAMPLE`` seeded elements of every gathered
-   leaf; after the ranks exit, the parent runs the unsharded step with
-   ``accum = 2`` from the same seed on the same batches and holds losses,
-   norms and samples to ``MESH_*`` bounds (the bf16 ``model`` sum is the
-   only expected gap); (c) ``compressed_psum_tree`` over the data group
-   on each rank's local gradients of (a)'s reduced qwen2-1.5b, within the
-   int8 bound of the plain all-reduce, timed beside it; (a)'s reduced
-   qwen2-1.5b saved from the 4 ranks (``Checkpointer.save(shardings=)``),
-   restored by the parent as one rank bit for bit, and its next step
-   (``accum = 2``) equal to the 4-rank run's within leg 18's f32 bounds.
-   None of the five kernels may launch, in the parent or a rank.  The leg
-   took 58.5–78.3 s inside the script on an H100, most of it gloo moving the
-   dense leaves and their gradients through the host; the storage and
-   maintain legs were cut to make room.
+   the MoE config only; (b) each config of ``MESH_ARCHS`` at full width
+   and cut depth, moonshot-v1-16b-a3b at 2 of its 48 layers and
+   qwen2-1.5b at 2 of its 28, ``MESH_STEPS`` sharded bf16 steps of 4 x
+   1,024 tokens (2 sequences a data rank): each rank's ms a step, peak,
+   parameters held, the dense elements it computes with beside the whole
+   leaves' (``train.dense_held``), the bytes its gathers returned a step,
+   the ``model`` sums' and every other collective's seconds and bytes by
+   kind, and for moonshot the ``all_to_all`` bytes (the expert exchanges,
+   counted in ``moe_ep.all_to_all``: forward, recompute and backward)
+   beside the forward's predicted 2 x E x C x d x 2 B; every rank's loss
+   finite and equal; each rank samples ``MESH_SAMPLE`` seeded elements
+   of every leaf its blocks hold; after the ranks exit, the parent runs
+   the unsharded step with ``accum = 2`` from the same seed on the same
+   batches and holds losses, norms and samples to ``MESH_*`` bounds (the
+   ``model`` sums' bf16 roundings are the only expected gap); (c)
+   ``compressed_psum_tree`` over the data group on each rank's local
+   gradients of (a)'s reduced qwen2-1.5b, within the int8 bound of the
+   plain all-reduce, timed beside it; (a)'s reduced qwen2-1.5b saved from
+   the 4 ranks (``Checkpointer.save(shardings=)``), restored by the parent
+   as one rank bit for bit, and its next step (``accum = 2``) equal to the
+   4-rank run's within leg 18's f32 bounds.  None of the five kernels may
+   launch, in the parent or a rank.  With moonshot alone and every dense
+   leaf gathered whole the leg took 58.5–78.3 s inside the script on an
+   H100, most of it gloo moving the dense leaves and their gradients
+   through the host; the storage and maintain legs were cut to make room.
 
 Every leg prints its ``torch path:`` line — per key range for the split
 leg — and checks the path each run took against ``choose_path``: a dense
@@ -5157,15 +5170,22 @@ def audio_serve(torch, tag, args, cfg) -> dict:
 # ----------------------------------------------------------------------
 
 MESH_SHAPE, MESH_AXES = (2, 2), ("data", "model")
-MESH_ARCH, MESH_LAYERS = "moonshot-v1-16b-a3b", 2  # full width, 2 of 48 layers
+# (b): full width, depth cut: moonshot-v1-16b-a3b at 2 of its 48 layers
+# (the attention's heads and the vocabulary cut over model, the experts
+# expert-parallel), qwen2-1.5b at 2 of its 28 (the heads, the SwiGLU MLP
+# and the tied 151,936-row head cut)
+MESH_ARCHS = {"moonshot-v1-16b-a3b": 2, "qwen2-1.5b": 2}
 MESH_ROWS, MESH_SEQ, MESH_STEPS = 4, 1024, 2  # 2 sequences a data rank
 MESH_SEED = 0
 MESH_SAMPLE = 1024  # elements sampled from every gathered leaf
 MESH_TIMEOUT_S = 300
-# (a): the reduced configs' seeds and batch; seed 8 keeps reduced
-# moonshot's routing margin at 3.8e-4 over both steps of 4 x 32 tokens
-# on the CPU (tests/test_torch_lm_mesh.py)
-MESH_CHECK = {"qwen2-1.5b": 2, "moonshot-v1-16b-a3b": 8}
+# (a): the reduced configs' seeds and batch, tests/test_torch_lm_mesh.py's
+# cases (a case "<arch>@vocab<V>" is the reduced config scaled to a
+# vocabulary of V: 511 leaves qwen2-1.5b's head whole); seed 8 keeps
+# reduced moonshot's routing margin at 3.8e-4 over both steps of 4 x 32
+# tokens on the CPU
+MESH_CHECK = {"qwen2-1.5b": 2, "moonshot-v1-16b-a3b": 8, "qwen2-vl-7b": 2, "rwkv6-3b": 2,
+              "zamba2-2.7b": 2, "whisper-medium": 2, "minitron-4b": 2, "qwen2-1.5b@vocab511": 2}
 MESH_CHECK_ROWS, MESH_CHECK_SEQ = 4, 32
 MESH_LR = {"lr": 1e-3, "warmup_steps": 1, "total_steps": 4}
 FLIP_SHARE = 1e-3
@@ -5222,6 +5242,32 @@ def mesh_rank(rank: int, world: int, out_dir: str, job: dict) -> None:
         raise
 
 
+def mesh_check_cfg(case: str):
+    """The reduced config of a ``MESH_CHECK`` case."""
+    from repro_torch.configs import get_config
+
+    arch, _, vocab = case.partition("@vocab")
+    cfg = get_config(arch, reduced=True)
+    return cfg.scaled(vocab=int(vocab)) if vocab else cfg
+
+
+def mesh_batch(torch, cfg, rows: int, seq: int, step: int, dev) -> dict:
+    """The pipeline's batch at ``step``, and for the vlm and audio families
+    step ``step``'s seeded normal f32 patches or frames (the CPU tests'
+    stubs), on ``dev``."""
+    import numpy as np
+
+    from repro_torch.train.pipeline import DataPipeline, PipelineConfig
+
+    b = DataPipeline(PipelineConfig(cfg.vocab, seq, rows)).local_batch_at(step)
+    rng = np.random.default_rng([31, step])
+    if cfg.family == "vlm":
+        b["patches"] = rng.normal(size=(rows, cfg.vision_patches, cfg.d_model)).astype(np.float32)
+    if cfg.family == "audio":
+        b["frames"] = rng.normal(size=(rows, cfg.n_audio_ctx, cfg.d_model)).astype(np.float32)
+    return {k: torch.tensor(v, device=dev) for k, v in b.items()}
+
+
 def mesh_sample_index(numel: int, seed: int, i: int):
     """``MESH_SAMPLE`` seeded flat positions in leaf ``i`` (name order)."""
     import numpy as np
@@ -5265,8 +5311,9 @@ def mesh_local_sample(torch, block, spec: tuple, shape: tuple, mesh, seed: int,
 def timed_collectives(modules: list, totals: dict):
     """Wraps ``all_gather``, ``all_reduce`` and ``all_to_all`` where each
     of ``modules`` imported them, adding each call's seconds (to its
-    return, the host copies included) and its input's bytes to
-    ``totals[name]``; returns a function that puts the originals back."""
+    return, the host copies included), its input's bytes, one call and
+    its output's bytes to ``totals[name]``; returns a function that puts
+    the originals back."""
     saved = []
     for module in modules:
         for name in ("all_gather", "all_reduce", "all_to_all"):
@@ -5277,10 +5324,11 @@ def timed_collectives(modules: list, totals: dict):
             def timed(t, *a, _fn=fn, _name=name, **kw):
                 t0 = time.perf_counter()
                 out = _fn(t, *a, **kw)
-                row = totals.setdefault(_name, [0.0, 0, 0])
+                row = totals.setdefault(_name, [0.0, 0, 0, 0])
                 row[0] += time.perf_counter() - t0
                 row[1] += t.numel() * t.element_size()
                 row[2] += 1
+                row[3] += out.numel() * out.element_size()
                 return out
 
             saved.append((module, name, fn))
@@ -5321,7 +5369,8 @@ def mesh_rank_run(torch, rank: int, job: dict) -> dict:
     from repro_torch.launch import sharding as shd
     from repro_torch.launch import train
     from repro_torch.launch.mesh import all_gather, all_reduce, make_mesh
-    from repro_torch.models import convert, moe_ep
+    from repro_torch.models import convert, moe_ep, shard_ctx
+    from repro_torch.models import layers as t_layers
     from repro_torch.models import model as t_model
     from repro_torch.train import compression
     from repro_torch.train.checkpoint import Checkpointer
@@ -5345,10 +5394,7 @@ def mesh_rank_run(torch, rank: int, job: dict) -> dict:
     coords = meshes["cuda"].coords
 
     def batch_of(cfg, rows, seq, step, dev):
-        from repro_torch.train.pipeline import DataPipeline, PipelineConfig
-
-        b = DataPipeline(PipelineConfig(cfg.vocab, seq, rows)).local_batch_at(step)
-        return {k: torch.tensor(v, device=dev) for k, v in b.items()}
+        return mesh_batch(torch, cfg, rows, seq, step, dev)
 
     seconds["meshes"] = time.perf_counter() - t_rank
 
@@ -5360,7 +5406,7 @@ def mesh_rank_run(torch, rank: int, job: dict) -> dict:
     runs = {}
     try:
         for arch, seed in MESH_CHECK.items():
-            cfg = get_config(arch, reduced=True)
+            cfg = mesh_check_cfg(arch)
             row = {}
             for dev, mesh in meshes.items():
                 calls["n"] = 0
@@ -5371,7 +5417,8 @@ def mesh_rank_run(torch, rank: int, job: dict) -> dict:
                 step = train.build_train_step(model, acfg, mesh=mesh)
                 losses, norms, comm = [], [], {}
                 restore = timed_collectives(
-                    [moe_ep, shd, train, sys.modules["repro_torch.launch.mesh"]], comm)
+                    [moe_ep, shd, train, shard_ctx, t_layers,
+                     sys.modules["repro_torch.launch.mesh"]], comm)
                 t1 = time.perf_counter()
                 try:
                     with RouteLog() as routes:
@@ -5456,56 +5503,66 @@ def mesh_rank_run(torch, rank: int, job: dict) -> dict:
     # (b) full width, bf16 activations as shipped ---------------------------
     import gc
 
-    gc.collect()
-    torch.cuda.empty_cache()
     mesh = meshes["cuda"]
-    cfg = get_config(MESH_ARCH).scaled(n_layers=MESH_LAYERS)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    model = train.shard_model(cfg, mesh, torch.Generator("cuda").manual_seed(MESH_SEED))
-    opt = adamw_init(model.params())
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    held = sum(p.numel() for p in model.params().values())
-    step = train.build_train_step(model, acfg, mesh=mesh)
-    losses, norms, ms, peaks, per_step = [], [], [], [], []
-    exchanged: dict = {}  # the expert exchanges (moe_ep's all_to_all)
-    comm: dict = {}  # every collective of the step, by kind
-    restore = [timed_collectives([moe_ep], exchanged),
-               timed_collectives([shd, train, sys.modules["repro_torch.launch.mesh"]], comm)]
-    try:
-        for s in range(MESH_STEPS):
-            batch = batch_of(cfg, MESH_ROWS, MESH_SEQ, s, "cuda")
-            torch.cuda.reset_peak_memory_stats()
-            calls["n"] = 0
-            before_bytes = exchanged.get("all_to_all", [0, 0, 0])[1]
-            t0 = time.perf_counter()
-            loss, m = step(opt, batch)
-            losses.append(float(loss))
-            ms.append((time.perf_counter() - t0) * 1e3)
-            norms.append(float(m["grad_norm"]))
-            peaks.append(torch.cuda.max_memory_allocated())
-            per_step.append(exchanged["all_to_all"][1] - before_bytes)
-    finally:
-        for fn in restore:
-            fn()
-    ep_calls = calls["n"]
-    seconds["b_steps"] = sum(ms) / 1e3
-    t0 = time.perf_counter()
-    # a seeded sample of every leaf, each rank the elements its blocks hold
-    specs = train.param_specs(cfg, mesh)
-    shapes = convert.param_shapes(cfg)
-    sample = {name: mesh_local_sample(torch, p.detach(), specs[name], shapes[name], mesh,
-                                      MESH_SEED, i)
-              for i, (name, p) in enumerate(sorted(model.params().items()))}
+    out["b"] = {}
+    for arch, layers in MESH_ARCHS.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = get_config(arch).scaled(n_layers=layers)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = train.shard_model(cfg, mesh, torch.Generator("cuda").manual_seed(MESH_SEED))
+        opt = adamw_init(model.params())
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        held = sum(p.numel() for p in model.params().values())
+        step = train.build_train_step(model, acfg, mesh=mesh)
+        losses, norms, ms, peaks, per_step, gathered = [], [], [], [], [], []
+        exchanged: dict = {}  # the expert exchanges (moe_ep's all_to_all)
+        fsdp: dict = {}  # the step's own: gathers, gradient reduce-scatters, data sums
+        summed: dict = {}  # the model axis's sums (shard_ctx, the cross-entropy's max)
+        comm: dict = {}  # the rest, by kind
+        restore = [timed_collectives([moe_ep], exchanged), timed_collectives([train], fsdp),
+                   timed_collectives([shard_ctx, t_layers], summed),
+                   timed_collectives([shd, sys.modules["repro_torch.launch.mesh"]], comm)]
+        try:
+            for s in range(MESH_STEPS):
+                batch = batch_of(cfg, MESH_ROWS, MESH_SEQ, s, "cuda")
+                torch.cuda.reset_peak_memory_stats()
+                calls["n"] = 0
+                before_bytes = exchanged.get("all_to_all", [0, 0, 0, 0])[1]
+                before_gather = fsdp.get("all_gather", [0, 0, 0, 0])[3]
+                t0 = time.perf_counter()
+                loss, m = step(opt, batch)
+                losses.append(float(loss))
+                ms.append((time.perf_counter() - t0) * 1e3)
+                norms.append(float(m["grad_norm"]))
+                peaks.append(torch.cuda.max_memory_allocated())
+                per_step.append(exchanged.get("all_to_all", [0, 0, 0, 0])[1] - before_bytes)
+                gathered.append(fsdp["all_gather"][3] - before_gather)
+        finally:
+            for fn in restore:
+                fn()
+        seconds[f"b_steps/{arch}"] = sum(ms) / 1e3
+        t0 = time.perf_counter()
+        # a seeded sample of every leaf, each rank the elements its blocks hold
+        specs = train.param_specs(cfg, mesh)
+        shapes = convert.param_shapes(cfg)
+        sample = {name: mesh_local_sample(torch, p.detach(), specs[name], shapes[name], mesh,
+                                          MESH_SEED, i)
+                  for i, (name, p) in enumerate(sorted(model.params().items()))}
+        seconds[f"b_sample/{arch}"] = time.perf_counter() - t0
+        out["b"][arch] = {"losses": losses, "norms": norms, "ms": ms, "peak_bytes": peaks,
+                          "init_s": init_s, "held_params": held, "ep_calls": calls["n"],
+                          "dense_held": step.held, "gathered_bytes_per_step": gathered,
+                          "exchange_bytes_per_step": per_step,
+                          "exchange": exchanged.get("all_to_all"), "expert": exchanged,
+                          "fsdp": fsdp, "model_sums": summed, "comm": comm, "coords": coords,
+                          "sample": sample}
+        del model, opt, step
     moe_ep.moe_block_ep = ep_fn
-    seconds["b_sample"] = time.perf_counter() - t0
     seconds["rank"] = time.perf_counter() - t_rank
     out["seconds"] = seconds
-    out["b"] = {"losses": losses, "norms": norms, "ms": ms, "peak_bytes": peaks,
-                "init_s": init_s, "held_params": held, "ep_calls": ep_calls,
-                "exchange_bytes_per_step": per_step, "exchange": exchanged["all_to_all"],
-                "expert": exchanged, "comm": comm, "coords": coords, "sample": sample}
     out["launches"] = ops.launch_counts()
     return out
 
@@ -5527,24 +5584,34 @@ def mesh_leg(torch, tag, args) -> dict:
     from repro_torch.train.optimizer import AdamWConfig, adamw_init, schedule
     from repro_torch.train.pipeline import DataPipeline, PipelineConfig
 
+    from repro_torch.launch.mesh import abstract_mesh
+
     t_leg = time.perf_counter()
     ops.reset_launch_counts()
     world = math.prod(MESH_SHAPE)
     cards = torch.cuda.device_count()
     backend = "cpu:gloo,cuda:nccl" if cards >= world else "gloo"
-    cfg = get_config(MESH_ARCH).scaled(n_layers=MESH_LAYERS)
-    n_params = sum(math.prod(s) for s in param_shapes(cfg).values())
-    n_expert = sum(math.prod(s) for n, s in param_shapes(cfg).items() if train.is_expert(n))
-    E, k = cfg.moe.n_experts, cfg.moe.top_k
-    t_loc = MESH_ROWS // MESH_SHAPE[0] * MESH_SEQ
-    C = max(1, int(cfg.moe.capacity_factor * k * t_loc / E))
-    predicted = 2 * E * C * cfg.d_model * 2
+    predicted = {}
+    for arch, layers in MESH_ARCHS.items():
+        cfg = get_config(arch).scaled(n_layers=layers)
+        n_params = sum(math.prod(s) for s in param_shapes(cfg).values())
+        n_expert = sum(math.prod(s) for n, s in param_shapes(cfg).items() if train.is_expert(n))
+        held = train.dense_held(cfg, abstract_mesh(MESH_SHAPE, MESH_AXES))
+        line = (f"{arch} at full width, {layers} of {get_config(arch).n_layers} layers: "
+                f"{n_params} parameters ({n_expert} in experts); a rank computes with "
+                f"{held['dense']} of the {held['whole']} non-expert elements "
+                f"({4 * held['dense']} of {4 * held['whole']} B in f32)")
+        if cfg.moe:
+            E, k = cfg.moe.n_experts, cfg.moe.top_k
+            t_loc = MESH_ROWS // MESH_SHAPE[0] * MESH_SEQ
+            C = max(1, int(cfg.moe.capacity_factor * k * t_loc / E))
+            predicted[arch] = 2 * E * C * cfg.d_model * 2
+            line += (f"; capacity C = {C} a rank; predicted all_to_all bytes a rank a layer "
+                     f"(the forward's two exchanges of (E, C, d) bf16): {predicted[arch]}")
+        say(tag, f"mesh leg: {line}")
     say(tag, f"mesh leg: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated on the card "
              f"by earlier legs; {world} ranks, mesh {dict(zip(MESH_AXES, MESH_SHAPE))}, "
-             f"backend {backend}, {min(world, cards)} card(s); {MESH_ARCH} at full width, "
-             f"{MESH_LAYERS} of {get_config(MESH_ARCH).n_layers} layers: {n_params} parameters "
-             f"({n_expert} in experts); capacity C = {C} a rank; predicted all_to_all bytes a "
-             f"rank a layer (the forward's two exchanges of (E, C, d) bf16): {predicted}")
+             f"backend {backend}, {min(world, cards)} card(s)")
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_"))
     job = {"backend": backend, "ckpt": str(tmp / "ck"), "leg": "mesh leg"}
     seconds = {}
@@ -5563,7 +5630,7 @@ def mesh_leg(torch, tag, args) -> dict:
 
         # (a) card = CPU
         for arch in MESH_CHECK:
-            moe = bool(get_config(arch, reduced=True).moe)
+            moe = bool(mesh_check_cfg(arch).moe)
             if moe:
                 bounds = (EP_LOSS0_RTOL, EP_NORM0_RTOL, EP_LOSS_RTOL, EP_NORM_RTOL)
             else:
@@ -5589,7 +5656,8 @@ def mesh_leg(torch, tag, args) -> dict:
                             if margin is not None else "")
                          + "; steps " + ", ".join(
                              f"{dev} {row[dev]['steps_s']:.2f} s, collectives "
-                             + " ".join(f"{k} {v[0]:.2f} s x{v[2]}" for k, v in row[dev]["comm"].items())
+                             + " ".join(f"{k} {v[0]:.2f} s x{v[2]}"
+                                        for k, v in row[dev]["comm"].items())
                              for dev in ("cuda", "cpu")))
                 if margin is not None:
                     check(margin > ROUTE_MARGIN, f"mesh leg: (a) rank {r['rank']}: a near-tie in "
@@ -5604,74 +5672,100 @@ def mesh_leg(torch, tag, args) -> dict:
                       f"{c['ep_calls']}")
 
         # (b) every rank's loss finite and equal, then the unsharded step
-        b0 = ranks[0]["b"]
-        for r in ranks:
-            b = r["b"]
-            say(tag, f"mesh leg: (b) rank {r['rank']} {b['coords']}: {b['held_params']} "
-                     f"parameters held ({b['held_params'] * 12 / 2**30:.2f} GiB with m and v"
-                     f"), init {b['init_s']:.2f} s; steps "
-                     + ", ".join(f"{ms:.1f} ms" for ms in b["ms"])
-                     + "; peaks " + ", ".join(f"{p / 2**30:.2f} GiB" for p in b["peak_bytes"])
-                     + f"; losses {b['losses']}, norms {b['norms']}; all_to_all bytes a step "
-                     f"{b['exchange_bytes_per_step']} ({b['exchange_bytes_per_step'][-1] / MESH_LAYERS:.0f}"
-                     f" a layer, forward, recompute and backward; {b['exchange'][2]} calls over "
-                     f"the steps, {b['exchange'][0]:.2f} s); moe_block_ep calls in the last step "
-                     f"{b['ep_calls']}; the steps' collectives (s, input bytes, calls; host "
-                     f"copies included): expert path "
-                     + ", ".join(f"{k} {v[0]:.2f} s {v[1]} B {v[2]}" for k, v in b["expert"].items())
-                     + "; the rest " + ", ".join(f"{k} {v[0]:.2f} s {v[1]} B {v[2]}"
-                                                 for k, v in b["comm"].items()))
-            check(all(np.isfinite(b["losses"])) and all(np.isfinite(b["norms"])),
-                  f"mesh leg: (b) rank {r['rank']}: a loss or norm is not finite")
-            check(b["losses"] == b0["losses"] and b["norms"] == b0["norms"],
-                  f"mesh leg: (b) rank {r['rank']}'s losses or norms differ from rank 0's")
-            check(b["ep_calls"] > 0, f"mesh leg: (b) rank {r['rank']} never took moe_block_ep")
-        gc.collect()
-        torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        model = t_model.get_model(cfg, "cuda").init(
-            torch.Generator("cuda").manual_seed(MESH_SEED))
-        opt = adamw_init(model.params())
-        step = train.build_train_step(model, acfg, accum=MESH_SHAPE[0])
-        pipe = DataPipeline(PipelineConfig(cfg.vocab, MESH_SEQ, MESH_ROWS))
-        want_l, want_n = [], []
-        for s in range(MESH_STEPS):
-            loss, m = step(opt, {k_: torch.tensor(v, device="cuda")
-                                 for k_, v in pipe.local_batch_at(s).items()})
-            want_l.append(float(loss))
-            want_n.append(float(m["grad_norm"]))
-        params = model.params()
-        off, largest, total = 0, 0.0, 0
-        for i, name in enumerate(sorted(params)):
-            want = torch.tensor(mesh_sample(torch, params[name].detach(), MESH_SEED, i))
-            held = {}
+        unsharded = {}
+        for arch, layers in MESH_ARCHS.items():
+            cfg = get_config(arch).scaled(n_layers=layers)
+            b0 = ranks[0]["b"][arch]
             for r in ranks:
-                held.update({int(k): v for k, v in r["b"]["sample"][name].items()})
-            check(sorted(held) == list(range(MESH_SAMPLE)),
-                  f"mesh leg: (b) the ranks' blocks do not hold every sample of {name}")
-            got = torch.tensor([held[k] for k in range(MESH_SAMPLE)])
-            close = torch.isclose(got, want, rtol=MESH_PARAM_RTOL,
-                                  atol=MESH_PARAM_RTOL * float(want.abs().max()))
-            off += int((~close).sum())
-            total += got.numel()
-            largest = max(largest, float((got - want).abs().max()))
-        del model, opt, params
-        gc.collect()
-        torch.cuda.empty_cache()
-        seconds["unsharded"] = time.perf_counter() - t0
-        rel_l = [abs(a - b) / abs(b) for a, b in zip(b0["losses"], want_l)]
-        rel_n = [abs(a - b) / abs(b) for a, b in zip(b0["norms"], want_n)]
-        ok = (rel_l[0] <= MESH_LOSS0_RTOL and max(rel_l) <= MESH_LOSS_RTOL
-              and max(rel_n) <= MESH_NORM_RTOL and off <= MESH_FLIP_SHARE * total
-              and largest <= 2 * lr_sum * (1 + 1e-3))
-        say(tag, f"check: mesh leg: (b) sharded steps vs the unsharded step with accum = "
-                 f"{MESH_SHAPE[0]} on the same batches and seed: losses {b0['losses']} vs "
-                 f"{want_l} (relative {[f'{x:.3g}' for x in rel_l]}; step 0 within "
-                 f"{MESH_LOSS0_RTOL}, later {MESH_LOSS_RTOL}), norms {b0['norms']} vs {want_n} "
-                 f"({[f'{x:.3g}' for x in rel_n]}; {MESH_NORM_RTOL}); {total} sampled parameters: "
-                 f"{off} beyond rtol {MESH_PARAM_RTOL} (<= {MESH_FLIP_SHARE:.0%}), largest "
-                 f"difference {largest:.3g} (<= 2 x Σ lr = {2 * lr_sum:.3g}): {ok}")
-        check(ok, "mesh leg: (b) the sharded steps differ from the unsharded accum step")
+                b = r["b"][arch]
+                dense = b["dense_held"]
+                say(tag, f"mesh leg: (b) {arch}, rank {r['rank']} {b['coords']}: "
+                         f"{b['held_params']} parameters held ({b['held_params'] * 12 / 2**30:.2f} "
+                         f"GiB with m and v), init {b['init_s']:.2f} s; steps "
+                         + ", ".join(f"{ms:.1f} ms" for ms in b["ms"])
+                         + "; peaks " + ", ".join(f"{p / 2**30:.2f} GiB" for p in b["peak_bytes"])
+                         + f"; losses {b['losses']}, norms {b['norms']}; dense elements computed "
+                         f"with {dense['dense']} of {dense['whole']} whole ({4 * dense['dense']} "
+                         f"of {4 * dense['whole']} B in f32), bytes the step's all_gather "
+                         f"returned a step {b['gathered_bytes_per_step']}"
+                         + (f"; all_to_all bytes a step {b['exchange_bytes_per_step']} "
+                            f"({b['exchange_bytes_per_step'][-1] / layers:.0f} a layer, forward, "
+                            f"recompute and backward; {b['exchange'][2]} calls over the steps, "
+                            f"{b['exchange'][0]:.2f} s); moe_block_ep calls in the last step "
+                            f"{b['ep_calls']}" if cfg.moe else "")
+                         + "; the steps' collectives (s, input bytes, calls, output bytes; host "
+                         "copies included): expert path "
+                         + ", ".join(f"{k} {v[0]:.2f} s {v[1]} B {v[2]} {v[3]} B"
+                                     for k, v in b["expert"].items())
+                         + "; the model axis's sums "
+                         + ", ".join(f"{k} {v[0]:.2f} s {v[1]} B {v[2]} {v[3]} B"
+                                     for k, v in b["model_sums"].items())
+                         + "; gathers and gradient reductions "
+                         + ", ".join(f"{k} {v[0]:.2f} s {v[1]} B {v[2]} {v[3]} B"
+                                     for k, v in b["fsdp"].items())
+                         + "; the rest " + ", ".join(f"{k} {v[0]:.2f} s {v[1]} B {v[2]} {v[3]} B"
+                                                     for k, v in b["comm"].items()))
+                check(all(np.isfinite(b["losses"])) and all(np.isfinite(b["norms"])),
+                      f"mesh leg: (b) {arch}, rank {r['rank']}: a loss or norm is not finite")
+                check(b["losses"] == b0["losses"] and b["norms"] == b0["norms"],
+                      f"mesh leg: (b) {arch}, rank {r['rank']}'s losses or norms differ from "
+                      "rank 0's")
+                check((b["ep_calls"] > 0) == bool(cfg.moe),
+                      f"mesh leg: (b) {arch}, rank {r['rank']}: moe_block_ep calls "
+                      f"{b['ep_calls']}")
+                check(dense["dense"] < dense["whole"],
+                      f"mesh leg: (b) {arch}, rank {r['rank']} computes with whole dense leaves")
+            gc.collect()
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            model = t_model.get_model(cfg, "cuda").init(
+                torch.Generator("cuda").manual_seed(MESH_SEED))
+            opt = adamw_init(model.params())
+            step = train.build_train_step(model, acfg, accum=MESH_SHAPE[0])
+            pipe = DataPipeline(PipelineConfig(cfg.vocab, MESH_SEQ, MESH_ROWS))
+            want_l, want_n = [], []
+            for s in range(MESH_STEPS):
+                loss, m = step(opt, {k_: torch.tensor(v, device="cuda")
+                                     for k_, v in pipe.local_batch_at(s).items()})
+                want_l.append(float(loss))
+                want_n.append(float(m["grad_norm"]))
+            params = model.params()
+            off, largest, total = 0, 0.0, 0
+            for i, name in enumerate(sorted(params)):
+                want = torch.tensor(mesh_sample(torch, params[name].detach(), MESH_SEED, i))
+                held = {}
+                for r in ranks:
+                    held.update({int(k): v for k, v in r["b"][arch]["sample"][name].items()})
+                check(sorted(held) == list(range(MESH_SAMPLE)),
+                      f"mesh leg: (b) the ranks' blocks do not hold every sample of {arch}'s "
+                      f"{name}")
+                got = torch.tensor([held[k] for k in range(MESH_SAMPLE)])
+                close = torch.isclose(got, want, rtol=MESH_PARAM_RTOL,
+                                      atol=MESH_PARAM_RTOL * float(want.abs().max()))
+                off += int((~close).sum())
+                total += got.numel()
+                largest = max(largest, float((got - want).abs().max()))
+            del model, opt, params, step
+            gc.collect()
+            torch.cuda.empty_cache()
+            seconds[f"unsharded/{arch}"] = time.perf_counter() - t0
+            rel_l = [abs(a - b) / abs(b) for a, b in zip(b0["losses"], want_l)]
+            rel_n = [abs(a - b) / abs(b) for a, b in zip(b0["norms"], want_n)]
+            ok = (rel_l[0] <= MESH_LOSS0_RTOL and max(rel_l) <= MESH_LOSS_RTOL
+                  and max(rel_n) <= MESH_NORM_RTOL and off <= MESH_FLIP_SHARE * total
+                  and largest <= 2 * lr_sum * (1 + 1e-3))
+            say(tag, f"check: mesh leg: (b) {arch}: sharded steps vs the unsharded step with "
+                     f"accum = {MESH_SHAPE[0]} on the same batches and seed: losses "
+                     f"{b0['losses']} vs {want_l} (relative {[f'{x:.3g}' for x in rel_l]}; step 0 "
+                     f"within {MESH_LOSS0_RTOL}, later {MESH_LOSS_RTOL}), norms {b0['norms']} vs "
+                     f"{want_n} ({[f'{x:.3g}' for x in rel_n]}; {MESH_NORM_RTOL}); {total} sampled "
+                     f"parameters: {off} beyond rtol {MESH_PARAM_RTOL} (<= "
+                     f"{MESH_FLIP_SHARE:.0%}), largest difference {largest:.3g} (<= 2 x Σ lr = "
+                     f"{2 * lr_sum:.3g}): {ok}")
+            check(ok, f"mesh leg: (b) {arch}: the sharded steps differ from the unsharded accum "
+                      "step")
+            unsharded[arch] = {"losses": want_l, "norms": want_n, "sample_off": off,
+                               "sample_largest": largest}
 
         # (c) the 4-rank checkpoint, restored here as one rank
         t0 = time.perf_counter()
@@ -5726,9 +5820,9 @@ def mesh_leg(torch, tag, args) -> dict:
              + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items()) + ")")
     return {"seconds": leg_s, "part_seconds": seconds, "backend": backend,
             "predicted_exchange_bytes_a_layer": predicted,
-            "b": {r["rank"]: {k: v for k, v in r["b"].items() if k != "sample"} for r in ranks},
-            "unsharded": {"losses": want_l, "norms": want_n, "sample_off": off,
-                          "sample_largest": largest},
+            "b": {arch: {r["rank"]: {k: v for k, v in r["b"][arch].items() if k != "sample"}
+                         for r in ranks} for arch in MESH_ARCHS},
+            "unsharded": unsharded,
             "a": {r["rank"]: {k: v for k, v in r.items() if k.startswith("a/")} for r in ranks},
             "c": {"restored_next": got, "ranks_next": nxt,
                   "compression": [r["c/compression"] for r in ranks]},

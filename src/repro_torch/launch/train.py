@@ -18,9 +18,12 @@ The parameters start from ``torch.Generator`` seed 0 on the device, and
 every step runs eagerly.  ``build_train_step(..., mesh=)`` is the
 reference's sharded train step (``launch/dryrun.py``'s jit with
 ``in_shardings``, the mesh installed): a rank holds its blocks
-(:func:`shard_model`), gathers the dense leaves whole for its batch rows
-and runs the experts expert-parallel; like the reference's runtime, the
-launcher has no flag for it.  A resumed run starts at the restored AdamW step
+(:func:`shard_model`), gathers each leaf over the data axes for its
+batch rows (FSDP), computes its share of the dense layers that the
+reference's pins cut over ``model`` (its heads, ffn columns and
+vocabulary rows; :func:`leaf_layouts`) and runs the experts
+expert-parallel; like the reference's runtime, the launcher has no flag
+for it.  A resumed run starts at the restored AdamW step
 counter, the number of updates the checkpoint holds, so it continues the
 uninterrupted run's steps exactly; the reference restarts at the step
 directory's label, which for the periodic and preemption checkpoints is
@@ -34,6 +37,7 @@ import sys
 import time
 
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -41,7 +45,7 @@ import torch
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.core.torch_engine import full_fp32_matmul, require_device
 from repro_torch.launch import sharding as shd
-from repro_torch.launch.mesh import all_reduce, all_to_all, data_axes
+from repro_torch.launch.mesh import all_gather, all_reduce, all_to_all, data_axes
 from repro_torch.models import shard_ctx
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.convert import flat, nest, param_shapes
@@ -67,17 +71,24 @@ def build_train_step(model: Model, acfg: AdamWConfig, accum: int = 1, mesh=None)
     With ``mesh`` (``launch/mesh.py``) every rank of it calls ``step`` on
     the same global batch; ``model`` holds this rank's blocks
     (:func:`shard_model`) and ``opt`` is ``adamw_init`` of them.  The
-    rank cuts its rows (``batch_shardings``), gathers every leaf but the
-    experts whole, and runs the loss with the mesh installed, so the MoE
-    layers take ``moe_block_ep`` on the rank's experts.  Each gradient is
-    averaged over the data axes and cut back to the rank's block; an
-    expert gradient, which already sums every data rank's tokens through
-    the exchange's backward, is divided by the data axis instead.  The
-    norm counts every element once; ``loss`` is the mean of the data
-    ranks' local means, the same on every rank.  A data axis of ``n``
-    gives the unsharded step with ``accum = n`` (micro-batch ``i`` is data
-    rank ``i``'s rows, and MoE capacity is per micro-batch as it is per
-    rank), up to the bf16 rounding of the experts' ``model`` sum."""
+    rank cuts its rows (``batch_shardings``), brings every leaf but the
+    experts to the block it computes with (:func:`leaf_layouts`: gathered
+    over the data axes, and over ``model`` only where the layer runs
+    whole), and runs the loss with the mesh installed, so the dense
+    layers split their heads, ffn columns and vocabulary over ``model``
+    (``models/layers.py``) and the MoE layers take ``moe_block_ep`` on
+    the rank's experts.  Each gradient is brought back to the rank's
+    block (summed over ``model`` where the rank used a leaf in part),
+    averaged over the data axes; an expert gradient, which already sums
+    every data rank's tokens through the exchange's backward, is divided
+    by the data axis instead.  The norm counts every element once;
+    ``loss`` is the mean of the data ranks' local means, the same on
+    every rank.  A data axis of ``n`` gives the unsharded step with
+    ``accum = n`` (micro-batch ``i`` is data rank ``i``'s rows, and MoE
+    capacity is per micro-batch as it is per rank), up to the rounding
+    of the ``model`` sums (the experts' in bf16).  ``step.held`` counts
+    the elements of the dense leaves a rank computes with against their
+    whole leaves'."""
     params = model.params()
 
     def backward(loss: torch.Tensor) -> None:
@@ -151,6 +162,133 @@ EP_LAYOUT = {"wg": (None, "data", None, "model"), "wu": (None, "data", None, "mo
              "wd": (None, "data", "model", None)}
 
 
+class LeafLayout(NamedTuple):
+    """A leaf on a mesh: ``spec``, the block a rank keeps (its sharding
+    rule); ``compute``, the block it computes with (``"model"`` on the
+    dimension the layer splits over the model axis, or ``()``: whole);
+    ``partial``, the rank reads the leaf only in part, so its gradient is
+    this rank's share, to be summed over ``model``."""
+
+    spec: tuple
+    compute: tuple
+    partial: bool
+
+
+def _compute_dim(name: str, heads: bool, ffn: bool, vocab: bool) -> tuple[int | None, bool]:
+    """(the dimension, from the end, of leaf ``name`` that its layer cuts
+    over ``model``, or None; whether the rank reads it in part), given
+    which pins cut: the attention's heads, the MLP's hidden width, the
+    vocabulary."""
+    parts = name.split(".")
+    if name == "embed":
+        return (-2 if vocab else None), False
+    if name == "lm_head":
+        return (-1 if vocab else None), False
+    owner, proj, leaf = ([None] * 3 + parts)[-3:]
+    if owner in ("attn", "xattn") and heads:
+        if proj == "wq":  # its columns (and bias): the rank's heads
+            return -1, False
+        if proj == "wo":  # its rows; a bias is added after the sum
+            return (-2 if leaf == "w" else None), False
+        return None, True  # wk, wv: projected whole, read for the rank's heads
+    if owner == "mlp" and ffn:
+        if proj in ("wg", "wu", "wi"):
+            return -1, False
+        if proj in ("wd", "wo"):
+            return (-2 if leaf == "w" else None), False
+    return None, False
+
+
+def leaf_layouts(cfg: ModelConfig, mesh) -> dict[str, LeafLayout]:
+    """Every leaf's layout on ``mesh`` for the meshed train step, by dotted
+    name: the block it keeps (``param_specs``) and the block it computes
+    with under the installed mesh's pins (mode ``"all"``), ``shard_ctx.
+    cuts_model``: the heads of ``"bthd"``, the ffn width and the
+    vocabulary of ``"btf"``.  Where a pin does not cut (heads the axis does
+    not divide, as reduced minitron-4b's 3; a vocabulary of 51,865) the
+    layer runs whole.  The router, the norms and the recurrent mixers run
+    whole on every rank; the experts compute with the block they keep."""
+    specs = param_specs(cfg, mesh)
+    heads = shard_ctx.cuts_model(mesh, "bthd", (1, 1, cfg.nh_eff, cfg.hd))
+    ffn = shard_ctx.cuts_model(mesh, "btf", (1, 1, cfg.d_ff))
+    vocab = shard_ctx.cuts_model(mesh, "btf", (1, 1, cfg.vocab))
+    out = {}
+    for name, shape in param_shapes(cfg).items():
+        if is_expert(name):
+            out[name] = LeafLayout(specs[name], specs[name], False)
+            continue
+        dim, partial = _compute_dim(name, heads, ffn, vocab)
+        compute = () if dim is None else tuple(
+            "model" if i == len(shape) + dim else None for i in range(len(shape)))
+        out[name] = LeafLayout(specs[name], compute, partial)
+    return out
+
+
+def dense_held(cfg: ModelConfig, mesh) -> dict[str, int]:
+    """``{"dense": the elements of the non-expert leaves a rank computes
+    with, "whole": those leaves' elements}`` in the meshed step on
+    ``mesh``."""
+    shapes = param_shapes(cfg)
+    held = {"dense": 0, "whole": 0}
+    for name, lay in leaf_layouts(cfg, mesh).items():
+        if is_expert(name):
+            continue
+        whole = math.prod(shapes[name])
+        held["whole"] += whole
+        held["dense"] += whole // (1 if _model_dim(lay.compute) is None else mesh.shape["model"])
+    return held
+
+
+def _model_dim(spec: tuple) -> int | None:
+    """The dimension ``spec`` cuts over ``model`` alone, or None."""
+    for dim, entry in enumerate(spec):
+        axes = shd.entry_axes(entry)
+        if "model" in axes:
+            if len(axes) > 1:
+                raise ValueError(f"{spec}: a dimension cut over model and another axis")
+            return dim
+    return None
+
+
+def _recut(t: torch.Tensor, whole: int, cut: int, group) -> torch.Tensor:
+    """``t`` with its dimension ``whole`` cut into this member's block and
+    its dimension ``cut`` (this member's block) made whole: one
+    ``all_to_all``, each member's block of ``whole`` sent to it."""
+    n = torch.distributed.get_world_size(group)
+    moved = t.movedim(whole, 0)
+    at = cut + 1 if cut < whole else cut  # ``cut`` in ``moved``
+    parts = all_to_all(moved.reshape(n, moved.shape[0] // n, *moved.shape[1:]), group)
+    return torch.cat(list(parts.unbind(0)), dim=at).movedim(0, whole)
+
+
+def _to_compute(block: torch.Tensor, lay: LeafLayout, mesh) -> torch.Tensor:
+    """The block a rank computes with from the block it keeps: gathered
+    over the data axes, then over ``model`` where the layer runs whole,
+    narrowed where it splits a leaf the rules keep whole over ``model``,
+    or re-cut where it splits another dimension than the rules (one
+    ``all_to_all``)."""
+    out = block
+    for dim, entry in enumerate(lay.spec):
+        for a in reversed(shd.entry_axes(entry)):
+            if a != "model":
+                out = all_gather(out, mesh.axis_group(a), dim)
+    s, c = _model_dim(lay.spec), _model_dim(lay.compute)
+    if s == c:
+        return out
+    group = mesh.axis_group("model")
+    if c is None:
+        return all_gather(out, group, s)
+    if s is None:
+        return _model_block(out, c, mesh).clone()
+    return _recut(out, c, s, group)
+
+
+def _model_block(t: torch.Tensor, dim: int, mesh) -> torch.Tensor:
+    """This rank's ``model`` block of ``t`` along ``dim`` (a view)."""
+    size = t.shape[dim] // mesh.shape["model"]
+    return t.narrow(dim, mesh.coords["model"] * size, size)
+
+
 def _reduce_scatter(g: torch.Tensor, dim: int, group) -> torch.Tensor:
     """This member's block along ``dim`` of ``g`` summed over ``group``:
     ``g`` cut into equal blocks along ``dim``, block ``i`` sent to member
@@ -161,28 +299,41 @@ def _reduce_scatter(g: torch.Tensor, dim: int, group) -> torch.Tensor:
     return parts.sum(dim=0).movedim(0, dim)
 
 
-def _mean_block(g: torch.Tensor, spec: tuple, mesh, daxes: tuple[str, ...]) -> torch.Tensor:
-    """The rank's block of the mean of ``g`` over the data axes, ``g`` a
-    whole leaf's gradient of this rank's rows (the same on every rank of
-    a ``model`` group).  Axes the spec cuts are cut in order, a data axis
-    by summing over its group; data axes it leaves out are summed last,
-    on the block."""
-    for dim, entry in enumerate(spec):
+def _mean_block(g: torch.Tensor, lay: LeafLayout, mesh, daxes: tuple[str, ...]) -> torch.Tensor:
+    """The rank's block of the mean of ``g`` over the data axes, ``g`` the
+    gradient of the block the rank computed with from its rows.  Over
+    ``model`` it is brought to the kept block first: re-cut, gathered
+    where the rank computed with its block of a leaf the rules keep
+    whole, summed where the rank read the leaf in part (reduce-scattered
+    onto the block), narrowed where it is still whole (every rank of a
+    ``model`` group holds the same).  Then the spec's data axes are cut in
+    order, each by summing over its group; data axes it leaves out are
+    summed last, on the block."""
+    s, c = _model_dim(lay.spec), _model_dim(lay.compute)
+    if s != c or lay.partial:
+        group = mesh.axis_group("model")
+        if c is None and s is None:
+            g = all_reduce(g, group)
+        elif c is None:
+            g = _reduce_scatter(g, s, group) if lay.partial else _model_block(g, s, mesh)
+        elif s is None:
+            g = all_gather(g, group, c)
+        else:
+            g = _recut(g, s, c, group)
+    for dim, entry in enumerate(lay.spec):
         for a in shd.entry_axes(entry):
             if a in daxes:
                 g = _reduce_scatter(g, dim, mesh.axis_group(a))
-            else:
-                size = g.shape[dim] // mesh.shape[a]
-                g = g.narrow(dim, mesh.coords[a] * size, size)
     for a in daxes:
-        if a not in shd.named_axes(spec):
+        if a not in shd.named_axes(lay.spec):
             g = all_reduce(g, mesh.axis_group(a))
     return g / math.prod(mesh.shape[a] for a in daxes)
 
 
 def _meshed_step(model: Model, acfg: AdamWConfig, mesh, params: dict, local_grads):
     cfg = model.cfg
-    specs = param_specs(cfg, mesh)
+    layouts = leaf_layouts(cfg, mesh)
+    specs = {n: lay.spec for n, lay in layouts.items()}
     daxes = data_axes(mesh)
     n_data = math.prod(mesh.shape[a] for a in daxes)
     for name in filter(is_expert, params):
@@ -193,38 +344,37 @@ def _meshed_step(model: Model, acfg: AdamWConfig, mesh, params: dict, local_grad
                 f"step needs {want} ({cfg.moe.n_experts} experts over "
                 f"the data axis, d_ff {cfg.d_ff} over the model axis)")
     blocks = {n: p.data for n, p in params.items()}
-    gathered = [n for n in params if not is_expert(n)]
+    dense = [n for n in params if not is_expert(n)]
 
     def step(opt: dict, batch: dict):
         rows = shd.batch_shardings(batch, mesh)
         local = {k: shd.shard_of(v, rows[k].spec, mesh) for k, v in batch.items()}
         before = (shard_ctx._MESH, shard_ctx._MODE)
         try:
-            for n in gathered:
-                params[n].data = shd.gather(blocks[n], specs[n], mesh)
+            for n in dense:
+                params[n].data = _to_compute(blocks[n], layouts[n], mesh)
             shard_ctx.set_mesh(mesh, "all")
             loss = local_grads(local)
-            wholes = {n: p.grad for n, p in params.items()}
+            grads = {n: p.grad for n, p in params.items()}
         finally:
             shard_ctx.set_mesh(*before)
             for n, p in params.items():
                 p.grad = None
                 p.data = blocks[n]
-        grads = {}
-        for n, g in wholes.items():
+        for n, g in grads.items():
             if is_expert(n):
                 for a in daxes:
                     if a != "data":
                         g = all_reduce(g, mesh.axis_group(a)) / mesh.shape[a]
                 grads[n] = g / mesh.shape["data"]
             else:
-                grads[n] = _mean_block(g, specs[n], mesh, daxes)
-        del wholes
+                grads[n] = _mean_block(g, layouts[n], mesh, daxes)
         metrics = adamw_update(blocks, grads, opt, acfg, mesh, specs)
         for a in daxes:
             loss = all_reduce(loss, mesh.axis_group(a))
         return loss / n_data, metrics
 
+    step.held = dense_held(cfg, mesh)
     return step
 
 

@@ -17,9 +17,26 @@ in the reference:
   in another order and are not what the reference computes.
 
 The reference's ``shard_ctx.constrain`` calls pin activation layouts for
-GSPMD; the port's meshed train step lays them out by construction, so
-its ``shard_ctx.constrain`` is the identity and the call sites are left
-out (``models/shard_ctx.py``).
+GSPMD.  The port has no GSPMD: at those sites the layers ask
+``shard_ctx.model_cut`` whether the pin cuts a dimension over ``model``
+and, with a mesh installed, split the work as the pin lays it out
+(Megatron-style; the parameters are then this rank's blocks, as the
+meshed train step hands them over):
+
+* attention (``"bthd"``, ``layers.py:117``): q for the rank's
+  ``nh / model`` heads from its columns of ``wq``, k and v whole
+  (``"bthd_rep"``, ``:120-121``) and cut to the heads' GQA groups, the
+  output through the rank's rows of ``wo`` summed over ``model``
+  (``"btd"``, ``:249``);
+* the MLPs (``"btf"``, ``:301-302``, ``:311-312``): the rank's columns of
+  the up-projections, its rows of the down-projection, summed; a
+  down-projection's bias added once, after the sum;
+* the cross-entropy (``"btf"`` on the logits, ``:399``): f32 logits of
+  the rank's vocabulary rows, their max and sum of exponentials taken
+  over ``model``, the gold logit from the rank that holds it.
+
+Without a mesh, or where a pin does not cut (heads or widths the axis
+does not divide), a layer runs whole, as the reference's does.
 """
 from __future__ import annotations
 
@@ -29,6 +46,10 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch.launch.mesh import all_reduce
+from repro_torch.models import shard_ctx
+from repro_torch.models.shard_ctx import Cut, model_copy, model_sum
 
 
 def causal_skip() -> bool:
@@ -107,12 +128,39 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 # ---------------------------------------------------------------- attention
 
 
-def _qkv(p, x: torch.Tensor, cfg, cos, sin, rope: bool = True):
+def head_cut(x: torch.Tensor, cfg) -> Cut | None:
+    """The installed mesh's cut of an attention's heads over ``model``
+    (the reference's ``"bthd"`` pin on q), for the input ``x`` (B, S, d)."""
+    return shard_ctx.model_cut("bthd", (*x.shape[:2], cfg.nh_eff, cfg.hd))
+
+
+def rank_kv(t: torch.Tensor, cut: Cut, nh: int, cfg) -> torch.Tensor:
+    """The key (or value) heads of ``t`` (B, S, nkv, hd) that this rank's
+    ``nh`` query heads read, ``g`` query heads to a key head: a block of
+    whole GQA groups, the one group the rank's heads fall in, or else a
+    key head for each query head."""
+    g = cfg.nh_eff // cfg.n_kv
+    h0 = cut.index * nh
+    if nh % g == 0:
+        return t[:, :, h0 // g:(h0 + nh) // g]
+    if g % nh == 0:
+        return t[:, :, h0 // g:h0 // g + 1]
+    return t.repeat_interleave(g, dim=2)[:, :, h0:h0 + nh]
+
+
+def _qkv(p, x: torch.Tensor, cfg, cos, sin, rope: bool = True, cut: Cut | None = None):
+    """q, k and v of ``x``; with ``cut``, q of this rank's heads from its
+    columns of ``wq``, k and v projected whole and cut to the key heads
+    those heads read (:func:`rank_kv`)."""
     B, S, _ = x.shape
     hd, nh, nkv = cfg.hd, cfg.nh_eff, cfg.n_kv
+    if cut is not None:
+        nh //= cut.size
     q = linear(p["wq"], x).reshape(B, S, nh, hd)
     k = linear(p["wk"], x).reshape(B, S, nkv, hd)
     v = linear(p["wv"], x).reshape(B, S, nkv, hd)
+    if cut is not None:
+        k, v = rank_kv(k, cut, nh, cfg), rank_kv(v, cut, nh, cfg)
     if rope:
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
@@ -195,22 +243,38 @@ def _flash_one_q(qi, qc, k, v, n_kv, q_chunk, kv_chunk, Sk, causal):
     return acc / torch.clamp(l, min=1e-20)[..., None]
 
 
+def out_proj(p, h: torch.Tensor, cut: Cut | None) -> torch.Tensor:
+    """``linear(p, h)`` of a region's output: with ``cut``, ``h`` times the
+    rank's rows of ``p["w"]`` summed over ``model``, the bias added once
+    after the sum."""
+    y = model_sum(h @ p["w"].to(h.dtype), cut)
+    if "b" in p:
+        y = y + p["b"].to(y.dtype)
+    return y
+
+
 def attention_train(p, x: torch.Tensor, cfg, cos, sin, rope: bool = True,
                     causal: bool = True) -> torch.Tensor:
-    q, k, v = _qkv(p, x, cfg, cos, sin, rope)
+    cut = head_cut(x, cfg)
+    q, k, v = _qkv(p, model_copy(x, cut), cfg, cos, sin, rope, cut)
     o = flash_attention(q, k, v, causal=causal)
     B, S = x.shape[:2]
-    return linear(p["wo"], o.reshape(B, S, -1))
+    return out_proj(p["wo"], o.reshape(B, S, -1), cut)
 
 
 def cross_attention_train(p, x: torch.Tensor, mem_kv, cfg) -> torch.Tensor:
     """x (B, S, d) attends, without a mask, to the memory's keys and values
-    ``mem_kv`` = (k, v), each (B, M, nkv, hd), projected beforehand."""
+    ``mem_kv`` = (k, v), each (B, M, nkv, hd), projected beforehand (whole,
+    on every rank, with a mesh installed)."""
     B, S, _ = x.shape
-    q = linear(p["wq"], x).reshape(B, S, cfg.nh_eff, cfg.hd)
+    cut = head_cut(x, cfg)
+    nh = cfg.nh_eff if cut is None else cfg.nh_eff // cut.size
+    q = linear(p["wq"], model_copy(x, cut)).reshape(B, S, nh, cfg.hd)
     k, v = mem_kv
+    if cut is not None:
+        k, v = rank_kv(k, cut, nh, cfg), rank_kv(v, cut, nh, cfg)
     o = flash_attention(q, k, v, causal=False)
-    return linear(p["wo"], o.reshape(B, S, -1))
+    return out_proj(p["wo"], o.reshape(B, S, -1), cut)
 
 
 def attention_decode(p, x: torch.Tensor, cache: dict, pos, cfg, cos, sin,
@@ -247,15 +311,30 @@ def attention_decode(p, x: torch.Tensor, cache: dict, pos, cfg, cos, sin,
 # ---------------------------------------------------------------- MLP
 
 
-def mlp_swiglu(p, x: torch.Tensor) -> torch.Tensor:
+def ffn_cut(x: torch.Tensor, d_ff: int) -> Cut | None:
+    """The installed mesh's cut of an MLP's hidden width ``d_ff`` over
+    ``model`` (the reference's ``"btf"`` pin), for the input ``x``."""
+    return shard_ctx.model_cut("btf", (*x.shape[:-1], d_ff))
+
+
+def mlp_swiglu(p, x: torch.Tensor, d_ff: int | None = None) -> torch.Tensor:
+    """``d_ff``: the whole hidden width, where ``p`` may hold this rank's
+    columns of ``wg``/``wu`` and rows of ``wd`` (a mesh installed); None
+    takes ``p``'s own."""
+    cut = ffn_cut(x, d_ff or p["wg"]["w"].shape[-1])
+    x = model_copy(x, cut)
     h = F.silu(linear(p["wg"], x)) * linear(p["wu"], x)
-    return linear(p["wd"], h)
+    return out_proj(p["wd"], h, cut)
 
 
-def mlp_gelu(p, x: torch.Tensor) -> torch.Tensor:
+def mlp_gelu(p, x: torch.Tensor, d_ff: int | None = None) -> torch.Tensor:
     """``wi`` and ``wo`` with their biases around the tanh form of GELU,
-    ``jax.nn.gelu``'s default (the erf form differs by up to ~1e-3)."""
-    return linear(p["wo"], F.gelu(linear(p["wi"], x), approximate="tanh"))
+    ``jax.nn.gelu``'s default (the erf form differs by up to ~1e-3).
+    ``d_ff`` as :func:`mlp_swiglu`'s; cut, the rank has its columns of
+    ``wi`` and of its bias and its rows of ``wo``."""
+    cut = ffn_cut(x, d_ff or p["wi"]["w"].shape[-1])
+    return out_proj(p["wo"], F.gelu(linear(p["wi"], model_copy(x, cut)), approximate="tanh"),
+                    cut)
 
 
 # ---------------------------------------------------------------- MoE
@@ -353,28 +432,50 @@ def _xent_chunk(hc: torch.Tensor, w: torch.Tensor, lc: torch.Tensor) -> torch.Te
     return (lse - gold).sum()
 
 
+def _xent_chunk_cut(hc: torch.Tensor, w: torch.Tensor, lc: torch.Tensor,
+                    cut: Cut) -> torch.Tensor:
+    """One chunk's summed cross-entropy from this rank's vocabulary rows
+    ``w`` (d, V / model): the logits' max over ``model`` (a constant of
+    the gradient: the log-sum-exp does not depend on it), their sum of
+    exponentials summed over ``model``, and the gold logit from the rank
+    whose rows hold the label (zero from the others)."""
+    logits = (hc @ w).float()
+    top = all_reduce(logits.detach().amax(dim=-1), cut.group, "max")
+    sumexp = model_sum(torch.exp(logits - top[..., None]).sum(dim=-1), cut)
+    at = lc - cut.index * w.shape[-1]
+    mine = (at >= 0) & (at < w.shape[-1])
+    gold = torch.gather(logits, -1, torch.where(mine, at, 0)[..., None])[..., 0]
+    gold = model_sum(torch.where(mine, gold, 0.0), cut)
+    return (top + torch.log(sumexp) - gold).sum()
+
+
 def chunked_softmax_xent(h: torch.Tensor, w_head: torch.Tensor, labels: torch.Tensor,
-                         chunk: int = 512) -> torch.Tensor:
+                         chunk: int = 512, vocab: int | None = None) -> torch.Tensor:
     """Mean cross-entropy over a large vocabulary without the whole
     (B, S, V) logits: f32 logits one ``chunk`` of positions at a time.
 
     h (B, S, d), w_head (d, V), labels (B, S) int -> f32 scalar.  Under
     autograd each chunk's logits are recomputed in the backward instead
     of kept (a chunk of 4 x 512 positions over 151,936 tokens is 1.2 GB
-    in f32)."""
+    in f32).  ``vocab``: the whole vocabulary, where ``w_head`` may be this
+    rank's columns (a mesh installed, the ``"btf"`` pin cutting ``V``);
+    None takes ``w_head``'s own."""
     B, S, d = h.shape
     chunk = min(chunk, S)
     if S % chunk:
         raise ValueError(f"sequence length {S} is not a multiple of the chunk {chunk}")
+    cut = shard_ctx.model_cut("btf", (B, chunk, vocab or w_head.shape[-1]))
+    h = model_copy(h, cut)
     w = w_head.to(h.dtype)
     labels = labels.long()
+    fn, extra = (_xent_chunk, ()) if cut is None else (_xent_chunk_cut, (cut,))
     tot = torch.zeros((), dtype=torch.float32, device=h.device)
     for c in range(S // chunk):
         hc, lc = h[:, c * chunk:(c + 1) * chunk], labels[:, c * chunk:(c + 1) * chunk]
         if torch.is_grad_enabled():
-            part = checkpoint(_xent_chunk, hc, w, lc, use_reentrant=False,
+            part = checkpoint(fn, hc, w, lc, *extra, use_reentrant=False,
                               preserve_rng_state=False)
         else:
-            part = _xent_chunk(hc, w, lc)
+            part = fn(hc, w, lc, *extra)
         tot = tot + part
     return tot / (B * S)

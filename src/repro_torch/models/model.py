@@ -37,10 +37,16 @@ scales do not), the checkpoint's leaf names and the converter
 * ``decode_step(cache, tokens, pos)`` -- one token for the whole batch
 * ``init_cache(B, S)`` -- a zeroed cache of the family's layout
 
-The reference's ``shard_ctx.constrain`` hints are left out: the port's
-meshed train step (``launch/train.py:build_train_step(mesh=)``) lays
-activations out by construction, and ``moe_block`` takes the
-expert-parallel ``moe_ep.py`` whenever a mesh is installed.
+With a mesh installed (``models/shard_ctx.py``; the meshed train step,
+``launch/train.py:build_train_step(mesh=)``, installs it and hands each
+rank its blocks) the layers split their work over ``model`` where the
+reference's ``constrain`` pins cut it (``layers.py``), ``moe_block``
+takes the expert-parallel ``moe_ep.py``, and where the vocabulary
+divides the axis the embedding is looked up vocabulary-parallel: each
+rank its rows' tokens in f32, zeros for the rest, summed over
+``model`` (one rank contributes to a token, so the sum is exact), so
+every rank holds the whole output, as the reference's ``"btd"`` pin on
+it (``model.py:192``) lays it out.
 """
 from __future__ import annotations
 
@@ -51,6 +57,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.torch_engine import require_device
 from repro_torch.models import layers as L
+from repro_torch.models import shard_ctx
 from repro_torch.models import ssm as S
 from repro_torch.models.config import ModelConfig
 
@@ -259,7 +266,7 @@ def ffn(p, h: torch.Tensor, cfg) -> tuple[torch.Tensor, torch.Tensor | None]:
         B, S_len, d = h.shape
         y, aux = L.moe_block(p["moe"], h.reshape(B * S_len, d), cfg)
         return y.reshape(B, S_len, d), aux
-    return L.mlp_swiglu(p["mlp"], h), None
+    return L.mlp_swiglu(p["mlp"], h, cfg.d_ff), None
 
 
 def decoder_layer_train(p, x, cfg, cos, sin):
@@ -388,7 +395,14 @@ class Model(nn.Module):
         # gathered in f32, then cast: the reference casts the table first,
         # the same values; its backward sums repeated tokens in bf16, this
         # one in f32
-        return nn.functional.embedding(tokens.long(), self.embed).to(ACT_DTYPE)
+        cut = shard_ctx.model_cut("btf", (*tokens.shape, self.cfg.vocab))
+        if cut is None:
+            return nn.functional.embedding(tokens.long(), self.embed).to(ACT_DTYPE)
+        rows = self.embed.shape[0]  # this rank's block of the vocabulary
+        at = tokens.long() - cut.index * rows
+        mine = (at >= 0) & (at < rows)
+        x = nn.functional.embedding(torch.where(mine, at, 0), self.embed)
+        return shard_ctx.model_sum(torch.where(mine[..., None], x, 0.0), cut).to(ACT_DTYPE)
 
     def _positions(self, B: int, S_len: int, offset: int = 0) -> torch.Tensor:
         """(B, S) positions; with M-RoPE (B, S, 3) streams: the first
@@ -440,7 +454,7 @@ class Model(nn.Module):
         x = L.rmsnorm(self.final_norm, x, cfg.norm_eps)
         if n_prefix:
             x = x[:, n_prefix:]
-        nll = L.chunked_softmax_xent(x, self._lm_head(), labels)
+        nll = L.chunked_softmax_xent(x, self._lm_head(), labels, vocab=cfg.vocab)
         self.last_aux = aux.detach()
         return nll + 0.01 * aux
 
@@ -470,7 +484,7 @@ class Model(nn.Module):
             x = _recomputed(self._whisper_train_layer, i, x, mem)
         x = L.rmsnorm(self.final_norm, x, cfg.norm_eps)
         self.last_aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        return L.chunked_softmax_xent(x, self._lm_head(), labels)
+        return L.chunked_softmax_xent(x, self._lm_head(), labels, vocab=cfg.vocab)
 
     def _encode(self, frames: torch.Tensor) -> torch.Tensor:
         """The encoder over ``frames`` (B, M, d) behind sinusoidal positions,
@@ -486,13 +500,16 @@ class Model(nn.Module):
         cfg, lp = self.cfg, self.enc_layers.layer(i)
         h = h + L.attention_train(lp["attn"], L.layernorm(lp["ln1"], h, cfg.norm_eps), cfg,
                                   None, None, rope=False, causal=False)
-        return h + L.mlp_gelu(lp["mlp"], L.layernorm(lp["ln2"], h, cfg.norm_eps))
+        return h + L.mlp_gelu(lp["mlp"], L.layernorm(lp["ln2"], h, cfg.norm_eps), cfg.d_ff)
 
     def _memory_kv(self, lp: dict, mem: torch.Tensor):
         """A decoder layer's keys and values (B, M, nkv, hd) of the
-        encoding ``mem`` (B, M, d)."""
+        encoding ``mem`` (B, M, d); with the cross-attention's heads cut
+        over ``model``, projected whole on every rank, each rank's share
+        of ``mem``'s gradient summed over ``model``."""
         cfg = self.cfg
         B, M = mem.shape[:2]
+        mem = shard_ctx.model_copy(mem, L.head_cut(mem, cfg))
         mk = L.linear(lp["xattn"]["wk"], mem).reshape(B, M, cfg.n_kv, cfg.hd)
         mv = L.linear(lp["xattn"]["wv"], mem).reshape(B, M, cfg.n_kv, cfg.hd)
         return mk, mv
@@ -503,7 +520,7 @@ class Model(nn.Module):
         eps = self.cfg.norm_eps
         h = h + L.cross_attention_train(lp["xattn"], L.layernorm(lp["lnx"], h, eps), (mk, mv),
                                         self.cfg)
-        return h + L.mlp_gelu(lp["mlp"], L.layernorm(lp["ln2"], h, eps))
+        return h + L.mlp_gelu(lp["mlp"], L.layernorm(lp["ln2"], h, eps), self.cfg.d_ff)
 
     def _whisper_train_layer(self, i: int, h: torch.Tensor, mem: torch.Tensor) -> torch.Tensor:
         """Decoder layer ``i`` over the whole sequence (causal), attending to

@@ -24,7 +24,9 @@ adds its part, as the reference's ``shard_map`` sums an input's
 cotangent over the axes its spec leaves out).  The backward of the
 ``aux`` mean is the mean of the cotangents.  So a rank's expert gradient
 sums every data rank's tokens routed to its experts; the train step
-divides it by the data axis and does not reduce it again.
+divides it by the data axis and does not reduce it again.  The ``model``
+sum and copy are ``shard_ctx``'s :func:`~repro_torch.models.shard_ctx.model_sum`
+and :func:`~repro_torch.models.shard_ctx.model_copy`, the dense layers' too.
 """
 from __future__ import annotations
 
@@ -47,34 +49,6 @@ class _Exchange(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return all_to_all(g, ctx.group), None
-
-
-class _ModelSum(torch.autograd.Function):
-    """The sum over ``group`` of bf16 partials, in f32 and rounded to bf16
-    once (for a group of two, the bits of one bf16 addition)."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        return all_reduce(x.float(), group).to(x.dtype)
-
-    @staticmethod
-    def backward(ctx, g):
-        return g, None
-
-
-class _ModelCopy(torch.autograd.Function):
-    """The identity on a tensor every rank of ``group`` holds alike, whose
-    cotangent sums over the group: each rank's cut of the ffn dimension
-    adds its part of the inputs' gradient."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        return all_reduce(g, ctx.group), None
 
 
 class _Mean(torch.autograd.Function):
@@ -118,12 +92,13 @@ def moe_block_ep(p, x: torch.Tensor, cfg) -> tuple[torch.Tensor, torch.Tensor]:
     # (E, C, d) = (n, E_loc, C, d): block i to rank i; back as (n_src, E_loc, C, d)
     recv = _Exchange.apply(buf[:E * C].reshape(E, C, d), data)
     recv = recv.reshape(n, E_loc, C, d).transpose(0, 1).reshape(E_loc, n * C, d)
-    if tp is not None:
-        recv = _ModelCopy.apply(recv, mesh.axis_group(tp))
+    cut = None if tp is None else shard_ctx.Cut(mesh.axis_group(tp), mesh.shape[tp],
+                                                mesh.coords[tp])
+    recv = shard_ctx.model_copy(recv, cut)
     h = F.silu(torch.bmm(recv, p["wg"].to(x.dtype))) * torch.bmm(recv, p["wu"].to(x.dtype))
     ob = torch.bmm(h, p["wd"].to(x.dtype))
-    if tp is not None:
-        ob = _ModelSum.apply(ob.to(torch.bfloat16), mesh.axis_group(tp))
+    if cut is not None:
+        ob = shard_ctx.model_sum(ob.to(torch.bfloat16), cut)
     # (E_loc, n, C, d) -> (n, E_loc, C, d): source rank s's tokens back to s
     send = ob.reshape(E_loc, n, C, d).transpose(0, 1).contiguous()
     flat = _Exchange.apply(send, data).reshape(E * C, d)

@@ -17,11 +17,20 @@ parent writes from fixed seeds.  The cases:
   feedback;
 * the blocks ``shard_of`` cuts against the reference's ``NamedSharding``
   shards, device ``i`` against rank ``i``;
-* the sharded train step of reduced qwen2-1.5b and reduced moonshot on
-  (2, 2), two f32 steps: loss, gradient norm and the gathered parameters
-  against the reference's sharded step (``device_put`` with its
-  shardings, the mesh installed) and against the port's unsharded step
-  with ``accum = 2``;
+* the sharded train step on (2, 2), two f32 steps, for the reduced
+  configs of ``ARCH_SEEDS``: qwen2-1.5b, moonshot-v1-16b-a3b,
+  qwen2-vl-7b, rwkv6-3b, zamba2-2.7b, whisper-medium, minitron-4b (3
+  heads: the attention stays whole, the MLP is cut) and qwen2-1.5b
+  scaled to a vocabulary of 511 (the head stays whole); the vlm and audio
+  batches carry seeded patches and frames, the same on every side.
+  Loss, gradient norm and the gathered parameters against the
+  reference's sharded step (``device_put`` with its shardings, the mesh
+  installed) and against the port's unsharded step with ``accum = 2``;
+* what a rank holds, gathers and projects in reduced qwen2-1.5b's
+  sharded step (spies on ``train._to_compute``, ``train.all_gather``,
+  ``layers.flash_attention`` and the vocabulary-parallel cross-entropy's
+  chunk): no whole leaf that the model axis cuts, half the heads, half
+  the vocabulary;
 * checkpoints: a 4-rank save restored in the reference and in one
   process without a mesh, a reference save restored onto the 4 ranks,
   and 4 → 2 → 1 ranks: each restore's next step against the 4-rank
@@ -64,7 +73,10 @@ F32_RTOL, UPD_RTOL, FLIP_SHARE = 1e-5, 1e-4, 1e-3  # tests/test_torch_lm_train.p
 MARGIN = 1e-4  # tests/test_torch_lm_model.py's routing margin
 GRAD_FLOOR = 1e-4  # chip_smoke.py's: 10**4 x AdamW's eps
 EP_MESHES = ((2, 1), (1, 2), (2, 2))
-ARCH_SEEDS = {"qwen2-1.5b": 2, "moonshot-v1-16b-a3b": 8}  # seed 8: margin 3.8e-4
+# a case is a reduced config, or one scaled as "<arch>@vocab<V>"; seed 8:
+# moonshot's routing margin 3.8e-4
+ARCH_SEEDS = {"qwen2-1.5b": 2, "moonshot-v1-16b-a3b": 8, "qwen2-vl-7b": 2, "rwkv6-3b": 2,
+              "zamba2-2.7b": 2, "whisper-medium": 2, "minitron-4b": 2, "qwen2-1.5b@vocab511": 2}
 EP_SEED = 4
 ROWS, SEQ, STEPS = 4, 32, 2
 LR_KW = dict(lr=1e-3, warmup_steps=1, total_steps=4)
@@ -115,14 +127,40 @@ def _psum_inputs() -> dict:
     }
 
 
-def _init_params(arch: str) -> dict:
+def _case(case: str) -> tuple[str, dict]:
+    """(the arch, the ``cfg.scaled`` overrides) of a case of ``ARCH_SEEDS``."""
+    arch, _, vocab = case.partition("@vocab")
+    return arch, ({"vocab": int(vocab)} if vocab else {})
+
+
+def _cfg(case: str):
+    arch, overrides = _case(case)
     cfg = get_config(arch, reduced=True)
-    model = t_model.get_model(cfg, "cpu").init(torch.Generator().manual_seed(ARCH_SEEDS[arch]))
+    return cfg.scaled(**overrides) if overrides else cfg
+
+
+def _init_params(case: str) -> dict:
+    cfg = _cfg(case)
+    model = t_model.get_model(cfg, "cpu").init(torch.Generator().manual_seed(ARCH_SEEDS[case]))
     return {n: p.detach().numpy().copy() for n, p in model.params().items()}
 
 
+def _stubs(cfg, step: int) -> dict:
+    """Step ``step``'s seeded f32 vision patches (vlm) or audio frames
+    (audio), every row its own; none for the other families."""
+    rng = np.random.default_rng([31, step])
+    if cfg.family == "vlm":
+        return {"patches": rng.normal(size=(ROWS, cfg.vision_patches, cfg.d_model))
+                .astype(np.float32)}
+    if cfg.family == "audio":
+        return {"frames": rng.normal(size=(ROWS, cfg.n_audio_ctx, cfg.d_model))
+                .astype(np.float32)}
+    return {}
+
+
 def _batch(cfg, step: int) -> dict:
-    return DataPipeline(PipelineConfig(cfg.vocab, SEQ, ROWS)).local_batch_at(step)
+    return {**DataPipeline(PipelineConfig(cfg.vocab, SEQ, ROWS)).local_batch_at(step),
+            **_stubs(cfg, step)}
 
 
 def _margin(probs: np.ndarray, k: int) -> float:
@@ -206,8 +244,9 @@ def _rank_cases(rank: int, tmp: Path) -> dict:
 
     moe_ep.moe_block_ep = counted
     acfg = AdamWConfig(**LR_KW)
+    out["spied"] = _spied_step(mesh, acfg)
     for arch, seed in ARCH_SEEDS.items():
-        cfg = get_config(arch, reduced=True)
+        cfg = _cfg(arch)
         calls["n"] = 0
         model = train.shard_model(cfg, mesh, torch.Generator().manual_seed(seed))
         step = train.build_train_step(model, acfg, mesh=mesh)
@@ -269,6 +308,54 @@ def _rank_cases(rank: int, tmp: Path) -> dict:
     moe_ep.moe_block_ep = ep
     out["rank"] = dist.get_rank()
     return out
+
+
+def _spied_step(mesh, acfg) -> dict:
+    """One sharded step of reduced qwen2-1.5b with spies: per leaf, the
+    shapes each ``all_gather`` of ``train._to_compute`` returned and the
+    block the rank computed with; every q that reached
+    ``layers.flash_attention``; every chunk's logits of the
+    vocabulary-parallel cross-entropy."""
+    cfg = get_config("qwen2-1.5b", reduced=True)
+    model = train.shard_model(cfg, mesh, torch.Generator().manual_seed(ARCH_SEEDS["qwen2-1.5b"]))
+    step = train.build_train_step(model, AdamWConfig(**LR_KW), mesh=mesh)
+    opt = adamw_init(model.params())
+    names = {p.data_ptr(): n for n, p in model.params().items()}
+    leaves: dict = {}
+    seen = {"leaf": None, "q": [], "logits": []}
+    to_compute, gather = train._to_compute, train.all_gather
+    flash, chunk = t_layers.flash_attention, t_layers._xent_chunk_cut
+
+    def spy_to_compute(block, lay, mesh_):
+        seen["leaf"] = names[block.data_ptr()]
+        leaves[seen["leaf"]] = {"gathered": []}
+        held = to_compute(block, lay, mesh_)
+        leaves[seen["leaf"]]["held"] = tuple(held.shape)
+        seen["leaf"] = None
+        return held
+
+    def spy_gather(t, group, dim):
+        got = gather(t, group, dim)
+        if seen["leaf"] is not None:
+            leaves[seen["leaf"]]["gathered"].append(tuple(got.shape))
+        return got
+
+    def spy_flash(q, k, v, *a, **kw):
+        seen["q"].append(tuple(q.shape))
+        return flash(q, k, v, *a, **kw)
+
+    def spy_chunk(hc, w, lc, cut):
+        seen["logits"].append((*hc.shape[:-1], w.shape[-1]))
+        return chunk(hc, w, lc, cut)
+
+    train._to_compute, train.all_gather = spy_to_compute, spy_gather
+    t_layers.flash_attention, t_layers._xent_chunk_cut = spy_flash, spy_chunk
+    try:
+        step(opt, {k: torch.tensor(v) for k, v in _batch(cfg, 0).items()})
+    finally:
+        train._to_compute, train.all_gather = to_compute, gather
+        t_layers.flash_attention, t_layers._xent_chunk_cut = flash, chunk
+    return {"leaves": leaves, "q": seen["q"], "logits": seen["logits"], "held": step.held}
 
 
 def _rank_main(rank: int, tmp: str) -> None:
@@ -424,8 +511,9 @@ for spec in args["layout_specs"]:
     for s in arr.addressable_shards:
         arrays[f"layout/{spec}/{s.device.id}"] = np.asarray(s.data)
 
-for arch in args["archs"]:
-    cfg = get_config(arch, reduced=True)
+for arch, base, overrides in args["archs"]:
+    cfg = get_config(base, reduced=True)
+    cfg = cfg.scaled(**overrides) if overrides else cfg
     model = j_model.get_model(cfg)
     params = nest({k[len("init/" + arch + "/"):]: v for k, v in data.items()
                    if k.startswith("init/" + arch + "/")})
@@ -439,6 +527,9 @@ for arch in args["archs"]:
     losses, norms = [], []
     for s in range(args["steps"]):
         batch = {k: jnp.asarray(v) for k, v in pipe.local_batch_at(s).items()}
+        for k in ("patches", "frames"):
+            if f"stub/{arch}/{s}/{k}" in data:
+                batch[k] = jnp.asarray(data[f"stub/{arch}/{s}/{k}"])
         batch = jax.device_put(batch, shd.batch_shardings(batch, mesh))
         params, opt, loss, metrics = step(params, opt, batch)
         losses.append(float(loss))
@@ -446,7 +537,8 @@ for arch in args["archs"]:
     shard_ctx.set_mesh(None)
     scalars[f"step/{arch}/losses"] = losses
     scalars[f"step/{arch}/norms"] = norms
-    scalars[f"step/{arch}/sharding"] = str(params["layers"]["attn"]["wq"]["w"].sharding.spec)
+    leaf = params["layers"]["attn"]["wq"]["w"] if "attn" in params["layers"] else params["embed"]
+    scalars[f"step/{arch}/sharding"] = str(leaf.sharding.spec)
     for name, v in flat(jax.tree.map(np.asarray, params)).items():
         arrays[f"step/{arch}/params/{name}"] = v
 
@@ -464,6 +556,8 @@ def tmp(tmp_path_factory) -> Path:
     arrays = {**_ep_inputs(), **_psum_inputs()}
     for arch in ARCH_SEEDS:
         arrays.update({f"init/{arch}/{n}": v for n, v in _init_params(arch).items()})
+        for s in range(STEPS):
+            arrays.update({f"stub/{arch}/{s}/{k}": v for k, v in _stubs(_cfg(arch), s).items()})
     np.savez(tmp / "inputs.npz", **arrays)
     cfg = get_config("qwen2-1.5b", reduced=True)
     rng = np.random.default_rng(21)
@@ -489,7 +583,7 @@ def reference(tmp):
     args = {"tmp": str(tmp), "ep_meshes": [list(s) for s in EP_MESHES],
             "layout_specs": [[list(e) if isinstance(e, tuple) else e for e in s]
                              for s in LAYOUT_SPECS],
-            "archs": list(ARCH_SEEDS), "lr_kw": LR_KW, "seq": SEQ, "rows": ROWS, "steps": STEPS}
+            "archs": [(case, *_case(case)) for case in ARCH_SEEDS], "lr_kw": LR_KW, "seq": SEQ, "rows": ROWS, "steps": STEPS}
     scalars = run_in_virtual_mesh(_REFERENCE, devices=WORLD, timeout=600, stdin=json.dumps(args))
     return scalars, dict(np.load(tmp / "reference.npz"))
 
@@ -512,7 +606,7 @@ def unsharded():
     out = {}
     try:
         for arch, seed in ARCH_SEEDS.items():
-            cfg = get_config(arch, reduced=True)
+            cfg = _cfg(arch)
             probs.clear()
             model = t_model.get_model(cfg, "cpu").init(torch.Generator().manual_seed(seed))
             step = train.build_train_step(model, AdamWConfig(**LR_KW), accum=2)
@@ -649,7 +743,7 @@ def test_sharded_step_equals_the_references_sharded_step(arch, group, reference,
     """Both packages run the experts expert-parallel with the bf16
     ``model`` sum; MoE bounds as ``_steps_close`` states (step 0's loss
     within 1e-4: measured 1.4e-6)."""
-    cfg = get_config(arch, reduced=True)
+    cfg = _cfg(arch)
     if cfg.moe:
         margins = [_margin(p, cfg.moe.top_k) for p in unsharded[arch]["probs"]]
         assert margins and min(margins) > MARGIN, min(margins)
@@ -660,7 +754,8 @@ def test_sharded_step_equals_the_references_sharded_step(arch, group, reference,
         assert r[f"step/{arch}"]["norms"] == got["norms"]
     assert (got["ep_calls"] > 0) == bool(cfg.moe)
     # the reference's step kept the layout the port's rules give
-    spec = train.param_specs(cfg, abstract_mesh((2, 2), ("data", "model")))["layers.attn.wq.w"]
+    specs = train.param_specs(cfg, abstract_mesh((2, 2), ("data", "model")))
+    spec = specs.get("layers.attn.wq.w", specs["embed"])
     assert scalars[f"step/{arch}/sharding"] == f"PartitionSpec({', '.join(map(repr, spec))})"
     prefix = f"step/{arch}/params/"
     want = {"losses": scalars[f"step/{arch}/losses"], "norms": scalars[f"step/{arch}/norms"],
@@ -676,7 +771,7 @@ def test_sharded_step_equals_the_unsharded_accum_step(arch, group, unsharded):
     For MoE the experts' outputs pass the bf16 ``model`` sum on the mesh
     and stay f32 unsharded, the only expected gap (step 0's loss
     measured 5.3e-5, within 1e-4)."""
-    cfg = get_config(arch, reduced=True)
+    cfg = _cfg(arch)
     got, want = group[0][f"step/{arch}"], unsharded[arch]
     _steps_close(got, want, want["m"], bool(cfg.moe))
 
@@ -730,3 +825,26 @@ def test_elastic_reshard_keeps_each_ranks_block(group):
         np.testing.assert_array_equal(answer["elastic"]["a"],
                                       a[model * 2:(model + 1) * 2, data * 2:(data + 1) * 2])
         np.testing.assert_array_equal(answer["elastic"]["b"], np.ones(4))
+
+
+def test_a_rank_computes_with_its_heads_ffn_columns_and_vocabulary(group):
+    """Reduced qwen2-1.5b on (2, 2): no rank holds or gathers a whole
+    ``wq``, ``wo``, ``wg``, ``wu``, ``wd`` or ``embed`` leaf (each rank
+    computes with half of each), q has 3 of the 6 heads and the logits
+    256 of the 512 columns; ``wk`` and ``wv`` are projected whole."""
+    cfg = get_config("qwen2-1.5b", reduced=True)
+    shapes = convert.param_shapes(cfg)
+    cut = ["embed"] + [n for n in shapes
+                       if n.endswith(".w") and n.split(".")[-2] in ("wq", "wo", "wg", "wu", "wd")]
+    assert len(cut) == 6
+    for answer in group:
+        spied = answer["spied"]
+        for name in cut:
+            leaf = spied["leaves"][name]
+            assert 2 * int(np.prod(leaf["held"])) == int(np.prod(shapes[name])), (name, leaf)
+            assert shapes[name] not in leaf["gathered"], (name, leaf)
+        for name in ("layers.attn.wk.w", "layers.attn.wv.w"):
+            assert spied["leaves"][name]["held"] == shapes[name]
+        assert spied["q"] and {q[2] for q in spied["q"]} == {3}
+        assert spied["logits"] and {lg[-1] for lg in spied["logits"]} == {256}
+        assert spied["held"]["dense"] < spied["held"]["whole"]

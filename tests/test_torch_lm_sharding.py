@@ -9,7 +9,11 @@ and their batches are held spec for spec on the production meshes
 ``launch.mesh.abstract_mesh`` of the same axes.  ``activation_spec`` is
 held against the spec the reference's ``constrain`` pins (its
 ``with_sharding_constraint`` replaced by a recorder) for every kind and
-mode.  ``compress``/``decompress`` are compared bit for bit, ties at .5
+mode.  ``train.leaf_layouts`` (the block each leaf computes with in the
+meshed step) is held against the pins the reference's ``constrain``
+records for the heads, the ffn width and the vocabulary, for all ten
+configs on each mesh; ``layers.rank_kv`` against the whole attention's
+GQA grouping.  ``compress``/``decompress`` are compared bit for bit, ties at .5
 included.  Blocks: ``shard_of`` at every coordinate of a mesh tiles the
 leaf, and ``gather`` on a one-rank gloo group in this process returns
 it; the 4-rank layout against the reference's ``NamedSharding`` is in
@@ -36,7 +40,9 @@ from repro.train import compression as j_comp
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.launch import mesh as t_mesh
 from repro_torch.launch import sharding as t_shd
+from repro_torch.launch import train
 from repro_torch.models import convert
+from repro_torch.models import layers
 from repro_torch.models import shard_ctx as t_ctx
 from repro_torch.models.model import Model
 from repro_torch.train import compression as t_comp
@@ -189,6 +195,108 @@ def test_activation_spec_without_a_mesh_and_unknown_kinds(recorded):
         j_ctx.constrain(jax.ShapeDtypeStruct((4, 8), jnp.float32), "bogus")
     with pytest.raises(ValueError):
         t_ctx.activation_spec("bogus", (4, 8))
+
+
+# ---------------------------------------------------------------- the meshed step's layouts
+
+# the leaves a pin cuts over ``model``, by (owner, projection, leaf): the
+# dimension, from the end, that the layer splits
+_CUT_DIMS = {("attn", "wq", "w"): -1, ("attn", "wq", "b"): -1, ("attn", "wo", "w"): -2,
+             ("mlp", "wg", "w"): -1, ("mlp", "wu", "w"): -1, ("mlp", "wd", "w"): -2,
+             ("mlp", "wi", "w"): -1, ("mlp", "wi", "b"): -1, ("mlp", "wo", "w"): -2}
+
+
+def _pins_model(kind: str, shape: tuple) -> bool:
+    """Whether the reference's ``constrain`` (its mesh installed, the
+    recorder in place) pins a dimension of ``shape`` to ``model``."""
+    pinned = j_ctx.constrain(jax.ShapeDtypeStruct(shape, jnp.bfloat16), kind)
+    return isinstance(pinned, tuple) and "model" in pinned[1]
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+@pytest.mark.parametrize("arch", ARCHS)
+def test_leaf_layouts_follow_the_references_pins(arch, mesh, recorded):
+    """``train.leaf_layouts``: every leaf keeps its rule's block; a leaf is
+    computed with in its ``model`` block exactly where the reference pins
+    the heads (``"bthd"`` on q), the ffn width or the vocabulary
+    (``"btf"``) to ``model`` on a model axis of more than one rank, on
+    the dimension its layer splits; ``wk`` and ``wv`` are then read in
+    part (their gradient summed over ``model``); the experts compute with
+    the block they keep; the rest runs whole."""
+    jm, tm = _meshes(mesh)
+    j_ctx.set_mesh(jm, "all")
+    cfg = get_config(arch)
+    tp = tm.shape["model"] > 1
+    heads = tp and _pins_model("bthd", (4, 64, cfg.nh_eff, cfg.hd))
+    ffn = tp and _pins_model("btf", (4, 64, cfg.d_ff))
+    vocab = tp and _pins_model("btf", (4, 64, cfg.vocab))
+    shapes = convert.param_shapes(cfg)
+    specs = train.param_specs(cfg, tm)
+    cut_any = False
+    for name, lay in train.leaf_layouts(cfg, tm).items():
+        assert lay.spec == specs[name], name
+        if train.is_expert(name):
+            assert lay.compute == lay.spec and not lay.partial, name
+            continue
+        owner, proj, leaf = ([None] * 3 + name.split("."))[-3:]
+        owner = "attn" if owner == "xattn" else owner
+        if name in ("embed", "lm_head"):
+            dim = (-2 if name == "embed" else -1) if vocab else None
+        elif owner == "attn":
+            dim = _CUT_DIMS.get((owner, proj, leaf)) if heads else None
+        elif owner == "mlp":
+            dim = _CUT_DIMS.get((owner, proj, leaf)) if ffn else None
+        else:
+            dim = None
+        want = () if dim is None else tuple(
+            "model" if i == len(shapes[name]) + dim else None for i in range(len(shapes[name])))
+        assert lay.compute == want, (name, lay)
+        assert lay.partial == (heads and owner == "attn" and proj in ("wk", "wv")), name
+        if dim is not None:
+            assert shapes[name][dim] % tm.shape["model"] == 0, name
+            cut_any = True
+    assert cut_any == (heads or ffn or vocab)
+
+
+def test_moonshot_computes_with_about_half_its_dense_leaves():
+    """moonshot-v1-16b-a3b at 2 of 48 layers on (data 2, model 2), as the
+    card's mesh leg runs it: 704.9 M non-expert elements, of which a rank
+    computes with 361.0 M (the embedding, the head, ``wq`` and ``wo``
+    at half, ``wk``, ``wv`` and the router whole)."""
+    cfg = get_config("moonshot-v1-16b-a3b").scaled(n_layers=2)
+    held = train.dense_held(cfg, t_mesh.abstract_mesh((2, 2), ("data", "model")))
+    assert held == {"dense": 360_982_528, "whole": 704_915_456}
+    assert train.dense_held(cfg, t_mesh.abstract_mesh((2, 1), ("data", "model")))["dense"] \
+        == held["whole"]
+
+
+@pytest.mark.parametrize("nh,nkv,size", [(12, 2, 2), (8, 2, 4), (6, 2, 2), (12, 3, 2), (4, 4, 2)],
+                         ids=lambda v: str(v))
+def test_rank_kv_gives_each_query_head_its_key_head(nh, nkv, size):
+    """Every rank's query heads read, through ``flash_attention``'s
+    grouping of the heads ``rank_kv`` returns, the key heads the whole
+    attention gives them: whole GQA groups, one group, or one key head a
+    query head."""
+    cfg = get_config("qwen2-1.5b", reduced=True).scaled(n_heads=nh, n_kv=nkv)
+    t = torch.arange(2 * 3 * nkv * 4, dtype=torch.float32).reshape(2, 3, nkv, 4)
+    local = nh // size
+    for index in range(size):
+        got = layers.rank_kv(t, t_ctx.Cut(None, size, index), local, cfg)
+        assert local % got.shape[2] == 0
+        heads = (index * local + torch.arange(local)) // (nh // nkv)
+        torch.testing.assert_close(got.repeat_interleave(local // got.shape[2], dim=2),
+                                   t[:, :, heads], rtol=0, atol=0)
+
+
+def test_the_model_axis_operations_without_a_mesh_are_the_identity():
+    t_ctx.set_mesh(None)
+    x = torch.ones(2, 3, 8, requires_grad=True)
+    assert t_ctx.model_cut("btf", (2, 3, 8)) is None
+    assert t_ctx.model_cut("bthd", (2, 3, 4, 2)) is None
+    assert t_ctx.model_sum(x, None) is x and t_ctx.model_copy(x, None) is x
+    tm = t_mesh.abstract_mesh((2, 1), ("data", "model"))
+    assert not t_ctx.cuts_model(tm, "btf", (2, 3, 8))  # a model axis of one rank
+    assert t_ctx.cuts_model(t_mesh.abstract_mesh((1, 2), ("data", "model")), "btf", (2, 3, 8))
 
 
 # ---------------------------------------------------------------- compression
