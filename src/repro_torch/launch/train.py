@@ -21,7 +21,8 @@ reference's sharded train step (``launch/dryrun.py``'s jit with
 (:func:`shard_model`), gathers each leaf over the data axes for its
 batch rows (FSDP), computes its share of the dense layers that the
 reference's pins cut over ``model`` (its heads, ffn columns and
-vocabulary rows; :func:`leaf_layouts`) and runs the experts
+vocabulary rows) and of the recurrent mixers (their heads;
+:func:`leaf_layouts`) and runs the experts
 expert-parallel; like the reference's runtime, the launcher has no flag
 for it.  A resumed run starts at the restored AdamW step
 counter, the number of updates the checkpoint holds, so it continues the
@@ -51,6 +52,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.convert import flat, nest, param_shapes
 from repro_torch.models.model import Model, get_model
 from repro_torch.models.moe_ep import EXPERT_LEAVES
+from repro_torch.models.ssm import mamba2_dims
 from repro_torch.train.checkpoint import Checkpointer
 from repro_torch.train.fault_tolerance import PreemptionHandler, StragglerMonitor
 from repro_torch.train.optimizer import AdamWConfig, adamw_init, adamw_update
@@ -76,7 +78,8 @@ def build_train_step(model: Model, acfg: AdamWConfig, accum: int = 1, mesh=None)
     over the data axes, and over ``model`` only where the layer runs
     whole), and runs the loss with the mesh installed, so the dense
     layers split their heads, ffn columns and vocabulary over ``model``
-    (``models/layers.py``) and the MoE layers take ``moe_block_ep`` on
+    (``models/layers.py``), the recurrent mixers their heads
+    (``models/ssm.py``), and the MoE layers take ``moe_block_ep`` on
     the rank's experts.  Each gradient is brought back to the rank's
     block (summed over ``model`` where the rank used a leaf in part),
     averaged over the data axes; an expert gradient, which already sums
@@ -162,16 +165,48 @@ EP_LAYOUT = {"wg": (None, "data", None, "model"), "wu": (None, "data", None, "mo
              "wd": (None, "data", "model", None)}
 
 
+class Select(NamedTuple):
+    """The columns a rank computes with along dimension ``dim`` (from the
+    end) of a leaf whose layer reads several ranges of it: ``parts``, its
+    consecutive ranges as (length, cut), a cut range split into equal
+    blocks over ``model`` (the rank reads its block), the others read
+    whole by every rank.  Mamba2's ``in_proj`` is ``[z | x | B | C | dt]``:
+    z, x and dt cut by heads, B and C whole."""
+
+    dim: int
+    parts: tuple[tuple[int, bool], ...]
+
+    def index(self, size: int, index: int, device=None) -> torch.Tensor:
+        """The positions along ``dim`` that rank ``index`` of a ``model``
+        axis of ``size`` reads, in order."""
+        out, at = [], 0
+        for length, cut in self.parts:
+            step = length // size if cut else length
+            start = at + (index * step if cut else 0)
+            out.append(torch.arange(start, start + step, device=device))
+            at += length
+        return torch.cat(out)
+
+    def share(self, size: int) -> tuple[int, int]:
+        """(the positions a rank reads, the whole dimension's) on a ``model``
+        axis of ``size``."""
+        return (sum(length // size if cut else length for length, cut in self.parts),
+                sum(length for length, _ in self.parts))
+
+
 class LeafLayout(NamedTuple):
     """A leaf on a mesh: ``spec``, the block a rank keeps (its sharding
     rule); ``compute``, the block it computes with (``"model"`` on the
-    dimension the layer splits over the model axis, or ``()``: whole);
-    ``partial``, the rank reads the leaf only in part, so its gradient is
-    this rank's share, to be summed over ``model``."""
+    dimension the layer splits over the model axis, or ``()``: whole, or
+    the ``select`` below); ``partial``, the rank reads the leaf only in
+    part, so its gradient is this rank's share, to be summed over
+    ``model``; ``select``, the rank's columns where it reads several
+    ranges of one dimension (:class:`Select`), else None."""
 
     spec: tuple
     compute: tuple
     partial: bool
+    select: Select | None = None
 
 
 def _compute_dim(name: str, heads: bool, ffn: bool, vocab: bool) -> tuple[int | None, bool]:
@@ -199,28 +234,82 @@ def _compute_dim(name: str, heads: bool, ffn: bool, vocab: bool) -> tuple[int | 
     return None, False
 
 
+# the recurrent mixers' leaves (the name after ``layers.``) that a rank
+# computes with in part where the mixer's heads are cut over ``model``:
+# (the dimension, from the end, holding the rank's heads or ffn columns,
+# or None; whether the gradient is a share to sum over ``model``).  RWKV6's
+# time mix: r, k, v, g and the decay's channels from the columns of wr, wk,
+# wv, wg, w0 and wb, u's rows of the rank's heads, wo's rows; mu, wa and
+# the per-head gn read whole for the rank's heads only.  Its channel mix
+# (the ffn cut): wk's columns, wv's rows.  Mamba2: dt_bias, A_log and D of
+# the rank's heads, out_proj's rows, gn read in part; in_proj and conv_w
+# are selections (``_mixer_cuts``).
+_RWKV6_TIME = {"mix.wr.w": (-1, False), "mix.wk.w": (-1, False), "mix.wv.w": (-1, False),
+               "mix.wg.w": (-1, False), "mix.w0": (-1, False), "mix.wb": (-1, False),
+               "mix.u": (-2, False), "mix.wo.w": (-2, False), "mix.mu": (None, True),
+               "mix.wa": (None, True), "mix.gn.scale": (None, True)}
+_RWKV6_CHANNEL = {"cmix.wk.w": (-1, False), "cmix.wv.w": (-2, False)}
+_MAMBA2 = {"A_log": (-1, False), "D": (-1, False), "dt_bias": (-1, False),
+           "out_proj.w": (-2, False), "gn.scale": (None, True)}
+
+
+def _mixer_cuts(cfg: ModelConfig, mesh) -> dict[str, tuple]:
+    """The entries of the tables above that apply to ``cfg`` on ``mesh``,
+    each with its :class:`Select` or None: a mixer's where ``model``
+    divides its heads (``shard_ctx.cuts_model`` on ``"bthd"``, the rule
+    its layer asks), the channel mix's where it divides the ffn width.
+    Mamba2's ``in_proj`` (``[z | x | B | C | dt]``) and ``conv_w`` (``[x |
+    B | C]``) select the heads' ranges and all of B and C."""
+    out = {}
+    if cfg.family == "ssm":
+        if shard_ctx.cuts_model(mesh, "bthd", (1, 1, cfg.n_heads, cfg.hd)):
+            out.update(_RWKV6_TIME)
+        if shard_ctx.cuts_model(mesh, "btf", (1, 1, cfg.d_ff)):
+            out.update(_RWKV6_CHANNEL)
+    elif cfg.family == "hybrid":
+        inner, nh, hd = mamba2_dims(cfg)
+        if shard_ctx.cuts_model(mesh, "bthd", (1, 1, nh, hd)):
+            bc = (2 * cfg.ssm.d_state, False)
+            out.update(_MAMBA2)
+            out["in_proj.w"] = (None, True, Select(-1, ((inner, True), (inner, True), bc,
+                                                        (nh, True))))
+            out["conv_w"] = (None, True, Select(-1, ((inner, True), bc)))
+    return {k: v if len(v) == 3 else (*v, None) for k, v in out.items()}
+
+
 def leaf_layouts(cfg: ModelConfig, mesh) -> dict[str, LeafLayout]:
-    """Every leaf's layout on ``mesh`` for the meshed train step, by dotted
-    name: the block it keeps (``param_specs``) and the block it computes
-    with under the installed mesh's pins (mode ``"all"``), ``shard_ctx.
-    cuts_model``: the heads of ``"bthd"``, the ffn width and the
-    vocabulary of ``"btf"``.  Where a pin does not cut (heads the axis does
-    not divide, as reduced minitron-4b's 3; a vocabulary of 51,865) the
-    layer runs whole.  The router, the norms and the recurrent mixers run
-    whole on every rank; the experts compute with the block they keep."""
+    """Every leaf's layout on ``mesh`` for the meshed train step (and the
+    meshed prefill and decode), by dotted name: the block it keeps
+    (``param_specs``) and the block it computes with under the installed
+    mesh's pins (mode ``"all"``), ``shard_ctx.cuts_model``: the heads of
+    ``"bthd"``, the ffn width and the vocabulary of ``"btf"``.  The
+    recurrent mixers split their heads (and RWKV6's channel mix its ffn
+    width) over ``model`` by the same rule (the reference pins no mixer;
+    the port's split follows its parameter rules, ``models/ssm.py``):
+    RWKV6's per leaf as ``_RWKV6_TIME`` and ``_RWKV6_CHANNEL``, Mamba2's as
+    ``_MAMBA2``, its ``in_proj`` and ``conv_w`` as a :class:`Select`.
+    Where a pin does not cut (heads the axis does not divide, as reduced
+    minitron-4b's 3 or rwkv6-3b's at 3 heads; a vocabulary of 51,865) the
+    layer runs whole.  The router and the norms run whole on every rank;
+    the experts compute with the block they keep."""
     specs = param_specs(cfg, mesh)
     heads = shard_ctx.cuts_model(mesh, "bthd", (1, 1, cfg.nh_eff, cfg.hd))
     ffn = shard_ctx.cuts_model(mesh, "btf", (1, 1, cfg.d_ff))
     vocab = shard_ctx.cuts_model(mesh, "btf", (1, 1, cfg.vocab))
+    mixers = _mixer_cuts(cfg, mesh)
     out = {}
     for name, shape in param_shapes(cfg).items():
         if is_expert(name):
             out[name] = LeafLayout(specs[name], specs[name], False)
             continue
-        dim, partial = _compute_dim(name, heads, ffn, vocab)
+        leaf = name.partition(".")[2] if name.startswith("layers.") else None
+        if leaf in mixers:
+            dim, partial, select = mixers[leaf]
+        else:
+            (dim, partial), select = _compute_dim(name, heads, ffn, vocab), None
         compute = () if dim is None else tuple(
             "model" if i == len(shape) + dim else None for i in range(len(shape)))
-        out[name] = LeafLayout(specs[name], compute, partial)
+        out[name] = LeafLayout(specs[name], compute, partial, select)
     return out
 
 
@@ -235,7 +324,12 @@ def dense_held(cfg: ModelConfig, mesh) -> dict[str, int]:
             continue
         whole = math.prod(shapes[name])
         held["whole"] += whole
-        held["dense"] += whole // (1 if _model_dim(lay.compute) is None else mesh.shape["model"])
+        if lay.select is not None:
+            read, length = lay.select.share(mesh.shape["model"])
+            held["dense"] += whole // length * read
+        else:
+            held["dense"] += whole // (1 if _model_dim(lay.compute) is None
+                                       else mesh.shape["model"])
     return held
 
 
@@ -265,13 +359,16 @@ def _to_compute(block: torch.Tensor, lay: LeafLayout, mesh) -> torch.Tensor:
     """The block a rank computes with from the block it keeps: gathered
     over the data axes, then over ``model`` where the layer runs whole,
     narrowed where it splits a leaf the rules keep whole over ``model``,
-    or re-cut where it splits another dimension than the rules (one
-    ``all_to_all``)."""
+    re-cut where it splits another dimension than the rules (one
+    ``all_to_all``), or, for a :class:`Select`, its columns brought from
+    the ranks that keep them (:func:`_select_block`)."""
     out = block
     for dim, entry in enumerate(lay.spec):
         for a in reversed(shd.entry_axes(entry)):
             if a != "model":
                 out = all_gather(out, mesh.axis_group(a), dim)
+    if lay.select is not None:
+        return _select_block(out, lay, mesh)
     s, c = _model_dim(lay.spec), _model_dim(lay.compute)
     if s == c:
         return out
@@ -281,6 +378,77 @@ def _to_compute(block: torch.Tensor, lay: LeafLayout, mesh) -> torch.Tensor:
     if s is None:
         return _model_block(out, c, mesh).clone()
     return _recut(out, c, s, group)
+
+
+def _select_index(sel: Select, mesh, device) -> torch.Tensor:
+    return sel.index(mesh.shape["model"], mesh.coords["model"], device)
+
+
+def _select_parts(sel: Select, width: int, n: int, device) -> list[list[torch.Tensor]]:
+    """``parts[j][m]``: the positions, within rank ``m``'s kept block of
+    ``width`` columns (block ``m`` of the dimension cut over ``model``),
+    of the columns rank ``j`` reads; in ``j``'s order, as ``j``'s
+    positions rise with ``m``."""
+    out = []
+    for j in range(n):
+        idx = sel.index(n, j, device)
+        out.append([idx[(idx >= m * width) & (idx < (m + 1) * width)] - m * width
+                    for m in range(n)])
+    return out
+
+
+def _exchange(chunks: list[torch.Tensor], dim: int, longest: int, group) -> list[torch.Tensor]:
+    """``chunks[j]`` sent to member ``j`` (each padded along ``dim`` to
+    ``longest``, the same on every member: one ``all_to_all``); what each
+    member sent here, in member order, still padded."""
+    padded = [torch.cat([t, t.new_zeros((*t.shape[:dim], longest - t.shape[dim],
+                                         *t.shape[dim + 1:]))], dim) for t in chunks]
+    return list(all_to_all(torch.stack(padded), group).unbind(0))
+
+
+def _select_block(out: torch.Tensor, lay: LeafLayout, mesh) -> torch.Tensor:
+    """A rank's :class:`Select` of a leaf gathered over the data axes:
+    taken from it where the rules keep the dimension whole over ``model``;
+    else each rank sends every other the columns of its kept block that
+    the other reads (one ``all_to_all``), and the rank's columns are the
+    pieces received, in member order."""
+    dim = out.dim() + lay.select.dim
+    s = _model_dim(lay.spec)
+    if s is None:
+        return out.index_select(dim, _select_index(lay.select, mesh, out.device))
+    if s != dim:
+        raise ValueError(f"{lay}: the rules cut another dimension than the selection's")
+    n, me = mesh.shape["model"], mesh.coords["model"]
+    parts = _select_parts(lay.select, out.shape[dim], n, out.device)
+    recv = _exchange([out.index_select(dim, parts[j][me]) for j in range(n)], dim,
+                     max(map(len, sum(parts, []))), mesh.axis_group("model"))
+    return torch.cat([t.narrow(dim, 0, len(parts[me][m])) for m, t in enumerate(recv)], dim)
+
+
+def _select_grad(g: torch.Tensor, lay: LeafLayout, mesh) -> torch.Tensor:
+    """The gradient of a rank's :class:`Select` summed over ``model`` onto
+    the kept block: each cut column gets its owner's gradient, a column
+    every rank reads the sum of their shares.  Where the rules keep the
+    dimension whole, the columns are scattered into place over zeros and
+    summed; else each rank sends its columns to the rank that keeps them
+    (one ``all_to_all``) and the pieces received are added into place in
+    member order."""
+    dim = g.dim() + lay.select.dim
+    n, me = mesh.shape["model"], mesh.coords["model"]
+    block = list(g.shape)
+    block[dim] = lay.select.share(n)[1]
+    if _model_dim(lay.spec) is None:
+        whole = g.new_zeros(block).index_copy(dim, _select_index(lay.select, mesh, g.device), g)
+        return all_reduce(whole, mesh.axis_group("model"))
+    block[dim] //= n
+    parts = _select_parts(lay.select, block[dim], n, g.device)
+    sizes = [len(parts[me][m]) for m in range(n)]
+    recv = _exchange(list(g.split(sizes, dim)), dim, max(map(len, sum(parts, []))),
+                     mesh.axis_group("model"))
+    out = g.new_zeros(block)
+    for j, t in enumerate(recv):
+        out.index_add_(dim, parts[j][me], t.narrow(dim, 0, len(parts[j][me])))
+    return out
 
 
 def _model_block(t: torch.Tensor, dim: int, mesh) -> torch.Tensor:
@@ -305,12 +473,15 @@ def _mean_block(g: torch.Tensor, lay: LeafLayout, mesh, daxes: tuple[str, ...]) 
     ``model`` it is brought to the kept block first: re-cut, gathered
     where the rank computed with its block of a leaf the rules keep
     whole, summed where the rank read the leaf in part (reduce-scattered
-    onto the block), narrowed where it is still whole (every rank of a
-    ``model`` group holds the same).  Then the spec's data axes are cut in
+    onto the block; a :class:`Select`'s by :func:`_select_grad`), narrowed
+    where it is still whole (every rank of a ``model`` group holds the
+    same).  Then the spec's data axes are cut in
     order, each by summing over its group; data axes it leaves out are
     summed last, on the block."""
     s, c = _model_dim(lay.spec), _model_dim(lay.compute)
-    if s != c or lay.partial:
+    if lay.select is not None:
+        g = _select_grad(g, lay, mesh)
+    elif s != c or lay.partial:
         group = mesh.axis_group("model")
         if c is None and s is None:
             g = all_reduce(g, group)

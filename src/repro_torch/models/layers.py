@@ -37,6 +37,14 @@ meshed train step hands them over):
 
 Without a mesh, or where a pin does not cut (heads or widths the axis
 does not divide), a layer runs whole, as the reference's does.
+
+A meshed prefill or decode (``launch/dryrun.py``) splits the same way:
+the prefill's attention projects every key head whole for the cache
+(:func:`attention_prefill`); a decode attends over the block of the
+cache's positions the rank holds, its q gathered whole over ``model``,
+and combines the blocks' softmax by the log-sum-exp
+(:func:`attend_cached`); ``moe_block`` routes every token of the call at
+once, as the reference's serving cells (no mesh installed) do.
 """
 from __future__ import annotations
 
@@ -47,7 +55,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.launch.mesh import all_reduce
+from repro_torch.launch.mesh import all_gather, all_reduce
 from repro_torch.models import shard_ctx
 from repro_torch.models.shard_ctx import Cut, model_copy, model_sum
 
@@ -148,10 +156,12 @@ def rank_kv(t: torch.Tensor, cut: Cut, nh: int, cfg) -> torch.Tensor:
     return t.repeat_interleave(g, dim=2)[:, :, h0:h0 + nh]
 
 
-def _qkv(p, x: torch.Tensor, cfg, cos, sin, rope: bool = True, cut: Cut | None = None):
+def _qkv(p, x: torch.Tensor, cfg, cos, sin, rope: bool = True, cut: Cut | None = None,
+         whole_kv: bool = False):
     """q, k and v of ``x``; with ``cut``, q of this rank's heads from its
     columns of ``wq``, k and v projected whole and cut to the key heads
-    those heads read (:func:`rank_kv`)."""
+    those heads read (:func:`rank_kv`), or left whole with ``whole_kv``
+    (a cache keeps them all)."""
     B, S, _ = x.shape
     hd, nh, nkv = cfg.hd, cfg.nh_eff, cfg.n_kv
     if cut is not None:
@@ -159,7 +169,7 @@ def _qkv(p, x: torch.Tensor, cfg, cos, sin, rope: bool = True, cut: Cut | None =
     q = linear(p["wq"], x).reshape(B, S, nh, hd)
     k = linear(p["wk"], x).reshape(B, S, nkv, hd)
     v = linear(p["wv"], x).reshape(B, S, nkv, hd)
-    if cut is not None:
+    if cut is not None and not whole_kv:
         k, v = rank_kv(k, cut, nh, cfg), rank_kv(v, cut, nh, cfg)
     if rope:
         q = apply_rope(q, cos, sin)
@@ -262,6 +272,21 @@ def attention_train(p, x: torch.Tensor, cfg, cos, sin, rope: bool = True,
     return out_proj(p["wo"], o.reshape(B, S, -1), cut)
 
 
+def attention_prefill(p, x: torch.Tensor, cfg, cos, sin, rope: bool = True):
+    """The causal self-attention over a prompt ``x`` (B, S, d): (out, k, v),
+    the keys and values (B, S, nkv, hd) of every key head, as a cache
+    keeps them.  With the heads cut over ``model``, q of the rank's heads,
+    k and v projected whole (the rank attends with those its heads read)
+    and ``wo``'s rows summed, as :func:`attention_train`."""
+    B, S = x.shape[:2]
+    cut = head_cut(x, cfg)
+    q, k, v = _qkv(p, model_copy(x, cut), cfg, cos, sin, rope, cut, whole_kv=True)
+    ka, va = (k, v) if cut is None else (rank_kv(k, cut, q.shape[2], cfg),
+                                         rank_kv(v, cut, q.shape[2], cfg))
+    o = flash_attention(q, ka, va, causal=True)
+    return out_proj(p["wo"], o.reshape(B, S, -1), cut), k, v
+
+
 def cross_attention_train(p, x: torch.Tensor, mem_kv, cfg) -> torch.Tensor:
     """x (B, S, d) attends, without a mask, to the memory's keys and values
     ``mem_kv`` = (k, v), each (B, M, nkv, hd), projected beforehand (whole,
@@ -284,7 +309,18 @@ def attention_decode(p, x: torch.Tensor, cache: dict, pos, cfg, cos, sin,
 
     Writes this step's key and value into slot ``pos`` of the cache in
     place and masks every slot after ``pos``.  Returns (out (B, 1, d),
-    the cache)."""
+    the cache).
+
+    While a meshed decode serves (``shard_ctx.serving``), ``cache`` may
+    hold a block of the positions (``seq_cut("k")``): the rank that owns
+    slot ``pos`` writes it, and each rank attends over its slots
+    (:func:`attend_cached`); with the heads cut over ``model``, q of the
+    rank's heads is gathered whole first and ``wo``'s rows are summed
+    after."""
+    cut = head_cut(x, cfg)
+    seq = shard_ctx.seq_cut("k")
+    if cut is not None or seq is not None:
+        return _attention_decode_meshed(p, x, cache, pos, cfg, cos, sin, rope, cut, seq)
     B = x.shape[0]
     hd, nh, nkv = cfg.hd, cfg.nh_eff, cfg.n_kv
     q = linear(p["wq"], x).reshape(B, 1, nh, hd)
@@ -306,6 +342,83 @@ def attention_decode(p, x: torch.Tensor, cache: dict, pos, cfg, cos, sin,
     pr = torch.softmax(s, dim=-1).to(cv.dtype)
     o = torch.einsum("bkgqs,bskh->bqkgh", pr, cv).reshape(B, 1, nh * hd)
     return linear(p["wo"], o), cache
+
+
+def _attention_decode_meshed(p, x, cache, pos, cfg, cos, sin, rope, cut, seq):
+    B = x.shape[0]
+    q, k, v = _qkv(p, x, cfg, cos, sin, rope, cut, whole_kv=True)
+    ck, cv = cache["k"], cache["v"]
+    S_blk = ck.shape[1]
+    start = 0 if seq is None else seq.index * S_blk
+    pos = torch.as_tensor(pos, device=ck.device)
+    # the owner of slot ``pos`` writes it; the others write a slot back as
+    # it was (no host sync on ``pos``)
+    at = torch.clamp(pos - start, 0, S_blk - 1).reshape(1)
+    mine = (pos >= start) & (pos < start + S_blk)
+    ck.index_copy_(1, at, torch.where(mine, k.to(ck.dtype), ck.index_select(1, at)))
+    cv.index_copy_(1, at, torch.where(mine, v.to(cv.dtype), cv.index_select(1, at)))
+    valid = start + torch.arange(S_blk, device=ck.device) <= pos
+    o = attend_cached(q, ck, cv, valid, cfg, cut, seq)
+    return out_proj(p["wo"], o, cut), cache
+
+
+def attend_cached(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, valid, cfg,
+                  cut: Cut | None, seq) -> torch.Tensor:
+    """One query position ``q`` (B, 1, nh_r, hd) (with ``cut``, the rank's
+    heads) against cached keys and values (B, S_blk, nkv, hd), ``valid``
+    (S_blk,) the slots it may read (None: all).  Returns the output of the
+    heads the rank computes with, (B, 1, nh_r * hd) in ``v``'s dtype.
+
+    With ``cut``, q is gathered over ``model`` (every head, for every key
+    head of the slots).  Without ``seq``, the softmax over the slots is
+    the reference's decode (f32, cast to ``v``'s dtype before the
+    product).  With ``seq`` (a block of the positions, ``shard_ctx.
+    SeqCut``), each rank takes its slots' f32 partial max, sum of
+    exponentials and product with ``v``; the blocks' partials are gathered
+    over ``seq.axes`` and combined by the log-sum-exp in block order, the
+    same sums on every rank."""
+    B, _, nh_r, hd = q.shape
+    if cut is not None:
+        q = all_gather(q, cut.group, 2)
+    nh, nkv = q.shape[2], k.shape[2]
+    g = nh // nkv
+    qh = (q * hd**-0.5).reshape(B, 1, nkv, g, hd)
+    s = torch.einsum("bqkgh,bskh->bkgqs", qh, k).float()
+    if valid is not None:
+        s = s.masked_fill(~valid, float("-inf"))
+    if seq is None:
+        pr = torch.softmax(s, dim=-1).to(v.dtype)
+        o = torch.einsum("bkgqs,bskh->bqkgh", pr, v)
+    else:
+        m = s.amax(dim=-1, keepdim=True)  # -inf where every slot is masked
+        e = torch.exp(s - torch.where(torch.isfinite(m), m, 0.0))
+        part = torch.cat([m, e.sum(dim=-1, keepdim=True),
+                          torch.einsum("bkgqs,bskh->bkgqh", e, v.float())], dim=-1)
+        parts = shard_ctx.gather_over(part[None], seq.axes, 0)
+        top = parts[..., :1].amax(dim=0)  # finite: block 0 holds slot 0
+        w = torch.exp(parts[..., :1] - top)
+        o = (w * parts[..., 2:]).sum(dim=0) / (w * parts[..., 1:2]).sum(dim=0)
+        o = o.to(v.dtype).permute(0, 3, 1, 2, 4)  # (B, 1, nkv, g, hd)
+    o = o.reshape(B, 1, nh, hd)
+    if cut is not None:
+        o = o[:, :, cut.index * nh_r:(cut.index + 1) * nh_r]
+    return o.reshape(B, 1, nh_r * hd)
+
+
+def cross_attention_decode(p, x: torch.Tensor, mem_kv, cfg) -> torch.Tensor:
+    """Decode's cross-attention of ``x`` (B, 1, d) to the memory's keys
+    and values the cache holds: :func:`cross_attention_train`, or, while
+    a meshed decode serves a cache whose memory positions are cut
+    (``seq_cut("mem_k")``), the rank's block of them (:func:`attend_cached`)."""
+    seq = shard_ctx.seq_cut("mem_k")
+    if seq is None:
+        return cross_attention_train(p, x, mem_kv, cfg)
+    B = x.shape[0]
+    cut = head_cut(x, cfg)
+    nh = cfg.nh_eff if cut is None else cfg.nh_eff // cut.size
+    q = linear(p["wq"], x).reshape(B, 1, nh, cfg.hd)
+    o = attend_cached(q, *mem_kv, None, cfg, cut, seq)
+    return out_proj(p["wo"], o, cut)
 
 
 # ---------------------------------------------------------------- MLP
@@ -392,9 +505,15 @@ def moe_block(p, x: torch.Tensor, cfg) -> tuple[torch.Tensor, torch.Tensor]:
     outside any Pallas kernel).  With a mesh installed (``shard_ctx``) and
     the experts divisible by its data axis, dispatch runs expert-parallel
     over ``all_to_all`` (``moe_ep.py``), under the reference's four
-    conditions; ``p`` then holds this rank's experts."""
+    conditions; ``p`` then holds this rank's experts.  A meshed prefill or
+    decode (``shard_ctx.serving``) takes ``moe_ep.moe_block_served``: this
+    function's values over every token of the call."""
     from repro_torch.models import shard_ctx as _ctx
 
+    if _ctx.serving() is not None:
+        from repro_torch.models.moe_ep import moe_block_served
+
+        return moe_block_served(p, x, cfg)
     if (
         _ctx._MESH is not None
         and _ctx._MODE in ("all", "ep")

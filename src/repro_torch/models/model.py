@@ -36,6 +36,8 @@ scales do not), the checkpoint's leaf names and the converter
                           the recurrent state, or both (hybrid)
 * ``decode_step(cache, tokens, pos)`` -- one token for the whole batch
 * ``init_cache(B, S)`` -- a zeroed cache of the family's layout
+                          (``cache_shapes``)
+* ``input_specs(shape)`` -- a cell's inputs as meta tensors
 
 With a mesh installed (``models/shard_ctx.py``; the meshed train step,
 ``launch/train.py:build_train_step(mesh=)``, installs it and hands each
@@ -46,7 +48,13 @@ divides the axis the embedding is looked up vocabulary-parallel: each
 rank its rows' tokens in f32, zeros for the rest, summed over
 ``model`` (one rank contributes to a token, so the sum is exact), so
 every rank holds the whole output, as the reference's ``"btd"`` pin on
-it (``model.py:192``) lays it out.
+it (``model.py:192``) lays it out.  A meshed prefill or decode
+(``launch/dryrun.py:build_cell``) runs ``prefill`` and ``decode_step``
+the same way, forward only, the recurrent mixers on the rank's heads
+(``ssm.py``), the cache holding the rank's blocks (keys and values of a
+block of the positions, ``layers.attention_decode``; the recurrent
+states of its heads; the shift and conv carries whole), the logits'
+vocabulary gathered whole.
 """
 from __future__ import annotations
 
@@ -56,6 +64,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.torch_engine import require_device
+from repro_torch.launch.mesh import all_gather
 from repro_torch.models import layers as L
 from repro_torch.models import shard_ctx
 from repro_torch.models import ssm as S
@@ -289,11 +298,9 @@ def decoder_layer_decode(p, x, cache, pos, cfg, cos, sin):
 def decoder_layer_prefill(p, x, cfg, cos, sin):
     """A decoder layer over the whole prompt; returns (x, its keys and
     values (B, S, nkv, hd))."""
-    B, S_len = x.shape[:2]
-    hn = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
-    q, k, v = L._qkv(p["attn"], hn, cfg, cos, sin)
-    o = L.flash_attention(q, k, v, causal=True)
-    x = x + L.linear(p["attn"]["wo"], o.reshape(B, S_len, -1))
+    h, k, v = L.attention_prefill(p["attn"], L.rmsnorm(p["ln1"], x, cfg.norm_eps), cfg, cos,
+                                  sin)
+    x = x + h
     y, _ = ffn(p, L.rmsnorm(p["ln2"], x, cfg.norm_eps), cfg)
     return x + y, k, v
 
@@ -426,8 +433,12 @@ class Model(nn.Module):
         return L.rope_angles(pos, self.cfg.hd, self.cfg.rope_theta, self.cfg.mrope_sections)
 
     def _head(self, x: torch.Tensor) -> torch.Tensor:
+        """f32 logits of ``x``; with the vocabulary cut over ``model`` (a
+        meshed prefill or decode), the rank's columns gathered whole."""
         x = L.rmsnorm(self.final_norm, x, self.cfg.norm_eps)
-        return (x @ self._lm_head().to(x.dtype)).float()
+        logits = (x @ self._lm_head().to(x.dtype)).float()
+        cut = shard_ctx.model_cut("btf", (*x.shape[:-1], self.cfg.vocab))
+        return logits if cut is None else all_gather(logits, cut.group, logits.dim() - 1)
 
     # ----------------------------------------------------------- train
     def loss(self, batch: dict) -> torch.Tensor:
@@ -514,12 +525,15 @@ class Model(nn.Module):
         mv = L.linear(lp["xattn"]["wv"], mem).reshape(B, M, cfg.n_kv, cfg.hd)
         return mk, mv
 
-    def _cross_and_mlp(self, lp: dict, h: torch.Tensor, mk, mv) -> torch.Tensor:
+    def _cross_and_mlp(self, lp: dict, h: torch.Tensor, mk, mv,
+                       cached: bool = False) -> torch.Tensor:
         """The rest of a decoder layer after its self-attention: the
-        cross-attention to the memory's keys and values, then the MLP."""
+        cross-attention to the memory's keys and values (``cached``: as a
+        decode's cache holds them, ``layers.cross_attention_decode``), then
+        the MLP."""
         eps = self.cfg.norm_eps
-        h = h + L.cross_attention_train(lp["xattn"], L.layernorm(lp["lnx"], h, eps), (mk, mv),
-                                        self.cfg)
+        cross = L.cross_attention_decode if cached else L.cross_attention_train
+        h = h + cross(lp["xattn"], L.layernorm(lp["lnx"], h, eps), (mk, mv), self.cfg)
         return h + L.mlp_gelu(lp["mlp"], L.layernorm(lp["ln2"], h, eps), self.cfg.d_ff)
 
     def _whisper_train_layer(self, i: int, h: torch.Tensor, mem: torch.Tensor) -> torch.Tensor:
@@ -534,51 +548,78 @@ class Model(nn.Module):
         """Decoder layer ``i`` over the prompt; returns (h, its keys and
         values, the memory's keys and values)."""
         cfg, lp = self.cfg, self.layers.layer(i)
-        B, S_len = h.shape[:2]
-        q, k, v = L._qkv(lp["attn"], L.layernorm(lp["ln1"], h, cfg.norm_eps), cfg, None, None,
-                         rope=False)
-        o = L.flash_attention(q, k, v, causal=True)
-        h = h + L.linear(lp["attn"]["wo"], o.reshape(B, S_len, -1))
+        a, k, v = L.attention_prefill(lp["attn"], L.layernorm(lp["ln1"], h, cfg.norm_eps), cfg,
+                                      None, None, rope=False)
+        h = h + a
         mk, mv = self._memory_kv(lp, mem)
         return self._cross_and_mlp(lp, h, mk, mv), k, v, mk, mv
 
     # ----------------------------------------------------------- serve
     def init_cache(self, B: int, S_len: int, dtype=None) -> dict[str, torch.Tensor]:
         """A zeroed cache for ``B`` rows and ``S_len`` positions, in
-        ``dtype`` (``ACT_DTYPE`` when None): keys and values ``(L, B,
-        S_len, nkv, hd)``; ``ssm``: the f32 ``wkv`` state ``(L, B, nh,
-        hd, hd)`` and the shift carries ``x_tm``, ``x_cm`` ``(L, B, d)``;
-        ``hybrid``: the f32 ``ssm`` state ``(G, P, B, nh, hd, N)``, the
-        ``conv`` carry ``(G, P, B, K - 1, inner + 2N)`` and the shared
-        block's keys and values ``(G, B, S_len, nkv, hd)``, G groups of
-        P layers; ``audio``: also the memory's keys and values ``mem_k``,
-        ``mem_v`` ``(L, B, n_audio_ctx, nkv, hd)``."""
-        cfg, dev = self.cfg, self.device
+        ``dtype`` (``ACT_DTYPE`` when None), laid out as
+        :meth:`cache_shapes` says."""
+        return {name: torch.zeros(shape, dtype=dt, device=self.device)
+                for name, (shape, dt) in self.cache_shapes(B, S_len, dtype).items()}
+
+    def cache_shapes(self, B: int, S_len: int, dtype=None) -> dict[str, tuple]:
+        """Each cache leaf's (shape, dtype) for ``B`` rows and ``S_len``
+        positions, ``dtype`` (``ACT_DTYPE`` when None) but for the f32
+        recurrent states: keys and values ``(L, B, S_len, nkv, hd)``;
+        ``ssm``: the ``wkv`` state ``(L, B, nh, hd, hd)`` and the shift
+        carries ``x_tm``, ``x_cm`` ``(L, B, d)``; ``hybrid``: the ``ssm``
+        state ``(G, P, B, nh, hd, N)``, the ``conv`` carry ``(G, P, B, K -
+        1, inner + 2N)`` and the shared block's keys and values ``(G, B,
+        S_len, nkv, hd)``, G groups of P layers; ``audio``: also the
+        memory's keys and values ``mem_k``, ``mem_v`` ``(L, B,
+        n_audio_ctx, nkv, hd)``."""
+        cfg = self.cfg
         dtype = dtype or ACT_DTYPE
         f32 = torch.float32
-
-        def zeros(shape, dt):
-            return torch.zeros(shape, dtype=dt, device=dev)
-
         if cfg.family == "ssm":
             L_, nh, hd = cfg.n_layers, cfg.n_heads, cfg.hd
-            return {"wkv": zeros((L_, B, nh, hd, hd), f32),
-                    "x_tm": zeros((L_, B, cfg.d_model), dtype),
-                    "x_cm": zeros((L_, B, cfg.d_model), dtype)}
+            return {"wkv": ((L_, B, nh, hd, hd), f32), "x_tm": ((L_, B, cfg.d_model), dtype),
+                    "x_cm": ((L_, B, cfg.d_model), dtype)}
         if cfg.family == "hybrid":
             G, P, ssm = self.groups, cfg.shared_period, cfg.ssm
             inner, nh, hd = S.mamba2_dims(cfg)
             kv = (G, B, S_len, cfg.n_kv, cfg.hd)
-            return {"ssm": zeros((G, P, B, nh, hd, ssm.d_state), f32),
-                    "conv": zeros((G, P, B, ssm.conv_kernel - 1, inner + 2 * ssm.d_state),
-                                  dtype),
-                    "k": zeros(kv, dtype), "v": zeros(kv, dtype)}
+            return {"ssm": ((G, P, B, nh, hd, ssm.d_state), f32),
+                    "conv": ((G, P, B, ssm.conv_kernel - 1, inner + 2 * ssm.d_state), dtype),
+                    "k": (kv, dtype), "v": (kv, dtype)}
         shape = (cfg.n_layers, B, S_len, cfg.n_kv, cfg.hd)
-        cache = {"k": zeros(shape, dtype), "v": zeros(shape, dtype)}
+        cache = {"k": (shape, dtype), "v": (shape, dtype)}
         if cfg.family == "audio":
             mem = (cfg.n_layers, B, cfg.n_audio_ctx, cfg.n_kv, cfg.hd)
-            cache.update(mem_k=zeros(mem, dtype), mem_v=zeros(mem, dtype))
+            cache.update(mem_k=(mem, dtype), mem_v=(mem, dtype))
         return cache
+
+    def input_specs(self, shape) -> dict:
+        """The inputs of a cell of ``shape`` (``models/config.py:SHAPES``) as
+        tensors on the meta device, the reference's ``input_specs``: for
+        ``"train"`` int32 ``tokens`` and ``labels`` (B, S); for
+        ``"prefill"`` ``tokens``; both with ``patches`` (vlm) or ``frames``
+        (audio) in ``ACT_DTYPE``; for ``"decode"`` ``tokens`` (B, 1), the
+        ``cache`` of ``S`` positions and the int32 scalar ``pos``."""
+        cfg = self.cfg
+        B, S_len = shape.global_batch, shape.seq_len
+
+        def meta(dims, dtype):
+            return torch.empty(dims, dtype=dtype, device="meta")
+
+        if shape.kind == "decode":
+            return {"tokens": meta((B, 1), torch.int32),
+                    "cache": {name: meta(dims, dt)
+                              for name, (dims, dt) in self.cache_shapes(B, S_len).items()},
+                    "pos": meta((), torch.int32)}
+        specs = {"tokens": meta((B, S_len), torch.int32)}
+        if shape.kind == "train":
+            specs["labels"] = meta((B, S_len), torch.int32)
+        if cfg.family == "vlm":
+            specs["patches"] = meta((B, cfg.vision_patches, cfg.d_model), ACT_DTYPE)
+        if cfg.family == "audio":
+            specs["frames"] = meta((B, cfg.n_audio_ctx, cfg.d_model), ACT_DTYPE)
+        return specs
 
     @torch.no_grad()
     def decode_step(self, cache: dict, tokens: torch.Tensor, pos):
@@ -606,12 +647,14 @@ class Model(nn.Module):
                     cache[k][i].copy_(st[k])
         elif cfg.family == "hybrid":
             shared = self.shared.tree()
+            cut = S.mamba2_cut(x, cfg)
             for g in range(self.groups):
                 for j in range(cfg.shared_period):
-                    st = {k: cache[k][g, j] for k in ("ssm", "conv")}
+                    st = {"ssm": cache["ssm"][g, j],
+                          "conv": S.conv_block(cache["conv"][g, j], cfg, cut)}
                     x, st = S.mamba2_block(self.layers.layer((g, j)), x, cfg, st)
-                    for k in ("ssm", "conv"):
-                        cache[k][g, j].copy_(st[k])
+                    cache["ssm"][g, j].copy_(st["ssm"])
+                    cache["conv"][g, j].copy_(S.conv_whole(st["conv"], cfg, cut))
                 x, _ = decoder_layer_decode(shared, x, {"k": cache["k"][g], "v": cache["v"][g]},
                                             pos_t, cfg, cos, sin)
         elif cfg.family == "audio":
@@ -620,7 +663,8 @@ class Model(nn.Module):
                 a, _ = L.attention_decode(
                     lp["attn"], L.layernorm(lp["ln1"], x, cfg.norm_eps),
                     {"k": cache["k"][i], "v": cache["v"][i]}, pos_t, cfg, None, None, rope=False)
-                x = self._cross_and_mlp(lp, x + a, cache["mem_k"][i], cache["mem_v"][i])
+                x = self._cross_and_mlp(lp, x + a, cache["mem_k"][i], cache["mem_v"][i],
+                                        cached=True)
         else:
             for i in range(cfg.n_layers):
                 layer_cache = {"k": cache["k"][i], "v": cache["v"][i]}
@@ -655,12 +699,13 @@ class Model(nn.Module):
             cache = {k: torch.stack([st[k] for st in states]) for k in ("wkv", "x_tm", "x_cm")}
         elif cfg.family == "hybrid":
             shared = self.shared.tree()
+            cut = S.mamba2_cut(x, cfg)
             groups, ks, vs = [], [], []
             for g in range(self.groups):
                 states = []
                 for j in range(cfg.shared_period):
                     x, st = S.mamba2_block(self.layers.layer((g, j)), x, cfg)
-                    states.append(st)
+                    states.append({"ssm": st["ssm"], "conv": S.conv_whole(st["conv"], cfg, cut)})
                 groups.append({k: torch.stack([st[k] for st in states])
                                for k in ("ssm", "conv")})
                 x, k, v = decoder_layer_prefill(shared, x, cfg, cos, sin)

@@ -33,7 +33,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.launch.mesh import all_reduce, all_to_all, data_axes
+from repro_torch.launch.mesh import all_gather, all_reduce, all_to_all, data_axes
 from repro_torch.models import shard_ctx
 from repro_torch.models import layers as L
 
@@ -110,3 +110,52 @@ def moe_block_ep(p, x: torch.Tensor, cfg) -> tuple[torch.Tensor, torch.Tensor]:
     for ax in data_axes(mesh):
         aux = _Mean.apply(aux, mesh.axis_group(ax))
     return y, aux
+
+
+def moe_block_served(p, x: torch.Tensor, cfg) -> tuple[torch.Tensor, torch.Tensor]:
+    """The MoE of a meshed prefill or decode (``shard_ctx.serving``).  The
+    reference's serving cell installs no mesh (``launch/dryrun.py:101-108``),
+    so its MoE is ``moe_block`` over every token of the call, routed at
+    once with that call's capacity; these are its values, dropped choices
+    included.  x (T_loc, d): this rank's tokens; ``p``: the whole router
+    and this rank's experts, as :func:`moe_block_ep` takes them.
+
+    Every rank gathers the call's tokens over the axes that cut the batch
+    rows (row order), routes them all as ``layers.moe_block`` does, fills
+    the ``(E · C, d)`` buffer, runs its ``E / n_data`` experts on their
+    slots with its cut of the ffn dimension, sums the down-projection over
+    ``model`` (f32 partials rounded once), gathers every expert's slots
+    over ``data`` and combines its own tokens' choices.  Returns (y (T_loc,
+    d) in ``x``'s dtype, the call's f32 aux)."""
+    mesh = shard_ctx._MESH
+    serve = shard_ctx.serving()
+    if serve is None or "data" not in mesh.axis_names:
+        raise RuntimeError("moe_block_served needs a serving layout on a mesh with a data axis "
+                           "(shard_ctx.set_mesh(mesh, serving=...))")
+    n = mesh.shape["data"]
+    E, k = cfg.moe.n_experts, cfg.moe.top_k
+    if E % n or p["wg"].shape[0] != E // n:
+        raise ValueError(f"moe_block_served takes this rank's {E // n} of {E} experts over a data "
+                         f"axis of {n}; got {tuple(p['wg'].shape)}")
+    E_loc = E // n
+    T_loc, d = x.shape
+    xs = shard_ctx.gather_over(x, serve.rows, 0)
+    r = L.moe_route(p, xs, cfg)
+    C = r.capacity
+    buf = torch.zeros((E * C + 1, d), dtype=x.dtype, device=x.device).index_add(
+        0, r.slot, xs.repeat_interleave(k, dim=0))
+    e0 = mesh.coords["data"] * E_loc
+    eb = buf[e0 * C:(e0 + E_loc) * C].reshape(E_loc, C, d)
+    h = F.silu(torch.bmm(eb, p["wg"].to(x.dtype))) * torch.bmm(eb, p["wu"].to(x.dtype))
+    ob = torch.bmm(h, p["wd"].to(x.dtype))
+    if "model" in mesh.axis_names and mesh.shape["model"] > 1:
+        ob = shard_ctx.model_sum(ob, shard_ctx.Cut(mesh.axis_group("model"),
+                                                   mesh.shape["model"], mesh.coords["model"]))
+    flat = all_gather(ob, mesh.axis_group("data"), 0).reshape(E * C, d)
+    t0 = shard_ctx.axes_block(serve.rows)[1] * T_loc
+    mine = slice(t0 * k, (t0 + T_loc) * k)
+    slot, valid = r.slot[mine], r.valid[mine]
+    y = torch.where(valid[:, None], flat[slot.clamp(max=E * C - 1)], 0.0)
+    y = (y * r.gate.reshape(-1)[mine, None].to(y.dtype)).reshape(T_loc, k, d).sum(dim=1)
+    frac = (r.onehot > 0).float().mean(dim=0)
+    return y, E * torch.sum(frac * r.probs.mean(dim=0))

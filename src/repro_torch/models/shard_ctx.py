@@ -31,18 +31,36 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.launch.mesh import all_reduce
+from repro_torch.launch.mesh import all_gather, all_reduce
 
 _MESH = None
 _MODE: str = "all"  # all | attn | mlp | ep | sp (sequence-parallel residuals)
+_SERVE = None  # a Serving layout while a meshed prefill or decode runs
 
 KINDS = ("btd", "btdg", "btf", "bthd", "bthd_rep", "td", "ecd", "ecf")
 
 
-def set_mesh(mesh, mode: str = "all") -> None:
-    global _MESH, _MODE
+class Serving(NamedTuple):
+    """What a meshed prefill or decode serves, and how it is laid out:
+    ``rows``, the mesh axes the batch rows are cut over, the first the
+    major (empty: every rank holds every row); ``seq``, by cache leaf
+    (``"k"``, ``"mem_k"``), the axes the positions of its keys and values
+    are cut over (empty or absent: whole)."""
+
+    rows: tuple[str, ...]
+    seq: dict
+
+
+def set_mesh(mesh, mode: str = "all", serving: Serving | None = None) -> None:
+    global _MESH, _MODE, _SERVE
     _MESH = mesh
     _MODE = mode
+    _SERVE = serving if mesh is not None else None
+
+
+def serving() -> Serving | None:
+    """The installed :class:`Serving` layout, or None (no mesh, or training)."""
+    return _SERVE
 
 
 def constrain(x, kind: str):
@@ -174,3 +192,42 @@ def model_copy(x: torch.Tensor, cut: Cut | None) -> torch.Tensor:
     """A region's input: ``x`` (its cotangent summed over ``cut``'s group
     backward); ``x`` itself when ``cut`` is None."""
     return x if cut is None else _ModelCopy.apply(x, cut.group)
+
+
+# ---------------------------------------------------------------- serving
+
+
+class SeqCut(NamedTuple):
+    """The positions of a cached key or value cut over ``axes`` (the first
+    the major): this rank holds block ``index`` of ``count``."""
+
+    axes: tuple[str, ...]
+    count: int
+    index: int
+
+
+def axes_block(axes: tuple[str, ...]) -> tuple[int, int]:
+    """(the number of blocks, this rank's block) of a dimension cut over
+    ``axes`` of the installed mesh, the first the major."""
+    count, index = 1, 0
+    for a in axes:
+        count, index = count * _MESH.shape[a], index * _MESH.shape[a] + _MESH.coords[a]
+    return count, index
+
+
+def seq_cut(leaf: str) -> SeqCut | None:
+    """How the installed serving layout cuts the positions of cache leaf
+    ``leaf`` (``"k"``: the self-attention's, ``"mem_k"``: whisper's
+    memory's), or None where every rank holds them all."""
+    axes = tuple(_SERVE.seq.get(leaf, ())) if _SERVE is not None else ()
+    count, index = axes_block(axes) if axes else (1, 0)
+    return SeqCut(axes, count, index) if count > 1 else None
+
+
+def gather_over(t: torch.Tensor, axes: tuple[str, ...], dim: int) -> torch.Tensor:
+    """Every rank's ``t`` concatenated along ``dim`` in the block order of
+    a dimension cut over ``axes`` (the first the major): one
+    ``all_gather`` an axis, the minor first; ``t`` itself over no axis."""
+    for a in reversed(axes):
+        t = all_gather(t, _MESH.axis_group(a), dim)
+    return t

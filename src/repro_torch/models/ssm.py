@@ -31,6 +31,32 @@ The JAX package promotes a bf16 x f32 product to f32; torch refuses a
 mixed product, so every such operand is cast to what JAX computes.  Masks
 are selects (``torch.where``), never a multiply: a multiply by a zero
 mask turns an overflowed inf into NaN.
+
+With a mesh installed (``models/shard_ctx.py``) the mixers split their
+heads over ``model`` where the axis divides them (the reference has no
+pin in this module; its parameter rules cut the projections' head
+columns over ``model``, ``launch/sharding.py:57-60``, and ``cache_spec``
+the recurrent states' heads, ``:121-146``), Megatron-style between
+``model_copy`` and ``model_sum``, ``p`` then holding the blocks the
+meshed step hands over (``launch/train.py:leaf_layouts``):
+
+* RWKV6's time mix: r, k, v, g and the decay of the rank's heads from its
+  columns of ``wr``, ``wk``, ``wv``, ``wg``, ``w0`` and ``wb`` (``mu``
+  and ``wa`` whole), ``u`` of its heads, the recurrence on its heads (no
+  collective: heads are independent), ``gn`` whole (per head), and the
+  rank's rows of ``wo`` summed over ``model``;
+* RWKV6's channel mix: the rank's ffn columns of ``cmix.wk`` and rows of
+  ``cmix.wv``, summed over ``model``, gated by ``sigmoid(wr · xr)``
+  computed whole on every rank;
+* Mamba2: z, x and dt of the rank's heads and B and C whole from its
+  selection of ``in_proj``'s columns ``[z | x | B | C | dt]``, the
+  depthwise conv on its x channels and all of B's and C's, ``dt_bias``,
+  ``A_log`` and ``D`` of its heads, ``gn`` whole, and its rows of
+  ``out_proj`` summed over ``model``.  The conv carry a serving cache
+  holds stays whole on every rank: :func:`conv_block` selects the rank's
+  channels of it, :func:`conv_whole` gathers them back.
+
+Where the axis does not divide the heads, a mixer runs whole.
 """
 from __future__ import annotations
 
@@ -38,7 +64,16 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.torch_engine import full_fp32_matmul
-from repro_torch.models.layers import linear, rmsnorm
+from repro_torch.launch.mesh import all_gather
+from repro_torch.models import shard_ctx
+from repro_torch.models.layers import linear, out_proj, rmsnorm
+from repro_torch.models.shard_ctx import Cut, model_copy
+
+
+def heads_cut(x: torch.Tensor, nh: int, hd: int) -> Cut | None:
+    """The installed mesh's cut of a mixer's ``nh`` heads of ``hd`` over
+    ``model``, for its input ``x`` (B, S, d): the ``"bthd"`` pin's rule."""
+    return shard_ctx.model_cut("bthd", (*x.shape[:2], nh, hd))
 
 
 def _chunks(S: int, chunk: int) -> tuple[int, int]:
@@ -71,9 +106,11 @@ def _token_shift(x: torch.Tensor, x_prev: torch.Tensor | None) -> torch.Tensor:
     return torch.cat([pad, x[:, :-1]], dim=1)
 
 
-def _rwkv6_rkvwg(p, x: torch.Tensor, x_prev, cfg):
+def _rwkv6_rkvwg(p, x: torch.Tensor, x_prev, cfg, cut: Cut | None = None):
+    """r, k, v, the log decay w and g of ``x``; with ``cut``, of this rank's
+    heads (``p`` holding their columns)."""
     B, S, d = x.shape
-    nh, hd = cfg.n_heads, cfg.hd
+    nh, hd = cfg.n_heads // (cut.size if cut else 1), cfg.hd
     xs = _token_shift(x, x_prev)
     mu = p["mu"].to(x.dtype)
     feats = [x + (xs - x) * mu[i] for i in range(5)]
@@ -127,25 +164,28 @@ def rwkv6_block(p, x: torch.Tensor, cfg, state: dict | None = None):
     """The full block: time-mix, then channel-mix.  ``state``: a dict with
     ``"wkv"`` (B, nh, hd, hd) and the shift carries ``"x_tm"``, ``"x_cm"``
     (B, d); None for training (zeros: the sequence starts at position
-    0).  Returns (x, the state after the last position)."""
+    0).  Returns (x, the state after the last position).  With the heads
+    cut over ``model``, ``"wkv"`` holds this rank's heads."""
     B, S, d = x.shape
-    nh, hd = cfg.n_heads, cfg.hd
+    cut = heads_cut(x, cfg.n_heads, cfg.hd)
+    nh, hd = cfg.n_heads // (cut.size if cut else 1), cfg.hd
     st = state or {"wkv": torch.zeros((B, nh, hd, hd), dtype=torch.float32, device=x.device),
                    "x_tm": None, "x_cm": None}
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
-    r, k, v, w, g = _rwkv6_rkvwg(p["mix"], h, st["x_tm"], cfg)
+    r, k, v, w, g = _rwkv6_rkvwg(p["mix"], model_copy(h, cut), st["x_tm"], cfg, cut)
     u = p["mix"]["u"].float()
     y, wkv = wkv6_chunked(r, k, v, w, u, st["wkv"], cfg.ssm.chunk if cfg.ssm else 128)
     y = rmsnorm(p["mix"]["gn"], y, cfg.norm_eps) * g
-    x = x + linear(p["mix"]["wo"], y.reshape(B, S, nh * hd))
+    x = x + out_proj(p["mix"]["wo"], y.reshape(B, S, nh * hd), cut)
 
     h2 = rmsnorm(p["ln2"], x, cfg.norm_eps)
     hs = _token_shift(h2, st["x_cm"])
     mu = p["cmix"]["mu"].to(x.dtype)
     xk = h2 + (hs - h2) * mu[0]
     xr = h2 + (hs - h2) * mu[1]
-    kk = torch.square(F.relu(linear(p["cmix"]["wk"], xk)))
-    out = torch.sigmoid(linear(p["cmix"]["wr"], xr)) * linear(p["cmix"]["wv"], kk)
+    ffn = shard_ctx.model_cut("btf", (B, S, cfg.d_ff))
+    kk = torch.square(F.relu(linear(p["cmix"]["wk"], model_copy(xk, ffn))))
+    out = torch.sigmoid(linear(p["cmix"]["wr"], xr)) * out_proj(p["cmix"]["wv"], kk, ffn)
     x = x + out
     return x, {"wkv": wkv, "x_tm": h[:, -1], "x_cm": h2[:, -1]}
 
@@ -179,12 +219,18 @@ def mamba2_mix(p, h: torch.Tensor, cfg, state: dict):
     """The SSD core on the pre-normed input h (B, S, d).  ``state``: a
     dict that may hold ``"ssm"`` (B, nh, hd, N) and ``"conv"`` (B, K-1,
     inner + 2N).  Returns (out (B, S, d), the state after the last
-    position)."""
+    position).  With the heads cut over ``model``, ``p`` holds this rank's
+    blocks, and ``"ssm"`` and ``"conv"`` its heads and its channels
+    (:func:`conv_block`)."""
     B, S, d = h.shape
     inner, nh, hd = mamba2_dims(cfg)
     N = cfg.ssm.d_state
+    cut = mamba2_cut(h, cfg)
+    if cut is not None:
+        nh //= cut.size
+        inner = nh * hd
 
-    zxbcdt = linear(p["in_proj"], h)
+    zxbcdt = linear(p["in_proj"], model_copy(h, cut))
     z, xbc, dt = torch.split(zxbcdt, [inner, inner + 2 * N, nh], dim=-1)
     xbc, conv_state = _causal_conv(xbc, p["conv_w"], state.get("conv"))
     x, Bm, Cm = torch.split(xbc, [inner, N, N], dim=-1)
@@ -223,8 +269,37 @@ def mamba2_mix(p, h: torch.Tensor, cfg, state: dict):
     y = y + p["D"][None, None, :, None] * x.float()
     y = rmsnorm(p["gn"], y.to(h.dtype), cfg.norm_eps)
     y = (y * F.silu(z).reshape(B, S, nh, hd)).reshape(B, S, inner)
-    out = linear(p["out_proj"], y)
+    out = out_proj(p["out_proj"], y, cut)
     return out, {"ssm": states[:, -1], "conv": conv_state}
+
+
+def mamba2_cut(x: torch.Tensor, cfg) -> Cut | None:
+    """The installed mesh's cut of the Mamba2 heads over ``model`` for the
+    input ``x`` (B, S, d)."""
+    _, nh, hd = mamba2_dims(cfg)
+    return heads_cut(x, nh, hd)
+
+
+def conv_block(carry: torch.Tensor, cfg, cut: Cut | None) -> torch.Tensor:
+    """This rank's channels ``[x | B | C]`` of a whole conv carry (B, K-1,
+    inner + 2N): its heads' x channels and all of B's and C's."""
+    if cut is None:
+        return carry
+    inner = mamba2_dims(cfg)[0]
+    size = inner // cut.size
+    return torch.cat([carry[..., cut.index * size:(cut.index + 1) * size],
+                      carry[..., inner:]], dim=-1)
+
+
+def conv_whole(carry: torch.Tensor, cfg, cut: Cut | None) -> torch.Tensor:
+    """The whole conv carry from this rank's channels (:func:`conv_block`'s
+    inverse): the x channels gathered over ``model``, B's and C's (alike on
+    every rank) its own."""
+    if cut is None:
+        return carry
+    size = mamba2_dims(cfg)[0] // cut.size
+    return torch.cat([all_gather(carry[..., :size], cut.group, carry.dim() - 1),
+                      carry[..., size:]], dim=-1)
 
 
 def mamba2_block(p, x: torch.Tensor, cfg, state: dict | None = None):

@@ -213,6 +213,16 @@ meshed_moe = shard_model(moe_cfg, one_rank, torch.Generator().manual_seed(1))
 meshed_opt = adamw_init(meshed_moe.params())
 meshed_loss, _ = build_train_step(meshed_moe, AdamWConfig(), mesh=one_rank)(
     meshed_opt, {"tokens": lm_tokens[:, :-1], "labels": lm_tokens[:, 1:]})
+from repro_torch.launch.dryrun import build_cell
+from repro_torch.models.config import ShapeConfig
+
+served_prefill, (served_rows,) = build_cell(
+    "moonshot-v1-16b-a3b", "prefill", one_rank, cfg=moe_cfg, model=meshed_moe, slots=12,
+    shape=ShapeConfig("prefill", "prefill", 8, 2))
+_, served_cache = served_prefill({"tokens": lm_tokens[:, :8]})
+served_decode, _ = build_cell("moonshot-v1-16b-a3b", "decode", one_rank, cfg=moe_cfg,
+                              model=meshed_moe, shape=ShapeConfig("decode", "decode", 12, 2))
+served_logits, _ = served_decode(served_cache, lm_tokens[:, 8:9], 8)
 dist.destroy_process_group()
 shutil.rmtree(store)
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in {"jax", "jaxlib", "repro"})
@@ -240,6 +250,8 @@ print(json.dumps({"rows": res.num_rows, "n": float(res.column("n").sum()),
                   else None, "recurrent_decoded": recurrent_decoded,
                   "audio_loss": float(audio_loss), "meshed_loss": float(meshed_loss),
                   "meshed_step": int(meshed_opt["step"]),
+                  "served_decoded": list(served_logits.shape)
+                  if bool(torch.isfinite(served_logits).all()) else None,
                   "audio_decoded": list(audio_logits.shape)
                   if bool(torch.isfinite(audio_logits).all()) else None, "loaded": loaded}))
 """
@@ -278,6 +290,7 @@ def test_port_answers_a_query_with_jax_and_repro_refused():
     # one sharded step on a one-rank mesh: the expert-parallel path, the
     # unsharded step's loss up to the bf16 model sum
     assert out["meshed_step"] == 1
+    assert out["served_decoded"] == [2, 1, 512]  # launch/dryrun.py's decode cell on one rank
     assert abs(out["meshed_loss"] - out["moe_loss"]) <= 1e-3 * out["moe_loss"]
     assert out["vlm_decoded"] == [2, 1, 512]
     assert out["recurrent_decoded"] == {"rwkv6-3b": [2, 1, 512], "zamba2-2.7b": [2, 1, 512]}
@@ -354,6 +367,7 @@ def test_the_scan_covers_every_port_package():
     assert PORT / "analysis" / "__main__.py" in scanned_files
     assert PORT / "serve" / "mesh.py" in scanned_files
     assert PORT / "launch" / "train.py" in scanned_files
+    assert PORT / "launch" / "dryrun.py" in scanned_files
     assert PORT / "models" / "model.py" in scanned_files
     assert PORT / "train" / "checkpoint.py" in scanned_files
     assert PORT / "configs" / "qwen2_1_5b.py" in scanned_files

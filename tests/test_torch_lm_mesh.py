@@ -20,8 +20,9 @@ parent writes from fixed seeds.  The cases:
 * the sharded train step on (2, 2), two f32 steps, for the reduced
   configs of ``ARCH_SEEDS``: qwen2-1.5b, moonshot-v1-16b-a3b,
   qwen2-vl-7b, rwkv6-3b, zamba2-2.7b, whisper-medium, minitron-4b (3
-  heads: the attention stays whole, the MLP is cut) and qwen2-1.5b
-  scaled to a vocabulary of 511 (the head stays whole); the vlm and audio
+  heads: the attention stays whole, the MLP is cut), qwen2-1.5b
+  scaled to a vocabulary of 511 (the head stays whole) and rwkv6-3b at 3
+  heads (its time mix stays whole, its channel mix is cut); the vlm and audio
   batches carry seeded patches and frames, the same on every side.
   Loss, gradient norm and the gathered parameters against the
   reference's sharded step (``device_put`` with its shardings, the mesh
@@ -30,7 +31,18 @@ parent writes from fixed seeds.  The cases:
   sharded step (spies on ``train._to_compute``, ``train.all_gather``,
   ``layers.flash_attention`` and the vocabulary-parallel cross-entropy's
   chunk): no whole leaf that the model axis cuts, half the heads, half
-  the vocabulary;
+  the vocabulary; and the block of every recurrent mixer leaf a rank of
+  reduced rwkv6-3b's and zamba2-2.7b's steps computes with;
+* meshed prefill and decode (``launch/dryrun.py:build_cell``) on (2, 2)
+  for every case of ``ARCH_SEEDS``, reduced llama4-scout-17b-a16e (MoE
+  serving) and reduced qwen2-1.5b at one row (the cache's positions over
+  data and model): a prefill of ``SEQ`` tokens with a prompt-length cache,
+  the same prefill laid out for a ``SLOTS``-position cache, and
+  ``NEW_TOKENS`` decode steps, against the reference's ``model.prefill``
+  and ``model.decode_step`` jitted with ``build_cell``'s in and out
+  shardings (no mesh installed): logits within ``F32_RTOL`` of the
+  largest, every rank's cache block against the reference's shard on the
+  device of its position;
 * checkpoints: a 4-rank save restored in the reference and in one
   process without a mesh, a reference save restored onto the 4 ranks,
   and 4 → 2 → 1 ranks: each restore's next step against the 4-rank
@@ -75,8 +87,15 @@ GRAD_FLOOR = 1e-4  # chip_smoke.py's: 10**4 x AdamW's eps
 EP_MESHES = ((2, 1), (1, 2), (2, 2))
 # a case is a reduced config, or one scaled as "<arch>@vocab<V>"; seed 8:
 # moonshot's routing margin 3.8e-4
+# "<arch>@heads<H>" one scaled to H heads (rwkv6-3b at 3: its time mix
+# runs whole, as the model axis does not divide the heads).  Its seed 3:
+# at seed 2, 2 of u's 384 elements end beyond UPD_RTOL of the reference's
+# sharded step (0.52 % > FLIP_SHARE), as u's gradient at position 0 passes
+# gn's Jacobian of 1 / sqrt(eps) (ROADMAP.md §3); the port's sharded step
+# equals its unsharded accum = 2 step within the bounds at seeds 2 to 5
 ARCH_SEEDS = {"qwen2-1.5b": 2, "moonshot-v1-16b-a3b": 8, "qwen2-vl-7b": 2, "rwkv6-3b": 2,
-              "zamba2-2.7b": 2, "whisper-medium": 2, "minitron-4b": 2, "qwen2-1.5b@vocab511": 2}
+              "zamba2-2.7b": 2, "whisper-medium": 2, "minitron-4b": 2, "qwen2-1.5b@vocab511": 2,
+              "rwkv6-3b@heads3": 3}
 EP_SEED = 4
 ROWS, SEQ, STEPS = 4, 32, 2
 LR_KW = dict(lr=1e-3, warmup_steps=1, total_steps=4)
@@ -102,6 +121,26 @@ MOE_PARAM_RTOL, MOE_FLIP_SHARE = 1e-3, 0.05
 # leaf's largest element (measured: 9.5e-3).  The expert gradients stay
 # f32 (UPD_RTOL).
 BF16_GRAD_TOL = 2.0**-6
+# meshed serving: (the case of ARCH_SEEDS, the parameters' seed, rows) of
+# each case: every case of ARCH_SEEDS for ROWS rows, reduced scout and
+# qwen2-1.5b for one row; a prompt of SEQ tokens (behind the vlm's
+# patches), then NEW_TOKENS decode steps against a cache of _slots
+# positions (the prompt and the new tokens, rounded up to a multiple of 4
+# so one row's positions cut over data x model).  The tokens' seed is 0
+# but where SERVE_TOKEN_SEEDS says: the MoE cases' routing margins over
+# every prefill and decode call (the test asserts MARGIN) are 3.4e-4
+# (moonshot) and 3.0e-3 (scout, parameters' seed 7)
+SERVE = {**{case: (case, ARCH_SEEDS[case], ROWS) for case in ARCH_SEEDS},
+         "llama4-scout-17b-a16e": ("llama4-scout-17b-a16e", 7, ROWS),
+         "qwen2-1.5b/1row": ("qwen2-1.5b", ARCH_SEEDS["qwen2-1.5b"], 1)}
+SERVE_TOKEN_SEEDS = {"moonshot-v1-16b-a3b": 4, "llama4-scout-17b-a16e": 1}
+NEW_TOKENS = 3
+SERVE_STAGES = ("prefill", "fill", "decode")
+
+
+def _slots(cfg) -> int:
+    total = SEQ + (cfg.vision_patches if cfg.family == "vlm" else 0) + NEW_TOKENS
+    return -(-total // 4) * 4
 
 
 def _ep_inputs() -> dict:
@@ -129,8 +168,12 @@ def _psum_inputs() -> dict:
 
 def _case(case: str) -> tuple[str, dict]:
     """(the arch, the ``cfg.scaled`` overrides) of a case of ``ARCH_SEEDS``."""
-    arch, _, vocab = case.partition("@vocab")
-    return arch, ({"vocab": int(vocab)} if vocab else {})
+    arch, _, scale = case.partition("@")
+    if not scale:
+        return arch, {}
+    if scale.startswith("vocab"):
+        return arch, {"vocab": int(scale.removeprefix("vocab"))}
+    return arch, {"n_heads": int(scale.removeprefix("heads"))}
 
 
 def _cfg(case: str):
@@ -139,10 +182,25 @@ def _cfg(case: str):
     return cfg.scaled(**overrides) if overrides else cfg
 
 
-def _init_params(case: str) -> dict:
+def _init_params(case: str, seed: int | None = None) -> dict:
     cfg = _cfg(case)
-    model = t_model.get_model(cfg, "cpu").init(torch.Generator().manual_seed(ARCH_SEEDS[case]))
+    seed = ARCH_SEEDS[case] if seed is None else seed
+    model = t_model.get_model(cfg, "cpu").init(torch.Generator().manual_seed(seed))
     return {n: p.detach().numpy().copy() for n, p in model.params().items()}
+
+
+def _serve_inputs(name: str) -> dict:
+    """A serving case's seeded tokens (rows, SEQ + NEW_TOKENS) and its f32
+    patches or frames."""
+    base, _, rows = SERVE[name]
+    cfg = _cfg(base)
+    rng = np.random.default_rng([41, SERVE_TOKEN_SEEDS.get(name, 0)])
+    out = {"tokens": rng.integers(0, cfg.vocab, (rows, SEQ + NEW_TOKENS)).astype(np.int32)}
+    if cfg.family == "vlm":
+        out["patches"] = rng.normal(size=(rows, cfg.vision_patches, cfg.d_model)).astype(np.float32)
+    if cfg.family == "audio":
+        out["frames"] = rng.normal(size=(rows, cfg.n_audio_ctx, cfg.d_model)).astype(np.float32)
+    return out
 
 
 def _stubs(cfg, step: int) -> dict:
@@ -245,6 +303,10 @@ def _rank_cases(rank: int, tmp: Path) -> dict:
     moe_ep.moe_block_ep = counted
     acfg = AdamWConfig(**LR_KW)
     out["spied"] = _spied_step(mesh, acfg)
+    for arch in ("rwkv6-3b", "zamba2-2.7b"):
+        out[f"spied/{arch}"] = _spied_step(mesh, acfg, arch)
+    for name in SERVE:
+        out[f"serve/{name}"] = _serve_case(mesh, name, data)
     for arch, seed in ARCH_SEEDS.items():
         cfg = _cfg(arch)
         calls["n"] = 0
@@ -310,14 +372,51 @@ def _rank_cases(rank: int, tmp: Path) -> dict:
     return out
 
 
-def _spied_step(mesh, acfg) -> dict:
-    """One sharded step of reduced qwen2-1.5b with spies: per leaf, the
+def _serve_case(mesh, name: str, data: dict) -> dict:
+    """A serving case on this rank: the prompt-length prefill cell, the
+    prefill laid out for the ``_slots`` cache and ``NEW_TOKENS`` steps of
+    the decode cell (``dryrun.build_cell``), from the case's parameters;
+    the logits and the cache blocks after each stage."""
+    from repro_torch.launch import dryrun
+    from repro_torch.models.config import ShapeConfig
+
+    base, seed, rows = SERVE[name]
+    cfg = _cfg(base)
+    arch = _case(base)[0]
+    slots = _slots(cfg)
+    model = train.shard_model(cfg, mesh, torch.Generator().manual_seed(seed))
+    prefill, _ = dryrun.build_cell(arch, "prefill", mesh, cfg=cfg, model=model,
+                                   shape=ShapeConfig("prefill", "prefill", SEQ, rows))
+    fill, _ = dryrun.build_cell(arch, "prefill", mesh, cfg=cfg, model=model, slots=slots,
+                                shape=ShapeConfig("prefill", "prefill", SEQ, rows))
+    decode, _ = dryrun.build_cell(arch, "decode", mesh, cfg=cfg, model=model,
+                                  shape=ShapeConfig("decode", "decode", slots, rows))
+    rows_of = prefill.__self__.rows_of
+    inputs = {k: torch.tensor(data[f"serve/{name}/{k}"]) for k in ("tokens", "patches", "frames")
+              if f"serve/{name}/{k}" in data}
+    prompt = {k: rows_of(v[:, :SEQ] if k == "tokens" else v) for k, v in inputs.items()}
+    out: dict = {"logits": []}
+    logits, cache = prefill(prompt)
+    out["logits"].append(logits.numpy())
+    out["prefill"] = {k: t.numpy() for k, t in cache.items()}
+    _, cache = fill(prompt)
+    out["fill"] = {k: t.numpy().copy() for k, t in cache.items()}
+    first = SEQ + (cfg.vision_patches if cfg.family == "vlm" else 0)
+    for t in range(NEW_TOKENS):
+        logits, cache = decode(cache, rows_of(inputs["tokens"][:, SEQ + t:SEQ + t + 1]), first + t)
+        out["logits"].append(logits.numpy())
+    out["decode"] = {k: t.numpy() for k, t in cache.items()}
+    return out
+
+
+def _spied_step(mesh, acfg, arch: str = "qwen2-1.5b") -> dict:
+    """One sharded step of reduced ``arch`` with spies: per leaf, the
     shapes each ``all_gather`` of ``train._to_compute`` returned and the
     block the rank computed with; every q that reached
     ``layers.flash_attention``; every chunk's logits of the
     vocabulary-parallel cross-entropy."""
-    cfg = get_config("qwen2-1.5b", reduced=True)
-    model = train.shard_model(cfg, mesh, torch.Generator().manual_seed(ARCH_SEEDS["qwen2-1.5b"]))
+    cfg = get_config(arch, reduced=True)
+    model = train.shard_model(cfg, mesh, torch.Generator().manual_seed(ARCH_SEEDS[arch]))
     step = train.build_train_step(model, AdamWConfig(**LR_KW), mesh=mesh)
     opt = adamw_init(model.params())
     names = {p.data_ptr(): n for n, p in model.params().items()}
@@ -542,6 +641,55 @@ for arch, base, overrides in args["archs"]:
     for name, v in flat(jax.tree.map(np.asarray, params)).items():
         arrays[f"step/{arch}/params/{name}"] = v
 
+# meshed serving: build_cell's prefill and decode branches at the reduced
+# config, no mesh installed (its default), the decode's cache the prefill's
+# padded to the decode cell's positions
+for name, base, arch, overrides, rows, slots in args["serve"]:
+    cfg = get_config(arch, reduced=True)
+    cfg = cfg.scaled(**overrides) if overrides else cfg
+    model = j_model.get_model(cfg)
+    params = nest({k[len("init/" + base + "/"):]: v for k, v in data.items()
+                   if k.startswith("init/" + base + "/")})
+    shard_ctx.set_mesh(None)
+    p_sh = shd.param_shardings(params, cfg, mesh)
+    params = jax.device_put(params, p_sh)
+    tokens = data["serve/" + name + "/tokens"]
+    batch = {"tokens": tokens[:, :args["seq"]]}
+    for k in ("patches", "frames"):
+        if "serve/" + name + "/" + k in data:
+            batch[k] = data["serve/" + name + "/" + k]
+    batch = {k: jnp.asarray(v) for k, v in batch.items()}
+    b_sh = shd.batch_shardings(batch, mesh)
+    c_sh = shd.cache_shardings(jax.eval_shape(model.prefill, params, batch)[1], cfg, mesh, rows)
+    replicated = NamedSharding(mesh, P())
+    prefill = jax.jit(model.prefill, in_shardings=(p_sh, b_sh), out_shardings=(replicated, c_sh))
+    logits, cache = prefill(params, jax.device_put(batch, b_sh))
+
+    def shards(stage, tree):
+        for leaf, arr in tree.items():
+            for s in arr.addressable_shards:
+                arrays[f"serve/{name}/{stage}/{leaf}/{s.device.id}"] = np.asarray(s.data)
+
+    arrays[f"serve/{name}/logits/0"] = np.asarray(logits)
+    shards("prefill", cache)
+    d_sh = shd.cache_shardings(jax.eval_shape(lambda: model.init_cache(rows, slots)), cfg, mesh,
+                               rows)
+    cache = {k: (jnp.pad(v, [(0, 0), (0, 0), (0, slots - v.shape[2]), (0, 0), (0, 0)])
+                 if k in ("k", "v") else v) for k, v in cache.items()}
+    cache = jax.device_put(cache, d_sh)
+    shards("fill", cache)
+    tok_sh = NamedSharding(mesh, shd.batch_spec("tokens", jnp.asarray(tokens[:, :1]), mesh))
+    decode = jax.jit(lambda p, c, t, pos: model.decode_step(p, c, t, pos),
+                     in_shardings=(p_sh, d_sh, tok_sh, replicated),
+                     out_shardings=(replicated, d_sh), donate_argnums=(1,))
+    first = args["seq"] + (cfg.vision_patches if cfg.family == "vlm" else 0)
+    for t in range(args["new_tokens"]):
+        step_tokens = jnp.asarray(tokens[:, args["seq"] + t:args["seq"] + t + 1])
+        logits, cache = decode(params, cache, step_tokens, jnp.int32(first + t))
+        arrays[f"serve/{name}/logits/{t + 1}"] = np.asarray(logits)
+    shards("decode", cache)
+    scalars[f"serve/{name}/specs"] = {k: str(v.spec) for k, v in d_sh.items()}
+
 np.savez(args["tmp"] + "/reference.npz", **arrays)
 print(json.dumps(scalars))
 """
@@ -558,6 +706,10 @@ def tmp(tmp_path_factory) -> Path:
         arrays.update({f"init/{arch}/{n}": v for n, v in _init_params(arch).items()})
         for s in range(STEPS):
             arrays.update({f"stub/{arch}/{s}/{k}": v for k, v in _stubs(_cfg(arch), s).items()})
+    for name, (base, seed, _) in SERVE.items():
+        if base not in ARCH_SEEDS:
+            arrays.update({f"init/{base}/{n}": v for n, v in _init_params(base, seed).items()})
+        arrays.update({f"serve/{name}/{k}": v for k, v in _serve_inputs(name).items()})
     np.savez(tmp / "inputs.npz", **arrays)
     cfg = get_config("qwen2-1.5b", reduced=True)
     rng = np.random.default_rng(21)
@@ -583,7 +735,10 @@ def reference(tmp):
     args = {"tmp": str(tmp), "ep_meshes": [list(s) for s in EP_MESHES],
             "layout_specs": [[list(e) if isinstance(e, tuple) else e for e in s]
                              for s in LAYOUT_SPECS],
-            "archs": [(case, *_case(case)) for case in ARCH_SEEDS], "lr_kw": LR_KW, "seq": SEQ, "rows": ROWS, "steps": STEPS}
+            "archs": [(case, *_case(case)) for case in ARCH_SEEDS], "lr_kw": LR_KW, "seq": SEQ, "rows": ROWS, "steps": STEPS,
+            "serve": [(name, base, *_case(base), rows, _slots(_cfg(base)))
+                      for name, (base, _, rows) in SERVE.items()],
+            "new_tokens": NEW_TOKENS}
     scalars = run_in_virtual_mesh(_REFERENCE, devices=WORLD, timeout=600, stdin=json.dumps(args))
     return scalars, dict(np.load(tmp / "reference.npz"))
 
@@ -831,7 +986,20 @@ def test_a_rank_computes_with_its_heads_ffn_columns_and_vocabulary(group):
     """Reduced qwen2-1.5b on (2, 2): no rank holds or gathers a whole
     ``wq``, ``wo``, ``wg``, ``wu``, ``wd`` or ``embed`` leaf (each rank
     computes with half of each), q has 3 of the 6 heads and the logits
-    256 of the 512 columns; ``wk`` and ``wv`` are projected whole."""
+    256 of the 512 columns; ``wk`` and ``wv`` are projected whole.
+
+    The recurrent mixers of reduced rwkv6-3b (2 heads of 64) and
+    zamba2-2.7b (4 Mamba2 heads of 64, d_state 16): the block of every
+    mixer leaf each rank computed with, by its shape, and no leaf the
+    rules cut over ``model`` gathered whole.  RWKV6: the columns of its
+    head of ``wr``, ``wk``, ``wv``, ``wg``, ``w0`` and ``wb``, its row of
+    ``u``, its rows of ``wo``, half the ffn columns of ``cmix.wk`` and
+    rows of ``cmix.wv``; ``mu``, ``wa``, ``gn`` and ``cmix.wr`` whole.
+    Mamba2: 2 heads' z, x and dt columns and all of B's and C's of
+    ``in_proj`` (128 + 128 + 32 + 2 of 548, exchanged with the other rank
+    of its ``model`` group), the conv's 128 x and 32 B and C channels, 2
+    heads of ``A_log``, ``D`` and ``dt_bias``, half the rows of
+    ``out_proj``; ``gn`` whole."""
     cfg = get_config("qwen2-1.5b", reduced=True)
     shapes = convert.param_shapes(cfg)
     cut = ["embed"] + [n for n in shapes
@@ -848,3 +1016,118 @@ def test_a_rank_computes_with_its_heads_ffn_columns_and_vocabulary(group):
         assert spied["q"] and {q[2] for q in spied["q"]} == {3}
         assert spied["logits"] and {lg[-1] for lg in spied["logits"]} == {256}
         assert spied["held"]["dense"] < spied["held"]["whole"]
+
+    L, d, f = 2, 128, 256
+    rwkv = {"mix.wr.w": (L, d, 64), "mix.wk.w": (L, d, 64), "mix.wv.w": (L, d, 64),
+            "mix.wg.w": (L, d, 64), "mix.w0": (L, 64), "mix.wb": (L, 32, 64),
+            "mix.u": (L, 1, 64), "mix.wo.w": (L, 64, d), "mix.mu": (L, 5, d),
+            "mix.wa": (L, d, 32), "mix.gn.scale": (L, 64), "cmix.wk.w": (L, d, f // 2),
+            "cmix.wv.w": (L, f // 2, d), "cmix.wr.w": (L, d, d), "cmix.mu": (L, 2, d)}
+    G, P = 2, 3
+    mamba = {"in_proj.w": (G, P, d, 128 + 128 + 32 + 2), "conv_w": (G, P, 4, 128 + 32),
+             "A_log": (G, P, 2), "D": (G, P, 2), "dt_bias": (G, P, 2),
+             "out_proj.w": (G, P, 128, d), "gn.scale": (G, P, 64)}
+    for arch, want in (("rwkv6-3b", rwkv), ("zamba2-2.7b", mamba)):
+        cfg = get_config(arch, reduced=True)
+        shapes = convert.param_shapes(cfg)
+        specs = train.param_specs(cfg, abstract_mesh((2, 2), ("data", "model")))
+        for answer in group:
+            spied = answer[f"spied/{arch}"]
+            for leaf, shape in want.items():
+                name = "layers." + leaf
+                assert spied["leaves"][name]["held"] == shape, (arch, name, spied["leaves"][name])
+                if shape != shapes[name] and "model" in specs[name]:
+                    # a leaf the rules cut over model is never gathered whole
+                    assert shapes[name] not in spied["leaves"][name]["gathered"], (arch, name)
+            assert spied["held"]["dense"] < spied["held"]["whole"]
+
+
+# ---------------------------------------------------------------- meshed serving
+
+
+@pytest.fixture(scope="module")
+def served_routes():
+    """Every MoE serving case's routing in the port's unsharded f32 prefill
+    and decode of the same inputs (the reference's cell routes the whole
+    call at once, as the unsharded model does): each call's router softmax
+    and which choices found a slot."""
+    before = t_model.ACT_DTYPE
+    t_model.ACT_DTYPE = torch.float32
+    route = t_layers.moe_route
+    calls = []
+
+    def spy(p, x, cfg):
+        r = route(p, x, cfg)
+        calls.append((r.probs.numpy().copy(), r.valid.numpy().copy()))
+        return r
+
+    t_layers.moe_route = spy
+    out = {}
+    try:
+        for name, (base, seed, rows) in SERVE.items():
+            cfg = _cfg(base)
+            if not cfg.moe:
+                continue
+            calls.clear()
+            model = t_model.get_model(cfg, "cpu").init(torch.Generator().manual_seed(seed))
+            inputs = {k: torch.tensor(v) for k, v in _serve_inputs(name).items()}
+            _, pre = model.prefill({"tokens": inputs["tokens"][:, :SEQ]})
+            cache = model.init_cache(rows, _slots(cfg))
+            for k, t in pre.items():
+                cache[k][:, :, :SEQ] = t
+            for t in range(NEW_TOKENS):
+                model.decode_step(cache, inputs["tokens"][:, SEQ + t:SEQ + t + 1], SEQ + t)
+            out[name] = list(calls)
+    finally:
+        t_layers.moe_route = route
+        t_model.ACT_DTYPE = before
+    return out
+
+
+def _close_to_largest(got, want, rtol, what) -> None:
+    """Elementwise within ``rtol`` relative and ``rtol`` of ``want``'s
+    largest magnitude."""
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape, (what, got.shape, want.shape)
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=rtol * np.abs(want).max(),
+                               err_msg=what)
+
+
+@pytest.mark.parametrize("name", SERVE)
+def test_meshed_prefill_and_decode_equal_the_references(name, group, reference, served_routes):
+    """``build_cell``'s prefill (a prompt-length cache, then one laid out for
+    the decode cell's ``_slots`` positions) and ``NEW_TOKENS`` decode steps
+    on (2, 2), every rank its rows and its cache blocks, against the
+    reference's cells: the logits (whole on every rank, the same bits on
+    each) within ``F32_RTOL`` of the reference's, relative and of its
+    largest, and after each stage every cache block within ``F32_RTOL`` of
+    the reference's shard on the device at the rank's position (the
+    recurrent states are f32 sums in another grouping, ``models/ssm.py``).
+    A MoE case first asserts every call's routing margin and that the
+    decode drops a choice (its capacity is one slot an expert), so the
+    comparison covers the dropped tokens."""
+    base, _, rows = SERVE[name]
+    cfg = _cfg(base)
+    if cfg.moe:
+        calls = served_routes[name]
+        assert min(_margin(probs, cfg.moe.top_k) for probs, _ in calls) > MARGIN
+        assert not all(valid.all() for _, valid in calls[1:]), "no dropped choice in the decode"
+    scalars, arrays = reference
+    got = group[0][f"serve/{name}"]
+    for r in group[1:]:
+        for a, b in zip(r[f"serve/{name}"]["logits"], got["logits"]):
+            assert a.tobytes() == b.tobytes()
+    for t, logits in enumerate(got["logits"]):
+        _close_to_largest(logits, arrays[f"serve/{name}/logits/{t}"], F32_RTOL, f"logits {t}")
+    specs = scalars[f"serve/{name}/specs"]
+    # every cache cuts a dimension over model but rwkv6-3b's at 3 heads (a
+    # whole time mix, its state whole)
+    assert any("model" in spec for spec in specs.values()) == (name != "rwkv6-3b@heads3"), specs
+    for rank, answer in enumerate(group):
+        mine = answer[f"serve/{name}"]
+        for stage in SERVE_STAGES:
+            for leaf, block in mine[stage].items():
+                want = arrays[f"serve/{name}/{stage}/{leaf}/{rank}"]
+                _close_to_largest(block, want, F32_RTOL, f"rank {rank} {stage} {leaf}")
+    if rows == 1:  # the positions cut over data x model
+        assert "('data', 'model')" in specs["k"], specs

@@ -17,7 +17,9 @@ GQA grouping.  ``compress``/``decompress`` are compared bit for bit, ties at .5
 included.  Blocks: ``shard_of`` at every coordinate of a mesh tiles the
 leaf, and ``gather`` on a one-rank gloo group in this process returns
 it; the 4-rank layout against the reference's ``NamedSharding`` is in
-``tests/test_torch_lm_mesh.py``.
+``tests/test_torch_lm_mesh.py``.  The recurrent mixers, which the
+reference pins nowhere, are held to the split the port chooses: their
+heads over ``model`` where the ``"bthd"`` rule would cut them.
 """
 import datetime
 import itertools
@@ -206,6 +208,39 @@ _CUT_DIMS = {("attn", "wq", "w"): -1, ("attn", "wq", "b"): -1, ("attn", "wo", "w
              ("mlp", "wi", "w"): -1, ("mlp", "wi", "b"): -1, ("mlp", "wo", "w"): -2}
 
 
+# the recurrent mixers' leaves (the name after ``layers.``) a rank reads in
+# part where ``model`` divides the mixer's heads (the reference pins no
+# mixer; the port splits them by the ``"bthd"`` rule): (the dimension,
+# from the end, holding the rank's heads, or None; read in part, its
+# gradient summed over ``model``).  RWKV6's channel mix splits with the
+# ffn width instead; Mamba2's ``in_proj`` and ``conv_w`` are selections.
+_RWKV6_TIME = {"mix.wr.w": (-1, False), "mix.wk.w": (-1, False), "mix.wv.w": (-1, False),
+               "mix.wg.w": (-1, False), "mix.w0": (-1, False), "mix.wb": (-1, False),
+               "mix.u": (-2, False), "mix.wo.w": (-2, False), "mix.mu": (None, True),
+               "mix.wa": (None, True), "mix.gn.scale": (None, True)}
+_RWKV6_CHANNEL = {"cmix.wk.w": (-1, False), "cmix.wv.w": (-2, False)}
+_MAMBA2 = {"A_log": (-1, False), "D": (-1, False), "dt_bias": (-1, False),
+           "out_proj.w": (-2, False), "gn.scale": (None, True), "in_proj.w": (None, True),
+           "conv_w": (None, True)}
+
+
+def _mixer_pins(cfg) -> dict:
+    """The entries above that apply to ``cfg`` under the installed mesh:
+    where the reference's ``constrain`` would pin the mixer's heads
+    (``"bthd"``) or RWKV6's ffn width (``"btf"``) to ``model``."""
+    if cfg.family == "ssm":
+        out = dict(_RWKV6_TIME) if _pins_model("bthd", (4, 64, cfg.n_heads, cfg.hd)) else {}
+        if _pins_model("btf", (4, 64, cfg.d_ff)):
+            out.update(_RWKV6_CHANNEL)
+        return out
+    if cfg.family == "hybrid":
+        inner = cfg.ssm.expand * cfg.d_model
+        nh = cfg.ssm.n_heads or max(1, inner // 64)
+        if _pins_model("bthd", (4, 64, nh, inner // nh)):
+            return dict(_MAMBA2)
+    return {}
+
+
 def _pins_model(kind: str, shape: tuple) -> bool:
     """Whether the reference's ``constrain`` (its mesh installed, the
     recorder in place) pins a dimension of ``shape`` to ``model``."""
@@ -222,7 +257,12 @@ def test_leaf_layouts_follow_the_references_pins(arch, mesh, recorded):
     (``"btf"``) to ``model`` on a model axis of more than one rank, on
     the dimension its layer splits; ``wk`` and ``wv`` are then read in
     part (their gradient summed over ``model``); the experts compute with
-    the block they keep; the rest runs whole."""
+    the block they keep.  The recurrent mixers, which the reference pins
+    nowhere, split where the same ``"bthd"`` pin would cut their heads
+    (RWKV6's channel mix where ``"btf"`` cuts its ffn width), each leaf
+    as ``_RWKV6_TIME``, ``_RWKV6_CHANNEL`` and ``_MAMBA2`` say, Mamba2's
+    ``in_proj`` and ``conv_w`` a selection of its heads' z, x and dt
+    columns and all of B's and C's.  The rest runs whole."""
     jm, tm = _meshes(mesh)
     j_ctx.set_mesh(jm, "all")
     cfg = get_config(arch)
@@ -230,6 +270,7 @@ def test_leaf_layouts_follow_the_references_pins(arch, mesh, recorded):
     heads = tp and _pins_model("bthd", (4, 64, cfg.nh_eff, cfg.hd))
     ffn = tp and _pins_model("btf", (4, 64, cfg.d_ff))
     vocab = tp and _pins_model("btf", (4, 64, cfg.vocab))
+    mixers = _mixer_pins(cfg) if tp else {}
     shapes = convert.param_shapes(cfg)
     specs = train.param_specs(cfg, tm)
     cut_any = False
@@ -240,6 +281,29 @@ def test_leaf_layouts_follow_the_references_pins(arch, mesh, recorded):
             continue
         owner, proj, leaf = ([None] * 3 + name.split("."))[-3:]
         owner = "attn" if owner == "xattn" else owner
+        mixer = name.partition(".")[2] if name.startswith("layers.") else None
+        if mixer in mixers:
+            dim, partial = mixers[mixer]
+            want = () if dim is None else tuple(
+                "model" if i == len(shapes[name]) + dim else None
+                for i in range(len(shapes[name])))
+            assert (lay.compute, lay.partial) == (want, partial), (name, lay)
+            if mixer in ("in_proj.w", "conv_w"):
+                inner, N = cfg.ssm.expand * cfg.d_model, cfg.ssm.d_state
+                nh = cfg.ssm.n_heads or max(1, inner // 64)
+                parts = ((inner, True), (2 * N, False))
+                if mixer == "in_proj.w":
+                    parts = ((inner, True), *parts, (nh, True))
+                assert lay.select == train.Select(-1, parts), (name, lay)
+                read, whole = lay.select.share(tm.shape["model"])
+                assert whole == shapes[name][-1] and read < whole, name
+            else:
+                assert lay.select is None, name
+            if dim is not None:
+                assert shapes[name][dim] % tm.shape["model"] == 0, name
+            cut_any = True
+            continue
+        assert lay.select is None, name
         if name in ("embed", "lm_head"):
             dim = (-2 if name == "embed" else -1) if vocab else None
         elif owner == "attn":
@@ -255,7 +319,7 @@ def test_leaf_layouts_follow_the_references_pins(arch, mesh, recorded):
         if dim is not None:
             assert shapes[name][dim] % tm.shape["model"] == 0, name
             cut_any = True
-    assert cut_any == (heads or ffn or vocab)
+    assert cut_any == (heads or ffn or vocab or bool(mixers))
 
 
 def test_moonshot_computes_with_about_half_its_dense_leaves():
@@ -266,6 +330,23 @@ def test_moonshot_computes_with_about_half_its_dense_leaves():
     cfg = get_config("moonshot-v1-16b-a3b").scaled(n_layers=2)
     held = train.dense_held(cfg, t_mesh.abstract_mesh((2, 2), ("data", "model")))
     assert held == {"dense": 360_982_528, "whole": 704_915_456}
+    assert train.dense_held(cfg, t_mesh.abstract_mesh((2, 1), ("data", "model")))["dense"] \
+        == held["whole"]
+
+
+@pytest.mark.parametrize("arch,layers,before,after", [
+    ("rwkv6-3b", 2, 339_863_168, 260_805_248), ("zamba2-2.7b", 6, 380_177_696, 261_536_336)])
+def test_the_recurrent_mixers_compute_with_part_of_their_leaves(arch, layers, before, after):
+    """rwkv6-3b at 2 of 32 layers and zamba2-2.7b at 6 of 54 (one group),
+    full width, on (data 2, model 2), as the card's mesh leg trains them:
+    with the mixers split by heads a rank computes with ``after`` of the
+    non-expert elements, where it computed with ``before`` when they ran
+    whole (the vocabulary, zamba2's shared block and RWKV6's channel mix's
+    ffn columns were already cut)."""
+    cfg = get_config(arch).scaled(n_layers=layers)
+    held = train.dense_held(cfg, t_mesh.abstract_mesh((2, 2), ("data", "model")))
+    assert held["dense"] == after < before < held["whole"]
+    # whole on a model axis of one
     assert train.dense_held(cfg, t_mesh.abstract_mesh((2, 1), ("data", "model")))["dense"] \
         == held["whole"]
 
