@@ -398,9 +398,10 @@ Run from the root of a checkout on a machine with a CUDA card.  It
    peak, parameters held, the dense elements it computes with beside the
    whole leaves' (``train.dense_held``), the bytes its gathers returned a
    step, the ``model`` sums' and every other collective's seconds and
-   bytes by kind, and for moonshot the ``all_to_all`` bytes (the expert
-   exchanges, counted in ``moe_ep.all_to_all``: forward, recompute and
-   backward) beside the forward's predicted 2 x E x C x d x 2 B; every
+   bytes by kind (``launch/mesh.py``'s recorder, by the calling module),
+   and for moonshot the ``all_to_all`` bytes (the expert exchanges, made
+   from ``models/moe_ep.py``: forward, recompute and backward) beside the
+   forward's predicted 2 x E x C x d x 2 B; every
    rank's loss finite and equal; each rank samples ``MESH_SAMPLE`` seeded
    elements of every leaf its blocks hold; ``MESH_SERVE`` (qwen2-1.5b and
    rwkv6-3b) are then served on the mesh from the blocks the steps left,
@@ -420,7 +421,16 @@ Run from the root of a checkout on a machine with a CUDA card.  It
    plain all-reduce, timed beside it; (a)'s reduced qwen2-1.5b saved from
    the 4 ranks (``Checkpointer.save(shardings=)``), restored by the parent
    as one rank bit for bit, and its next step (``accum = 2``) equal to the
-   4-rank run's within leg 18's f32 bounds.  None of the five kernels may
+   4-rank run's within leg 18's f32 bounds.  Before the ranks start, a
+   subprocess runs (b)'s cells dry (``MESH_DRY``:
+   ``launch/dryrun.py:run_cell`` on a fake world of 4 ranks, fake CUDA
+   tensors: each config's train cell, and ``MESH_SERVE``'s prefill and
+   decode at ``MESH_SLOTS``) and qwen2-1.5b x decode_32k x single at full
+   size with its roofline row; every rank's real (b) steps, served prefill
+   and decode steps must then move the dry record's collective bytes by
+   kind, hold its argument bytes, and each step's peak lie within
+   ``MESH_PEAK_RTOL`` (plus ``MESH_PEAK_SLACK``) of its argument + temp
+   bytes (``mesh_hold_dry``).  None of the five kernels may
    launch, in the parent or a rank.  With moonshot and qwen2-1.5b only the
    leg took 103.9 s inside the script on an H100, most of it gloo moving
    the dense leaves and their gradients through the host.
@@ -5220,6 +5230,46 @@ MESH_DECODE, MESH_SLOTS, MESH_ONE_ROW_DECODE = 8, 1032, 4
 MESH_SEED = 0
 MESH_SAMPLE = 1024  # elements sampled from every gathered leaf
 MESH_TIMEOUT_S = 300
+# the dry prediction (launch/dryrun.py:run_cell, fake CUDA tensors on a
+# fake world of 4): each (b) step's collective bytes by kind, and each
+# served prefill's and decode step's, equal to the dry record's, on every
+# rank; each argument count equal; the step's peak within MESH_PEAK_RTOL
+# of the dry argument + temp bytes, plus MESH_PEAK_SLACK (the tracker does
+# not see the allocator's rounding or the cuBLAS workspace; on gloo a
+# gather's parts sit on the host, where the fake world puts them on the
+# card); MESH_DRY_TIMEOUT_S bounds the subprocess
+MESH_PEAK_RTOL, MESH_PEAK_SLACK = 0.10, 256 * 2**20
+MESH_DRY_TIMEOUT_S = 300
+MESH_DRY = r"""
+import json, sys
+
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.launch import dryrun, roofline
+from repro_torch.models import model as t_model
+from repro_torch.models.config import ShapeConfig
+
+job = json.loads(sys.argv[1])
+out = {}
+for name, (arch, layers, kind, seq, rows, slots, f32) in job["cells"].items():
+    t_model.ACT_DTYPE = torch.float32 if f32 else torch.bfloat16
+    out[name] = dryrun.run_cell(
+        arch, name, "single", cfg=get_config(arch).scaled(n_layers=layers),
+        shape=ShapeConfig(name, kind, seq, rows), mesh_shape=tuple(job["mesh"]), device="cuda",
+        slots=slots)
+if job["full"]:
+    t_model.ACT_DTYPE = torch.bfloat16
+    out["full"] = dryrun.run_cell("qwen2-1.5b", "decode_32k", "single", device="cuda")
+    out["table"] = roofline.markdown_table([out["full"]])
+print(json.dumps(out))
+"""
+# the dry cells of each subprocess, run at once (the full-size cell with
+# moonshot's)
+MESH_DRY_SPLIT = (("train/moonshot-v1-16b-a3b",),
+                  ("train/qwen2-1.5b", "prefill/qwen2-1.5b", "decode/qwen2-1.5b",
+                   "train/zamba2-2.7b"),
+                  ("train/rwkv6-3b", "prefill/rwkv6-3b", "decode/rwkv6-3b"))
 # (a): the reduced configs' seeds and batch, tests/test_torch_lm_mesh.py's
 # cases (a case "<arch>@vocab<V>" is the reduced config scaled to a
 # vocabulary of V: 511 leaves qwen2-1.5b's head whole); seed 8 keeps
@@ -5382,37 +5432,38 @@ def mesh_local_sample(torch, block, spec: tuple, shape: tuple, mesh, seed: int,
     return {int(k): float(v) for k, v in zip(np.nonzero(held)[0], values)}
 
 
-def timed_collectives(modules: list, totals: dict):
-    """Wraps ``all_gather``, ``all_reduce`` and ``all_to_all`` where each
-    of ``modules`` imported them, adding each call's seconds (to its
-    return, the host copies included), its input's bytes, one call and
-    its output's bytes to ``totals[name]``; returns a function that puts
-    the originals back."""
-    saved = []
-    for module in modules:
-        for name in ("all_gather", "all_reduce", "all_to_all"):
-            fn = getattr(module, name, None)
-            if fn is None:
-                continue
+# the modules whose collectives the (b) lines print apart (the recorder's
+# ``caller``): the expert exchanges, the step's own gathers and gradient
+# reductions, the model axis's sums
+EXPERT_CALLERS = ("repro_torch.models.moe_ep",)
+FSDP_CALLERS = ("repro_torch.launch.train",)
+SUM_CALLERS = ("repro_torch.models.shard_ctx", "repro_torch.models.layers")
+COMM_NAMES = {"all-gather": "all_gather", "all-reduce": "all_reduce", "all-to-all": "all_to_all"}
 
-            def timed(t, *a, _fn=fn, _name=name, **kw):
-                t0 = time.perf_counter()
-                out = _fn(t, *a, **kw)
-                row = totals.setdefault(_name, [0.0, 0, 0, 0])
-                row[0] += time.perf_counter() - t0
-                row[1] += t.numel() * t.element_size()
-                row[2] += 1
-                row[3] += out.numel() * out.element_size()
-                return out
 
-            saved.append((module, name, fn))
-            setattr(module, name, timed)
+def comm_totals(log: list, callers: tuple | None = None, skip: tuple = ()) -> dict:
+    """The entries of a ``launch/mesh.py:recording`` log made from the
+    modules ``callers`` (None: any) but ``skip``, summed by collective:
+    ``totals[name] = [seconds (each call to its return, the host copies
+    included), input bytes, calls, output bytes]``."""
+    totals: dict = {}
+    for e in log:
+        if (callers is not None and e["caller"] not in callers) or e["caller"] in skip:
+            continue
+        row = totals.setdefault(COMM_NAMES[e["kind"]], [0.0, 0, 0, 0])
+        row[0] += e["seconds"]
+        row[1] += e["in_bytes"]
+        row[2] += 1
+        row[3] += e["bytes"]
+    return totals
 
-    def restore():
-        for module, name, fn in saved:
-            setattr(module, name, fn)
 
-    return restore
+def kind_bytes(log: list) -> dict:
+    """A log's result bytes by kind, as ``launch/hlo_analysis.py`` counts them."""
+    out: dict = {}
+    for e in log:
+        out[e["kind"]] = out.get(e["kind"], 0) + e["bytes"]
+    return out
 
 
 def mesh_blocks_close(torch, got: dict, want: dict, m: dict, lr_sum: float, rtol: float,
@@ -5466,11 +5517,12 @@ def mesh_check_serve(torch, cfg, cpu_model, meshes: dict, batch_of) -> dict:
             "route_margin": margin, "slots": slots}
 
 
-def mesh_serve(torch, rank: int, cfg, model, mesh, modules: list) -> dict:
+def mesh_serve(torch, rank: int, cfg, model, mesh) -> dict:
     """(b)'s serving on this rank from ``model``'s blocks (see
     ``MESH_SERVE``): prefill and decode timed, their collectives counted
-    by kind (``modules``' ``all_gather``/``all_reduce``/``all_to_all``),
-    the cache blocks gathered whole after the prefill and after the last
+    by kind (``launch/mesh.py``'s recorder) and their argument blocks'
+    bytes (``dryrun.cell_arguments``), the cache blocks gathered whole
+    after the prefill and after the last
     decode; then rank 0 runs the unsharded prefill and decode of the same
     parameters (gathered whole: in bf16 the leaves of 2**20 elements or
     more, which the model reads only through bf16 products and row
@@ -5478,6 +5530,7 @@ def mesh_serve(torch, rank: int, cfg, model, mesh, modules: list) -> dict:
     from repro_torch.launch import dryrun
     from repro_torch.launch import sharding as shd
     from repro_torch.launch import train
+    from repro_torch.launch.mesh import recording
     from repro_torch.models import model as t_model
     from repro_torch.train.pipeline import DataPipeline, PipelineConfig
 
@@ -5496,34 +5549,41 @@ def mesh_serve(torch, rank: int, cfg, model, mesh, modules: list) -> dict:
         build_s = time.perf_counter() - t0
         weights = serve.model
         toks = tokens[:rows]
-        comm: dict = {}
-        restore = timed_collectives(modules, comm)
-        try:
-            t0 = time.perf_counter()
-            logits, cache = serve.prefill({"tokens": serve.rows_of(toks[:, :MESH_SEQ])})
+        prompt = {"tokens": serve.rows_of(toks[:, :MESH_SEQ])}
+        arguments = {"prefill": sum(dryrun.cell_arguments(
+            "prefill", None, serve.prefill, (prompt,), mesh).values())}
+        t0 = time.perf_counter()
+        with recording() as prefill_log:
+            logits, cache = serve.prefill(prompt)
             torch.cuda.synchronize()
-            prefill_ms = (time.perf_counter() - t0) * 1e3
-            prefill_comm = {k: list(v) for k, v in comm.items()}
-            filled = {k: v.clone() for k, v in cache.items()}
-            steps, step_ms = [logits], []
-            for t in range(new):
-                t0 = time.perf_counter()
-                lg, cache = serve.decode(
-                    cache, serve.rows_of(toks[:, MESH_SEQ + t:MESH_SEQ + t + 1]), MESH_SEQ + t)
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        filled = {k: v.clone() for k, v in cache.items()}
+        steps, step_ms, decode_logs = [logits], [], []
+        for t in range(new):
+            row = serve.rows_of(toks[:, MESH_SEQ + t:MESH_SEQ + t + 1])
+            if t == 0:
+                arguments["decode"] = sum(dryrun.cell_arguments(
+                    "decode", None, serve.decode, (cache, row, MESH_SEQ), mesh).values())
+            t0 = time.perf_counter()
+            with recording() as log:
+                lg, cache = serve.decode(cache, row, MESH_SEQ + t)
                 torch.cuda.synchronize()
-                step_ms.append((time.perf_counter() - t0) * 1e3)
-                steps.append(lg)
-        finally:
-            restore()
-        per_token = {k: [(v[i] - prefill_comm.get(k, [0, 0, 0, 0])[i]) / new for i in range(4)]
-                     for k, v in comm.items()}
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            steps.append(lg)
+            decode_logs.append(log)
+        prefill_comm = comm_totals(prefill_log)
+        per_token = {k: [x / new for x in v]
+                     for k, v in comm_totals(sum(decode_logs, [])).items()}
         specs = serve.layout(MESH_SLOTS)[1]
         whole = {stage: {k: shd.gather(t, specs[k], mesh) for k, t in c.items()}
                  for stage, c in (("prefill", filled), ("decode", cache))}
         meshed[label] = (steps, whole, toks, new)
         out[label] = {"rows": rows, "tokens": new, "build_s": build_s, "prefill_ms": prefill_ms,
                       "decode_ms": step_ms, "prefill_comm": prefill_comm,
-                      "per_token": per_token, "specs": {k: str(v) for k, v in specs.items()}}
+                      "per_token": per_token, "specs": {k: str(v) for k, v in specs.items()},
+                      "kind_bytes": {"prefill": kind_bytes(prefill_log),
+                                     "decode": [kind_bytes(log) for log in decode_logs]},
+                      "argument_bytes": arguments}
     # the unsharded prefill and decode on rank 0
     t0 = time.perf_counter()
     specs = train.param_specs(cfg, mesh)
@@ -5574,11 +5634,9 @@ def mesh_rank_run(torch, rank: int, job: dict) -> dict:
     from repro_torch.kernels import ops
     from repro_torch.launch import sharding as shd
     from repro_torch.launch import dryrun, train
-    from repro_torch.launch.mesh import all_gather, all_reduce, make_mesh
-    from repro_torch.models import convert, moe_ep, shard_ctx
-    from repro_torch.models import layers as t_layers
+    from repro_torch.launch.mesh import all_gather, all_reduce, make_mesh, recording
+    from repro_torch.models import convert, moe_ep
     from repro_torch.models import model as t_model
-    from repro_torch.models import ssm as t_ssm
     from repro_torch.train import compression
     from repro_torch.train.checkpoint import Checkpointer
     from repro_torch.train.optimizer import AdamWConfig, adamw_init, schedule
@@ -5622,22 +5680,16 @@ def mesh_rank_run(torch, rank: int, job: dict) -> dict:
                 model = train.shard_model(cfg, mesh, torch.Generator().manual_seed(seed)).to(dev)
                 opt = adamw_init(model.params())
                 step = train.build_train_step(model, acfg, mesh=mesh)
-                losses, norms, comm = [], [], {}
-                restore = timed_collectives(
-                    [moe_ep, shd, train, shard_ctx, t_layers,
-                     sys.modules["repro_torch.launch.mesh"]], comm)
+                losses, norms = [], []
                 t1 = time.perf_counter()
-                try:
-                    with RouteLog() as routes:
-                        for s in range(MESH_STEPS):
-                            loss, m = step(opt, batch_of(cfg, MESH_CHECK_ROWS, MESH_CHECK_SEQ, s,
-                                                         dev))
-                            losses.append(float(loss))
-                            norms.append(float(m["grad_norm"]))
-                finally:
-                    restore()
+                with recording() as log, RouteLog() as routes:
+                    for s in range(MESH_STEPS):
+                        loss, m = step(opt, batch_of(cfg, MESH_CHECK_ROWS, MESH_CHECK_SEQ, s,
+                                                     dev))
+                        losses.append(float(loss))
+                        norms.append(float(m["grad_norm"]))
                 row[dev] = {"losses": losses, "norms": norms, "ep_calls": calls["n"],
-                            "steps_s": time.perf_counter() - t1, "comm": comm}
+                            "steps_s": time.perf_counter() - t1, "comm": comm_totals(log)}
                 if cfg.moe and dev == "cpu":
                     row["route_margin"] = routes.margin(torch, cfg.moe.top_k)
                 runs[(arch, dev)] = (model, opt)
@@ -5725,36 +5777,37 @@ def mesh_rank_run(torch, rank: int, job: dict) -> dict:
         init_s = time.perf_counter() - t0
         held = sum(p.numel() for p in model.params().values())
         step = train.build_train_step(model, acfg, mesh=mesh)
-        losses, norms, ms, peaks, per_step, gathered = [], [], [], [], [], []
-        exchanged: dict = {}  # the expert exchanges (moe_ep's all_to_all)
-        fsdp: dict = {}  # the step's own: gathers, gradient reduce-scatters, data sums
-        summed: dict = {}  # the model axis's sums (shard_ctx, the cross-entropy's max)
-        comm: dict = {}  # the rest, by kind
-        restore = [timed_collectives([moe_ep], exchanged), timed_collectives([train], fsdp),
-                   timed_collectives([shard_ctx, t_layers], summed),
-                   timed_collectives([shd, sys.modules["repro_torch.launch.mesh"]], comm)]
+        losses, norms, ms, peaks, per_step, gathered, kinds = [], [], [], [], [], [], []
+        entries: list = []  # every step's collectives (launch/mesh.py's recorder)
         dtypes = (t_model.ACT_DTYPE, torch.backends.cuda.matmul.allow_tf32)
         if arch in MESH_F32:
             t_model.ACT_DTYPE, torch.backends.cuda.matmul.allow_tf32 = torch.float32, False
         try:
             for s in range(MESH_STEPS):
                 batch = batch_of(cfg, MESH_ROWS, MESH_SEQ, s, "cuda")
+                if s == 0:
+                    arguments = sum(dryrun.cell_arguments("train", model, step, (opt, batch),
+                                                          mesh).values())
                 torch.cuda.reset_peak_memory_stats()
                 calls["n"] = 0
-                before_bytes = exchanged.get("all_to_all", [0, 0, 0, 0])[1]
-                before_gather = fsdp.get("all_gather", [0, 0, 0, 0])[3]
                 t0 = time.perf_counter()
-                loss, m = step(opt, batch)
-                losses.append(float(loss))
+                with recording() as log:
+                    loss, m = step(opt, batch)
+                    losses.append(float(loss))
                 ms.append((time.perf_counter() - t0) * 1e3)
                 norms.append(float(m["grad_norm"]))
                 peaks.append(torch.cuda.max_memory_allocated())
-                per_step.append(exchanged.get("all_to_all", [0, 0, 0, 0])[1] - before_bytes)
-                gathered.append(fsdp["all_gather"][3] - before_gather)
+                per_step.append(comm_totals(log, EXPERT_CALLERS).get("all_to_all",
+                                                                     [0, 0, 0, 0])[1])
+                gathered.append(comm_totals(log, FSDP_CALLERS)["all_gather"][3])
+                kinds.append(kind_bytes(log))
+                entries += log
         finally:
             t_model.ACT_DTYPE, torch.backends.cuda.matmul.allow_tf32 = dtypes
-            for fn in restore:
-                fn()
+        exchanged = comm_totals(entries, EXPERT_CALLERS)
+        fsdp = comm_totals(entries, FSDP_CALLERS)
+        summed = comm_totals(entries, SUM_CALLERS)
+        comm = comm_totals(entries, skip=EXPERT_CALLERS + FSDP_CALLERS + SUM_CALLERS)
         seconds[f"b_steps/{arch}"] = sum(ms) / 1e3
         t0 = time.perf_counter()
         # a seeded sample of every leaf, each rank the elements its blocks hold
@@ -5770,9 +5823,7 @@ def mesh_rank_run(torch, rank: int, job: dict) -> dict:
             gc.collect()
             torch.cuda.empty_cache()
             t0 = time.perf_counter()
-            served = mesh_serve(torch, rank, cfg, model, mesh,
-                                [shard_ctx, t_layers, t_ssm, t_model, moe_ep, dryrun, train, shd,
-                                 sys.modules["repro_torch.launch.mesh"]])
+            served = mesh_serve(torch, rank, cfg, model, mesh)
             seconds[f"b_serve/{arch}"] = time.perf_counter() - t0
             opt = step = None
         out["b"][arch] = {"losses": losses, "norms": norms, "ms": ms, "peak_bytes": peaks,
@@ -5782,13 +5833,125 @@ def mesh_rank_run(torch, rank: int, job: dict) -> dict:
                           "exchange_bytes_per_step": per_step,
                           "exchange": exchanged.get("all_to_all"), "expert": exchanged,
                           "fsdp": fsdp, "model_sums": summed, "comm": comm, "coords": coords,
-                          "sample": sample}
+                          "sample": sample, "kind_bytes": kinds, "argument_bytes": arguments}
         del model, opt, step
     moe_ep.moe_block_ep = ep_fn
     seconds["rank"] = time.perf_counter() - t_rank
     out["seconds"] = seconds
     out["launches"] = ops.launch_counts()
     return out
+
+
+def mesh_dry(tag) -> tuple[dict, float]:
+    """The dry prediction of (b)'s cells (``MESH_DRY`` in subprocesses
+    run at once, ``MESH_DRY_SPLIT``: ``launch/dryrun.py:run_cell`` on a
+    fake world of ``MESH_SHAPE``, fake
+    CUDA tensors): each ``MESH_ARCHS`` config's train cell at its cut depth
+    on ``MESH_ROWS`` x ``MESH_SEQ`` tokens (f32 activations for
+    ``MESH_F32``), each ``MESH_SERVE`` config's prefill laid out for
+    ``MESH_SLOTS`` positions and its decode against them, and qwen2-1.5b x
+    decode_32k x single at full size; (the records by cell, seconds)."""
+    cells = {f"train/{arch}": (arch, layers, "train", MESH_SEQ, MESH_ROWS, None,
+                               arch in MESH_F32) for arch, layers in MESH_ARCHS.items()}
+    for arch in MESH_SERVE:
+        layers = MESH_ARCHS[arch]
+        cells[f"prefill/{arch}"] = (arch, layers, "prefill", MESH_SEQ, MESH_ROWS, MESH_SLOTS,
+                                    False)
+        cells[f"decode/{arch}"] = (arch, layers, "decode", MESH_SLOTS, MESH_ROWS, None, False)
+    check(sorted(sum(MESH_DRY_SPLIT, ())) == sorted(cells),
+          "mesh leg: MESH_DRY_SPLIT does not hold every dry cell once")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", MESH_DRY, json.dumps({
+            "cells": {n: cells[n] for n in part}, "mesh": MESH_SHAPE, "full": i == 0})],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, PYTHONPATH=str(SRC)), cwd=ROOT)
+        for i, part in enumerate(MESH_DRY_SPLIT)]
+    out = {}
+    try:
+        for proc in procs:
+            stdout, stderr = proc.communicate(timeout=MESH_DRY_TIMEOUT_S)
+            check(proc.returncode == 0, f"mesh leg: the dry run failed: {stderr[-3000:]}")
+            out.update(json.loads(stdout.strip().splitlines()[-1]))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    seconds = time.perf_counter() - t0
+    for name, rec in out.items():
+        if name == "table":
+            continue
+        check(rec["status"] == "ok", f"mesh leg: dry cell {name}: {rec.get('error')}\n"
+                                     f"{rec.get('traceback', '')}")
+        mem = rec["memory"]
+        say(tag, f"mesh leg: dry {name} on {rec['mesh_shape']} (rank 0, fake {rec['device']} "
+                 f"tensors): built {rec['build_s']} s, run {rec['run_s']} s; dot_flops "
+                 f"{rec['dot_flops']:.6g}, hbm_bytes {rec['hbm_bytes']:.6g}; collective bytes by "
+                 f"kind " + json.dumps({k: v["bytes"] for k, v in
+                                        rec["collectives_by_kind"].items()})
+                 + f"; argument {mem['argument_size_in_bytes']} B, temp "
+                   f"{mem['temp_size_in_bytes']} B, output {mem['output_size_in_bytes']} B")
+    say(tag, "mesh leg: dry qwen2-1.5b x decode_32k x single, roofline row (roofline.py's H100 "
+             "SXM constants, NVIDIA H100 80GB HBM3, 700 W; modelled): "
+             + out["table"].splitlines()[-1])
+    say(tag, f"mesh leg: the dry run took {seconds:.1f} s")
+    return out, seconds
+
+
+def mesh_hold_dry(tag, ranks: list, dry: dict) -> dict:
+    """Each rank's real (b) steps and served calls against the dry records:
+    collective bytes by kind equal, argument bytes equal, the step's peak
+    within ``MESH_PEAK_RTOL`` and ``MESH_PEAK_SLACK``; what was compared."""
+    held = {}
+    for arch in MESH_ARCHS:
+        rec = dry[f"train/{arch}"]
+        want = {k: v["bytes"] for k, v in rec["collectives_by_kind"].items()}
+        mem = rec["memory"]
+        need = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+        for r in ranks:
+            b = r["b"][arch]
+            peaks = b["peak_bytes"]
+            off = [abs(p - need) for p in peaks]
+            ok_peak = all(x <= MESH_PEAK_RTOL * need + MESH_PEAK_SLACK for x in off)
+            say(tag, f"check: mesh leg: (b) {arch}, rank {r['rank']}, dry vs real step: "
+                     f"collective bytes by kind dry {json.dumps(want)}, real "
+                     + ", ".join(json.dumps(k) for k in b["kind_bytes"])
+                     + f"; argument bytes dry {mem['argument_size_in_bytes']}, real "
+                       f"{b['argument_bytes']}; dry argument + temp {need} B against the real "
+                       f"peaks {peaks} B (off by " + ", ".join(f"{x / need:.2%}" for x in off)
+                     + f"; within {MESH_PEAK_RTOL:.0%} + {MESH_PEAK_SLACK} B: {ok_peak})")
+            check(all(k == want for k in b["kind_bytes"]),
+                  f"mesh leg: (b) {arch}, rank {r['rank']}: a step's collective bytes by kind "
+                  "differ from the dry run's")
+            check(b["argument_bytes"] == mem["argument_size_in_bytes"],
+                  f"mesh leg: (b) {arch}, rank {r['rank']}: the blocks' bytes differ from the "
+                  "dry run's")
+            check(ok_peak, f"mesh leg: (b) {arch}, rank {r['rank']}: the step's peak is not "
+                           "within the margin of the dry argument + temp bytes")
+        held[f"train/{arch}"] = {"dry": want, "argument": mem["argument_size_in_bytes"],
+                                 "temp": mem["temp_size_in_bytes"],
+                                 "peaks": {r["rank"]: r["b"][arch]["peak_bytes"] for r in ranks}}
+    for arch in MESH_SERVE:
+        for kind in ("prefill", "decode"):
+            rec = dry[f"{kind}/{arch}"]
+            want = {k: v["bytes"] for k, v in rec["collectives_by_kind"].items()}
+            for r in ranks:
+                sv = r["b"][arch]["served"]["rows"]
+                got = sv["kind_bytes"][kind]
+                got = got if isinstance(got, list) else [got]
+                say(tag, f"check: mesh leg: (b) {arch} served, rank {r['rank']}, dry vs real "
+                         f"{kind}: collective bytes by kind dry {json.dumps(want)}, real "
+                         + ", ".join(json.dumps(k) for k in got)
+                         + f"; argument bytes dry {rec['memory']['argument_size_in_bytes']}, "
+                           f"real {sv['argument_bytes'][kind]}")
+                check(all(k == want for k in got) and sv["argument_bytes"][kind]
+                      == rec["memory"]["argument_size_in_bytes"],
+                      f"mesh leg: (b) {arch} served, rank {r['rank']}: the {kind}'s collective "
+                      "or argument bytes differ from the dry run's")
+            held[f"{kind}/{arch}"] = {"dry": want,
+                                      "argument": rec["memory"]["argument_size_in_bytes"]}
+    return held
 
 
 def mesh_leg(torch, tag, args) -> dict:
@@ -5836,12 +5999,14 @@ def mesh_leg(torch, tag, args) -> dict:
     say(tag, f"mesh leg: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated on the card "
              f"by earlier legs; {world} ranks, mesh {dict(zip(MESH_AXES, MESH_SHAPE))}, "
              f"backend {backend}, {min(world, cards)} card(s)")
+    seconds = {}
+    dry, seconds["dry"] = mesh_dry(tag)
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_"))
     job = {"backend": backend, "ckpt": str(tmp / "ck"), "leg": "mesh leg"}
-    seconds = {}
     try:
         ranks, seconds["group"] = shard_group(world, job, tmp, target=mesh_rank,
                                               timeout=MESH_TIMEOUT_S)
+        held_dry = mesh_hold_dry(tag, ranks, dry)
         rank_launches = {name: sum(r["launches"][name] for r in ranks) for name in KERNEL_SOURCES}
         for r in ranks:
             say(tag, f"mesh leg: rank {r['rank']} seconds: "
@@ -6106,7 +6271,9 @@ def mesh_leg(torch, tag, args) -> dict:
     say(tag, f"mesh leg: the leg took {leg_s:.1f} s ("
              + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items()) + ")")
     return {"seconds": leg_s, "part_seconds": seconds, "backend": backend,
-            "predicted_exchange_bytes_a_layer": predicted,
+            "predicted_exchange_bytes_a_layer": predicted, "dry": held_dry,
+            "dry_full": {k: v for k, v in dry["full"].items()
+                         if k not in ("top_collectives", "argument_leaves")},
             "b": {arch: {r["rank"]: {k: v for k, v in r["b"][arch].items() if k != "sample"}
                          for r in ranks} for arch in MESH_ARCHS},
             "unsharded": unsharded,

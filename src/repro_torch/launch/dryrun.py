@@ -1,11 +1,33 @@
-"""The reference's cells on a mesh: :func:`build_cell` and :func:`applicable`.
+"""The reference's dry run: every (arch × shape × mesh) cell built at full
+size on a fake world, counted, allocating nothing.
 
-Port of the JAX package's ``launch/dryrun.py``, its ``build_cell``.  The
-reference lowers and compiles every (arch × shape × mesh) cell from
-``ShapeDtypeStruct`` inputs and reads the HLO's memory, cost and
-collectives; the port has no HLO, so :func:`build_cell` builds the cell
-for real on a ``launch/mesh.py`` mesh (every rank calls it) and returns
-the step with its inputs, each rank holding its block:
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2-1.5b \\
+        --shape decode_32k --mesh single --device cpu --out launch_results
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all --out launch_results
+    PYTHONPATH=src python -m repro_torch.launch.roofline --results launch_results
+
+Port of the JAX package's ``launch/dryrun.py``.  The reference lowers and
+compiles each cell from ``ShapeDtypeStruct`` inputs on 512 virtual CPU
+devices and reads the HLO's memory, cost and collectives.  The port has
+no HLO.  :func:`run_cell` builds the cell with :func:`build_cell` once on
+a fake world of ``prod(mesh)`` ranks (``launch/mesh.py:make_dry_mesh``,
+torch's ``"fake"`` backend) under a ``FakeTensorMode``, this process
+rank 0, and runs it once under ``launch/hlo_analysis.py:analyze``: the
+aten ops rank 0 dispatches and the collectives it records stand in for
+the HLO.  Tensors are fake (on ``--device``: ``cuda`` by default, ``cpu``
+where torch has no CUDA): shapes, dtypes and devices, no memory.  Each
+cell's record is the reference's (``status``, the analysis's keys,
+``memory``), with ``build_s``/``run_s`` in place of
+``lower_s``/``compile_s``, every per-device number rank 0's (``rank``),
+and ``model_flops`` of the cell's config and shape
+(``launch/roofline.py``).  ``hlo_dir``'s counterpart holds each cell's
+ops and collectives as gzipped JSON lines.  :func:`measure_cell` is the
+part that builds, runs and counts; on a real mesh every rank calls it,
+so a dry count can be held to a real one.
+
+:func:`build_cell` builds the cell on a ``launch/mesh.py`` mesh (every
+rank calls it) and returns the step with its inputs, each rank holding
+its block:
 
 * ``"train"``: ``launch/train.py:build_train_step(mesh=)`` and (``opt``,
   the global batch), the step cutting its rows as the reference's
@@ -43,21 +65,30 @@ The reference's knobs:
 A serving cell takes a mesh of ``data`` and ``model`` axes: with a
 ``pod`` axis the rules cut the batch over ``(pod, data)`` but the cache's
 rows over ``data`` alone, which the reference leaves to GSPMD to
-reconcile; the port refuses it.  ``run_cell``, ``main`` and the HLO
-analysis are not ported (ROADMAP.md §1).
+reconcile; the port refuses it, so the multi-pod mesh's serving cells
+are recorded as errors (the reference's own multi-pod decode fails too,
+with ``DuplicateSpecError``).
 """
 from __future__ import annotations
 
+import argparse
 import contextlib
+import gzip
+import json
+import math
 import os
+import time
+import traceback
 
 import torch
 from torch import nn
 
-from repro_torch.configs import get_config
+from repro_torch.configs import ARCHS, get_config
+from repro_torch.launch import hlo_analysis, roofline
 from repro_torch.launch import sharding as shd
 from repro_torch.launch import train
-from repro_torch.launch.mesh import all_gather
+from repro_torch.launch.mesh import (all_gather, make_dry_mesh, make_production_mesh,
+                                     recording)
 from repro_torch.models import model as M
 from repro_torch.models import shard_ctx
 from repro_torch.models.config import SHAPES, ModelConfig, ShapeConfig
@@ -284,3 +315,188 @@ def build_cell(arch: str, shape_name: str, mesh, *, cfg: ModelConfig | None = No
     serve = MeshServe(model, mesh, shape.global_batch, shape.seq_len)
     tokens = _batch(cfg, shape, device, False)["tokens"][:, :1]
     return serve.decode, (serve.empty_cache(), serve.rows_of(tokens), 0)
+
+
+# ---------------------------------------------------------------- the dry run
+
+# the axes of a mesh of 2 or 3 dimensions (launch/mesh.py:make_production_mesh's)
+MESH_AXES = {2: ("data", "model"), 3: ("pod", "data", "model")}
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _block_bytes(t: torch.Tensor, spec: tuple, mesh) -> int:
+    """The bytes of this rank's block of ``t`` under ``spec``."""
+    return _nbytes(t) // math.prod(shd._block(e, mesh)[0] for e in spec)
+
+
+def cell_arguments(kind: str, model: M.Model, fn, args: tuple, mesh) -> dict[str, int]:
+    """The bytes of each block the rank holds when the cell's call starts,
+    by name: a train step's parameter blocks (``params/<leaf>``), AdamW's
+    ``opt/m/<leaf>``, ``opt/v/<leaf>`` and ``opt/step``, and the rank's rows
+    of the batch (``batch/<key>``: the step is handed the global batch and
+    cuts them itself); a served call's compute blocks (``params/<leaf>``,
+    gathered when the cell is built), its rows (``batch/<key>``) and, for a
+    decode, its cache blocks (``cache/<leaf>``; ``pos`` is a host integer)."""
+    if kind == "train":
+        opt, batch = args
+        out = {f"params/{n}": _nbytes(p) for n, p in model.params().items()}
+        for k in ("m", "v"):
+            out.update({f"opt/{k}/{n}": _nbytes(t) for n, t in opt[k].items()})
+        out["opt/step"] = _nbytes(opt["step"])
+        rows = shd.batch_shardings(batch, mesh)
+        out.update({f"batch/{k}": _block_bytes(v, rows[k].spec, mesh) for k, v in batch.items()})
+        return out
+    out = {f"params/{n}": _nbytes(p) for n, p in fn.__self__.model.params().items()}
+    if kind == "prefill":
+        return {**out, **{f"batch/{k}": _nbytes(v) for k, v in args[0].items()}}
+    cache, tokens, _ = args
+    return {**out, **{f"cache/{n}": _nbytes(t) for n, t in cache.items()},
+            "batch/tokens": _nbytes(tokens)}
+
+
+def measure_cell(arch: str, shape_name: str, mesh, *, cfg: ModelConfig | None = None,
+                 shape: ShapeConfig | None = None, model: M.Model | None = None,
+                 slots: int | None = None, keep_ops: bool = False):
+    """Builds the cell on ``mesh`` (:func:`build_cell`; every rank of a real
+    mesh calls it) and runs it once under ``hlo_analysis.analyze``.
+    Returns (the call's result, its numbers): the analysis's keys,
+    ``argument_leaves`` (:func:`cell_arguments`), ``build_s`` and ``run_s``
+    (host seconds), and ``build_collectives``, the build's collectives
+    (:func:`_summarize`; a served cell gathers its compute blocks then).
+    ``model``: the rank's kept blocks, by default drawn from seed 0."""
+    cfg = cfg or get_config(arch)
+    shape = shape or SHAPES[shape_name]
+    t0 = time.perf_counter()
+    with recording() as built:
+        if model is None:
+            model = train.shard_model(cfg, mesh,
+                                      torch.Generator(device=mesh.device).manual_seed(0))
+        fn, args = build_cell(arch, shape_name, mesh, cfg=cfg, shape=shape, model=model,
+                              slots=slots)
+    t1 = time.perf_counter()
+    leaves = cell_arguments(shape.kind, model, fn, args, mesh)
+    out, deep = hlo_analysis.analyze(fn, args, leaves, keep_ops)
+    deep.update(argument_leaves=leaves, build_s=t1 - t0, run_s=time.perf_counter() - t1,
+                build_collectives=_summarize(hlo_analysis.collectives_of(built)))
+    return out, deep
+
+
+def run_cell(arch: str, shape_name: str, mesh_kind: str, hlo_dir: str | None = None, *,
+             cfg: ModelConfig | None = None, shape: ShapeConfig | None = None,
+             mesh_shape: tuple[int, ...] | None = None, device="cuda", rank: int = 0,
+             slots: int | None = None) -> dict:
+    """The record of one cell, built dry (module docstring) as rank
+    ``rank`` of a fake world of ``mesh_shape`` (by default the production
+    mesh of ``mesh_kind``), its tensors fake on ``device``.  ``cfg`` and
+    ``shape`` replace the published config and shape, ``slots`` is
+    :func:`build_cell`'s.  A failure is recorded (``status`` ``"error"``,
+    the error, the traceback's end)."""
+    import torch.distributed as dist
+    from torch._subclasses.fake_tensor import FakeTensorMode, is_fake
+
+    ok, why = applicable(arch, shape_name)
+    rec = {"arch": arch, "shape": shape_name, "mesh": mesh_kind}
+    if not ok:
+        rec["status"] = "skipped"
+        rec["reason"] = why
+        return rec
+    cfg = cfg or get_config(arch)
+    shape = shape or SHAPES[shape_name]
+    rec.update(rank=rank, device=str(device), model_flops=roofline.model_flops_of(cfg, shape))
+    try:
+        if mesh_shape is None:
+            mesh = make_production_mesh(multi_pod=mesh_kind == "multi", device=device,
+                                        dry=True, rank=rank)
+        else:
+            mesh = make_dry_mesh(tuple(mesh_shape), MESH_AXES[len(mesh_shape)], device, rank)
+        rec["mesh_shape"] = list(mesh.shape.values())
+        with FakeTensorMode():
+            t0 = time.perf_counter()
+            model = train.shard_model(cfg, mesh,
+                                      torch.Generator(device=mesh.device).manual_seed(0))
+            init_s = time.perf_counter() - t0
+            _, deep = measure_cell(arch, shape_name, mesh, cfg=cfg, shape=shape, model=model,
+                                   slots=slots, keep_ops=bool(hlo_dir))
+        real = [n for n, p in model.params().items() if not is_fake(p)]
+        if real:
+            raise RuntimeError(f"the dry cell holds real parameter blocks: {real}")
+        colls = deep.pop("collectives")
+        ops = deep.pop("ops", [])
+        if hlo_dir:
+            os.makedirs(hlo_dir, exist_ok=True)
+            with gzip.open(os.path.join(
+                    hlo_dir, f"{arch}__{shape_name}__{mesh_kind}.ops.jsonl.gz"), "wt") as zf:
+                for line in ops:
+                    zf.write(json.dumps(line) + "\n")
+                for c in colls:
+                    zf.write(json.dumps({"collective": c}) + "\n")
+        rec.update(status="ok", build_s=round(init_s + deep.pop("build_s"), 2),
+                   run_s=round(deep.pop("run_s"), 2), **deep)
+        print(
+            f"[dryrun] {arch} × {shape_name} × {mesh_kind}: OK "
+            f"run={rec['run_s']}s dot_flops={rec['dot_flops']:.3e} "
+            f"coll_bytes={rec['collective_bytes']:.3e} "
+            f"temp={rec['memory']['temp_size_in_bytes'] / 2**30:.2f}GiB",
+            flush=True,
+        )
+    except Exception as e:  # record and continue: failures are bugs to fix
+        rec["status"] = "error"
+        rec["error"] = f"{type(e).__name__}: {e}"
+        rec["traceback"] = traceback.format_exc()[-3000:]
+        print(f"[dryrun] {arch} × {shape_name} × {mesh_kind}: FAIL {rec['error']}",
+              flush=True)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    return rec
+
+
+def _summarize(colls: list[dict]) -> dict:
+    agg: dict = {"total_bytes": 0.0, "by_kind": {}, "count": len(colls)}
+    for c in colls:
+        agg["total_bytes"] += c["bytes"]
+        k = c["kind"]
+        e = agg["by_kind"].setdefault(k, {"bytes": 0.0, "count": 0, "groups": {}})
+        e["bytes"] += c["bytes"]
+        e["count"] += 1
+        g = str(c["group"])
+        e["groups"][g] = e["groups"].get(g, 0) + 1
+    return agg
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", choices=ARCHS)
+    ap.add_argument("--shape", choices=list(SHAPES))
+    ap.add_argument("--mesh", choices=["single", "multi"], default="single")
+    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--out", default="launch_results")
+    ap.add_argument("--resume", action="store_true", help="skip cells already done")
+    ap.add_argument("--device", default="cuda",
+                    help="the fake tensors' device (cuda, or cpu where torch has no CUDA)")
+    args = ap.parse_args()
+
+    os.makedirs(args.out, exist_ok=True)
+
+    cells = (
+        [(a, s, m) for a in ARCHS for s in SHAPES for m in ("single", "multi")]
+        if args.all
+        else [(args.arch, args.shape, args.mesh)]
+    )
+    for arch, shape_name, mesh_kind in cells:
+        path = os.path.join(args.out, f"{arch}__{shape_name}__{mesh_kind}.json")
+        if args.resume and os.path.exists(path):
+            with open(path) as f:
+                if json.load(f).get("status") in ("ok", "skipped"):
+                    continue
+        rec = run_cell(arch, shape_name, mesh_kind, hlo_dir=os.path.join(args.out, "hlo"),
+                       device=args.device)
+        with open(path, "w") as f:
+            json.dump(rec, f, indent=1)
+
+
+if __name__ == "__main__":
+    main()

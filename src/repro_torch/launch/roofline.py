@@ -1,8 +1,41 @@
-"""Cost model of one fused-hop launch on an H100 (DESIGN.md §13).
+"""Roofline models on an H100: the LM dry run's cells, and one fused-hop
+launch (DESIGN.md §13).
 
-The Hopper counterpart of the fused-hop part of the JAX package's
-``launch/roofline.py`` (``fused_hop_vmem_bytes``/``fused_hop_cost``);
-the LLM roofline beside it there is not ported.  A TPU grid cell
+    PYTHONPATH=src python -m repro_torch.launch.roofline --results launch_results
+
+Port of the JAX package's ``launch/roofline.py``, both halves.
+
+**The LM cells** (``launch/dryrun.py``'s records).  Per (arch × shape ×
+mesh) cell, three per-step time bounds on one H100 SXM5 (NVIDIA H100 80GB
+HBM3, 700 W; NVIDIA's data sheet, dense rates):
+
+    compute    = dot_flops (per device)          / 989e12 FLOP/s (bf16 tensor cores)
+    memory     = hbm_bytes (per device)          / 3.35e12 B/s
+    collective = Σ ring-model traffic per device / the group's link
+
+``dot_flops`` and ``hbm_bytes`` are rank 0's, counted from the ops the
+cell dispatched (``launch/hlo_analysis.py``).  Collective traffic uses
+ring algorithms, as the reference's: all-gather and all-to-all (k-1)/k ×
+bytes, all-reduce 2(k-1)/k × bytes, reduce-scatter (k-1) × the result
+shard, permute 1×.  **The link follows from the span of the group's
+ranks**, laid out row-major, :data:`NODE_GPUS` to a node, not from the
+group's size as in the reference (``k in (2, 32, 512)`` rode its DCN): a
+group whose first and last rank share a node rides NVLink 4
+(:data:`NVLINK_BW` a direction), any other InfiniBand NDR, one 400 Gb/s
+port a GPU (:data:`IB_BW`).  On (data 16, model 16) a ``model`` group of
+16 ranks spans 2 nodes and a ``data`` group 16, so both cross
+InfiniBand; on (2, 2) every group shares a node.  A cell fits when its
+argument and temp bytes are below :data:`HBM_BYTES` (the reference held
+temp alone against a TPU's memory).  The ratio MODEL/HLO (``useful_ratio``) exposes
+recompute, work every rank of a group repeats (heads that ``model`` does
+not divide run whole) and dead FLOPs; MODEL_FLOPS (global, then ÷ chips):
+
+    train    6·N_active·D + 3·attn_fwd      (D = tokens per step)
+    prefill  2·N_active·D + attn_fwd
+    decode   2·N_active·B + 4·L·nh·hd·S·B   (KV-cache attention reads)
+
+**One fused-hop launch.**  The Hopper counterpart of the reference's
+``fused_hop_vmem_bytes``/``fused_hop_cost``.  A TPU grid cell
 holds its tiles in VMEM and streams the rest, so the reference admits
 a tile configuration by its VMEM bytes and scores it by a two-term
 roofline.  A launch of ``csrc/fused_hop.cu`` is admitted by the
@@ -36,12 +69,23 @@ prefers them.  The same figures as PERF.md §6's bounds give the rest.
 """
 from __future__ import annotations
 
+import argparse
+import json
 import math
+import os
 
+from repro_torch.configs import get_config
 from repro_torch.kernels import ops
+from repro_torch.models.config import SHAPES, ModelConfig, ShapeConfig
 
 HBM_BW = 3.35e12  # H100 SXM device memory, bytes/s
 PEAK_FLOPS = 67e12  # H100 SXM FP32 without tensor cores, operations/s
+BF16_PEAK_FLOPS = 989e12  # H100 SXM bf16 dense on the tensor cores, FLOP/s
+NVLINK_BW = 450e9  # NVLink 4 within a node, bytes/s a direction
+IB_BW = 400e9 / 8  # InfiniBand NDR across nodes, one 400 Gb/s port a GPU, bytes/s
+NODE_GPUS = 8
+HBM_BYTES = 80e9
+CHIPS = {"single": 256, "multi": 512}
 L2_BYTES = 50_000_000  # H100 SXM L2
 SMS = 132
 SM_WARPS = 64  # warps an SM holds at once
@@ -152,3 +196,144 @@ def fused_hop_cost(  # tile-math
     bound = max(times, key=times.get)
     return {"flops": flops, "hbm_bytes": hbm, "serial_s": serial,
             "seconds": times[bound], "bound": bound}
+
+
+# ---------------------------------------------------------------- the LM cells
+
+
+def ring_traffic(kind: str, nbytes: float, k: int) -> float:
+    if k <= 1:
+        return 0.0
+    if kind == "all-reduce":
+        return 2 * (k - 1) / k * nbytes
+    if kind == "reduce-scatter":
+        return (k - 1) * nbytes  # nbytes = result shard
+    if kind == "collective-permute":
+        return nbytes
+    return (k - 1) / k * nbytes  # all-gather / all-to-all
+
+
+def link_bw(ranks: list[int]) -> float:
+    """The link a group whose first and last rank are ``ranks`` rides."""
+    first, last = ranks
+    return NVLINK_BW if first // NODE_GPUS == last // NODE_GPUS else IB_BW
+
+
+def collective_seconds(colls: list[dict]) -> float:
+    """Σ ring traffic / link over ``colls`` (each with ``kind``, ``bytes``,
+    ``group`` and the member span ``ranks``)."""
+    return sum(ring_traffic(c["kind"], c["bytes"], max(int(c["group"]), 1))
+               / link_bw(c["ranks"]) for c in colls)
+
+
+def model_flops_of(cfg: ModelConfig, shape: ShapeConfig) -> float:
+    """MODEL_FLOPS (global) of ``cfg`` at ``shape`` (module docstring)."""
+    N = cfg.active_param_count()
+    B, S = shape.global_batch, shape.seq_len
+    # useful causal attention flops per layer per sequence (fwd):
+    # qk + av over the causal half = 2 * (S^2/2) * nh * hd * 2 = 2 S^2 nh hd
+    n_attn_layers = 0
+    if cfg.family in ("dense", "moe", "vlm"):
+        n_attn_layers = cfg.n_layers
+    elif cfg.family == "hybrid":
+        n_attn_layers = cfg.n_layers // max(cfg.shared_period, 1)
+    elif cfg.family == "audio":
+        n_attn_layers = cfg.n_layers + cfg.enc_layers  # self (+cross ~small)
+    attn_fwd = 2.0 * S * S * cfg.n_heads * cfg.hd * n_attn_layers * B
+    if shape.kind == "train":
+        return 6.0 * N * B * S + 3.0 * attn_fwd
+    if shape.kind == "prefill":
+        return 2.0 * N * B * S + attn_fwd
+    # decode: one token over a length-S cache
+    flops = 2.0 * N * B
+    flops += 4.0 * n_attn_layers * cfg.n_heads * cfg.hd * S * B
+    return flops
+
+
+def model_flops(arch: str, shape_name: str) -> float:
+    return model_flops_of(get_config(arch), SHAPES[shape_name])
+
+
+def load_cells(out_dir: str) -> list[dict]:
+    cells = []
+    for fname in sorted(os.listdir(out_dir)):
+        if fname.endswith(".json"):
+            with open(os.path.join(out_dir, fname)) as f:
+                cells.append(json.load(f))
+    return cells
+
+
+def analyze_cell(rec: dict) -> dict | None:
+    """The three bounds of an ``ok`` record (module docstring), its
+    dominant term, MODEL/HLO and the compute share of the bound; None for
+    a record that is not ``ok``.  Chips: the record's mesh, MODEL_FLOPS:
+    the record's own (its config and shape)."""
+    if rec.get("status") != "ok":
+        return None
+    chips = math.prod(rec["mesh_shape"])
+    compute_t = rec["dot_flops"] / BF16_PEAK_FLOPS
+    memory_t = rec["hbm_bytes"] / HBM_BW
+    coll_t = collective_seconds(rec["collectives_detail"])
+    mf = rec["model_flops"] / chips
+    terms = {"compute": compute_t, "memory": memory_t, "collective": coll_t}
+    dominant = max(terms, key=terms.get)
+    bound = max(terms.values())
+    return {
+        **rec,
+        "compute_s": compute_t,
+        "memory_s": memory_t,
+        "collective_s": coll_t,
+        "dominant": dominant,
+        "model_flops_per_chip": mf,
+        "useful_ratio": mf / rec["dot_flops"] if rec["dot_flops"] else 0.0,
+        "roofline_fraction": compute_t / bound if bound else 0.0,
+    }
+
+
+def markdown_table(cells: list[dict]) -> str:
+    rows = [
+        "| arch | shape | mesh | compute (ms) | memory (ms) | collective (ms) "
+        "| bottleneck | MODEL/HLO | roofline frac | HBM fit |",
+        "|---|---|---|---|---|---|---|---|---|---|",
+    ]
+    for rec in cells:
+        if rec.get("status") == "skipped":
+            rows.append(
+                f"| {rec['arch']} | {rec['shape']} | {rec['mesh']} | — | — | — | "
+                f"skipped | — | — | {rec['reason']} |"
+            )
+            continue
+        a = analyze_cell(rec)
+        if a is None:
+            rows.append(
+                f"| {rec['arch']} | {rec['shape']} | {rec['mesh']} | — | — | — | "
+                f"ERROR | — | — | {rec.get('error','?')[:60]} |"
+            )
+            continue
+        mem = rec["memory"]
+        held = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+        fit = f"{held/2**30:.1f} GiB {'✓' if held < HBM_BYTES else '✗ OOM'}"
+        rows.append(
+            f"| {a['arch']} | {a['shape']} | {a['mesh']} "
+            f"| {a['compute_s']*1e3:.2f} | {a['memory_s']*1e3:.2f} "
+            f"| {a['collective_s']*1e3:.2f} | {a['dominant']} "
+            f"| {a['useful_ratio']:.2f} | {a['roofline_fraction']:.2f} | {fit} |"
+        )
+    return "\n".join(rows)
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--results", default="launch_results")
+    ap.add_argument("--json-out", default=None)
+    args = ap.parse_args()
+    cells = load_cells(args.results)
+    print(markdown_table(cells))
+    if args.json_out:
+        out = [analyze_cell(c) or c for c in cells]
+        with open(args.json_out, "w") as f:
+            json.dump(out, f, indent=1)
+
+
+if __name__ == "__main__":
+    main()

@@ -176,16 +176,17 @@ class Select(NamedTuple):
     dim: int
     parts: tuple[tuple[int, bool], ...]
 
-    def index(self, size: int, index: int, device=None) -> torch.Tensor:
+    def positions(self, size: int, index: int) -> np.ndarray:
         """The positions along ``dim`` that rank ``index`` of a ``model``
-        axis of ``size`` reads, in order."""
+        axis of ``size`` reads, in order (on the host: a plan of the step,
+        fixed by the shapes)."""
         out, at = [], 0
         for length, cut in self.parts:
             step = length // size if cut else length
             start = at + (index * step if cut else 0)
-            out.append(torch.arange(start, start + step, device=device))
+            out.append(np.arange(start, start + step))
             at += length
-        return torch.cat(out)
+        return np.concatenate(out)
 
     def share(self, size: int) -> tuple[int, int]:
         """(the positions a rank reads, the whole dimension's) on a ``model``
@@ -381,7 +382,8 @@ def _to_compute(block: torch.Tensor, lay: LeafLayout, mesh) -> torch.Tensor:
 
 
 def _select_index(sel: Select, mesh, device) -> torch.Tensor:
-    return sel.index(mesh.shape["model"], mesh.coords["model"], device)
+    return torch.as_tensor(sel.positions(mesh.shape["model"], mesh.coords["model"]),
+                           device=device)
 
 
 def _select_parts(sel: Select, width: int, n: int, device) -> list[list[torch.Tensor]]:
@@ -391,9 +393,9 @@ def _select_parts(sel: Select, width: int, n: int, device) -> list[list[torch.Te
     positions rise with ``m``."""
     out = []
     for j in range(n):
-        idx = sel.index(n, j, device)
-        out.append([idx[(idx >= m * width) & (idx < (m + 1) * width)] - m * width
-                    for m in range(n)])
+        idx = sel.positions(n, j)
+        out.append([torch.as_tensor(idx[(idx >= m * width) & (idx < (m + 1) * width)]
+                                    - m * width, device=device) for m in range(n)])
     return out
 
 

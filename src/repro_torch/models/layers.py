@@ -116,8 +116,10 @@ def rope_angles(pos: torch.Tensor, hd: int, theta: float, sections=()):
     freqs = theta ** (-torch.arange(0, half, dtype=torch.float32, device=pos.device) / half)
     if sections:
         assert sum(sections) == half, (sections, half)
-        sec_id = torch.repeat_interleave(torch.arange(len(sections)), torch.tensor(sections))
-        ang = pos.float()[..., sec_id.to(pos.device)] * freqs  # (..., S, half)
+        # each frequency's stream, from the static sections (no data-dependent shape)
+        sec_id = torch.tensor([i for i, n in enumerate(sections) for _ in range(n)],
+                              device=pos.device)
+        ang = pos.float()[..., sec_id] * freqs  # (..., S, half)
     else:
         ang = pos.float()[..., None] * freqs
     return torch.cos(ang), torch.sin(ang)

@@ -13,8 +13,9 @@ maintained handle, and the LM substrate's reduced qwen2-1.5b takes a
 train step and a decode step, the reduced moonshot-v1-16b-a3b (moe) a
 train step, the reduced qwen2-vl-7b (vlm), rwkv6-3b (ssm) and
 zamba2-2.7b (hybrid) a decode step each, the reduced whisper-medium
-(audio) a loss and a decode step on its prefilled cache, and the reduced
-moonshot a sharded step on a one-rank mesh of a gloo group; the storage
+(audio) a loss and a decode step on its prefilled cache, the reduced
+moonshot a sharded step on a one-rank mesh of a gloo group, and a reduced
+qwen2-1.5b decode cell runs dry on a fake world of 4 ranks; the storage
 gate, the catalog verifier and the trainer run as ``python -m`` the same
 way), and the port's
 default engine refuses to run without a CUDA card instead of quietly
@@ -225,6 +226,10 @@ served_decode, _ = build_cell("moonshot-v1-16b-a3b", "decode", one_rank, cfg=moe
 served_logits, _ = served_decode(served_cache, lm_tokens[:, 8:9], 8)
 dist.destroy_process_group()
 shutil.rmtree(store)
+from repro_torch.launch.dryrun import run_cell
+
+dry = run_cell("qwen2-1.5b", "decode", "single", cfg=lm_cfg, mesh_shape=(2, 2), device="cpu",
+               shape=ShapeConfig("decode", "decode", 8, 2))
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in {"jax", "jaxlib", "repro"})
 print(json.dumps({"rows": res.num_rows, "n": float(res.column("n").sum()),
                   "split": split.split is not None,
@@ -253,7 +258,9 @@ print(json.dumps({"rows": res.num_rows, "n": float(res.column("n").sum()),
                   "served_decoded": list(served_logits.shape)
                   if bool(torch.isfinite(served_logits).all()) else None,
                   "audio_decoded": list(audio_logits.shape)
-                  if bool(torch.isfinite(audio_logits).all()) else None, "loaded": loaded}))
+                  if bool(torch.isfinite(audio_logits).all()) else None,
+                  "dry": [dry["status"], dry.get("dot_flops", 0) > 0,
+                          dry.get("collective_bytes", 0) > 0], "loaded": loaded}))
 """
 
 
@@ -296,6 +303,8 @@ def test_port_answers_a_query_with_jax_and_repro_refused():
     assert out["recurrent_decoded"] == {"rwkv6-3b": [2, 1, 512], "zamba2-2.7b": [2, 1, 512]}
     assert 0 < out["audio_loss"] < 2.5 * np.log(512)
     assert out["audio_decoded"] == [2, 1, 512]
+    # launch/dryrun.py's run_cell: a reduced decode cell on a fake world of 4
+    assert out["dry"] == ["ok", True, True]
 
 
 # the same refusal, then one of the port's launchers run as ``python -m``
@@ -351,7 +360,8 @@ def _imported_modules(path: Path) -> list[str]:
     "path",
     sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "tools" / "walk_sweep.py",
                                   REPO / "tools" / "decode_drift.py",
-                                  REPO / "tools" / "step_profile.py"],
+                                  REPO / "tools" / "step_profile.py",
+                                  REPO / "tools" / "dryrun_table.py"],
     ids=lambda p: str(p.relative_to(REPO)),
 )
 def test_no_source_imports_jax_or_repro(path):

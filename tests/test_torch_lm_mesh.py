@@ -475,10 +475,13 @@ def _rank_main(rank: int, tmp: str) -> None:
         dist.destroy_process_group()
 
 
-def _spawn(tmp: Path) -> tuple[list[dict], float]:
+def _spawn(tmp: Path, target=None) -> tuple[list[dict], float]:
+    """Runs ``target(rank, tmp)`` (by default ``_rank_main``) in ``WORLD``
+    spawned processes; returns each rank's ``rank<r>.pkl`` and the seconds."""
     ctx = multiprocessing.get_context("spawn")
     t0 = time.perf_counter()
-    procs = [ctx.Process(target=_rank_main, args=(r, str(tmp)), daemon=True) for r in range(WORLD)]
+    procs = [ctx.Process(target=target or _rank_main, args=(r, str(tmp)), daemon=True)
+             for r in range(WORLD)]
     for p in procs:
         p.start()
     deadline = t0 + SPAWN_TIMEOUT_S
